@@ -1,0 +1,497 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py [--days D]
+
+Phases, in order; any failure exits nonzero without the final ``ok`` line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from the sources in this checkout (``nvcc`` into
+   ``build/repro_torch/``), print the build seconds and each kernel's
+   registers and spill bytes from ``ptxas``;
+3. kernel phase: each hand-written kernel against its plain PyTorch version
+   on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
+   files, the grid's K window, W = 4), with a finite-limit GCS admission
+   case whose every admission difference must be a tie within a few ulps
+   of the limit; prints the differences, the kernel's and the plain
+   version's milliseconds (CUDA events, after warm-up) and the bound: the
+   bytes the function needs at these inputs (dense planes once, sparse
+   reads by the 32-byte sectors they touch) over the memory rate;
+4. small reference: a 1,000-file grid on the CPU's plain path against the
+   card's kernel path, at the Table-2 5% bar;
+5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
+   TB; 3 egress options; 9 storage prices; 2 seeds; 8 dynamics lanes) at
+   the paper's full catalogue of 1,000,000 files per site through
+   ``run_sweep_torch`` once with ``tick_impl="cuda"`` and once with
+   ``"torch"`` on the card; per-spec agreement at the Table-2 5% bar, equal
+   jobs submitted, and every kernel launched on the ``cuda`` run;
+6. profile: 40 ticks of the ``cuda`` path on the host clock, 40 more under
+   ``torch.profiler`` — wall and device time per tick, the device's idle
+   share, the top kernels;
+7. the ``kernels`` JSON line, then the ``ok`` line.
+
+The horizon is cut from the paper's 90 days to ``--days`` (default 1 day,
+8,641 ticks of 10 s) to fit the run's time limit; the catalogue is not cut.
+Imports nothing of JAX and nothing of the JAX package. Exits nonzero when
+CUDA is not available or when ``src/repro_torch`` is not beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: H100 SXM data sheet: device-memory bandwidth and float32 (non-tensor)
+#: peak, the rates the bounds are computed against.
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+TOL = 0.05  # Table 2 validation tolerance (fractional)
+KERNEL_SOURCE = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
+REPLACES = {
+    "transfer_tick": "src/repro/kernels/lane_tick/lane_tick.py:81",
+    "gcs_admit": "src/repro/kernels/lane_tick/lane_tick.py:194",
+    "window_admit": "src/repro/kernels/lane_tick/lane_tick.py:292",
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
+    """Mean milliseconds per call over ``n`` calls (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """Least time for the work: bytes over the memory rate against
+    float32 operations over the peak; returns (ms, bound_by)."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sector_bytes(torch, mask, itemsize: int) -> int:
+    """Bytes of the 32-byte sectors that a read of ``itemsize``-byte
+    elements of a contiguous tensor at ``mask`` touches: what a sparse read
+    costs in device memory."""
+    per = 32 // itemsize
+    flat = mask.reshape(-1)
+    pad = (-flat.numel()) % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return 32 * int(flat.view(-1, per).any(-1).sum())
+
+
+def gcs_tie_check(torch, want, sizes, used, limit, got, plain, n_passes,
+                  ulps: int = 16):
+    """Hold the kernel's GCS admission to the plain version's up to ties.
+
+    Replays the plain passes and keeps, per candidate, the least distance
+    of its gate value ``used + cumsum`` to the limit over the passes that
+    still held it. A candidate the two admit differently must lie within
+    ``ulps`` float32 ulps of a finite limit there: the kernel sums in
+    another order than ``torch.cumsum``, and nothing else may differ.
+    Returns the count of tied candidates and their bytes per lane."""
+    L = want.shape[0]
+    w, sz = want.reshape(L, -1), sizes.reshape(L, -1)
+    dist = torch.full_like(sz, float("inf"))
+    adm = torch.zeros_like(w)
+    u = used
+    for _ in range(n_passes):
+        rem = w & ~adm
+        gate = u[:, None] + torch.cumsum(sz * rem, dim=1)
+        dist = torch.where(rem, torch.minimum(
+            dist, (gate - limit[:, None]).abs()), dist)
+        new = rem & (gate <= limit[:, None])
+        u = u + (sz * new).sum(1)
+        adm = adm | new
+    check(torch.equal(adm, plain.reshape(L, -1)),
+          "gcs_admit: the replay of the plain passes disagrees with ref")
+    diff = got.reshape(L, -1) != adm
+    tol = torch.where(torch.isfinite(limit),
+                      ulps * torch.finfo(torch.float32).eps * limit.abs(),
+                      torch.zeros_like(limit))
+    bad = int((diff & ~(dist <= tol[:, None])).sum())
+    check(bad == 0, f"gcs_admit: {bad} admission differences farther than "
+                    f"{ulps} ulps from the limit")
+    return int(diff.sum()), (sz * diff).sum(1)
+
+
+def pricing_specs(days: float, n_files: int):
+    from repro_torch.core.scenarios import expand_grid, with_seeds
+
+    specs = with_seeds(expand_grid({
+        "base": "III",
+        "cache_tb": [10.0, 20.0, 40.0, 80.0],
+        "egress": ["internet", "direct", "interconnect"],
+        "storage_price": [round(0.018 + 0.002 * i, 3) for i in range(9)],
+        "days": days, "n_files": n_files,
+    }), 2)
+    check(len(specs) == 216, f"pricing grid has {len(specs)} specs")
+    return specs
+
+
+def lane_parity(ref, got) -> int:
+    """``tests/test_batched.py``'s per-spec Table-2 bar; returns the count
+    of specs checked."""
+    def close(a, b, tol=TOL, floor=1.0):
+        return abs(a - b) <= tol * max(abs(a), abs(b), floor)
+
+    check(len(ref.results) == len(got.results), "result counts differ")
+    for a, b in zip(ref.results, got.results):
+        lbl = a.spec.label
+        check(a.spec == b.spec, f"spec order differs at {lbl}")
+        for r in (a, b):
+            vals = [r.cost_usd, *r.metrics.values()]
+            check(all(v == v and abs(v) != float("inf") for v in vals),
+                  f"{lbl}: non-finite metric")
+        check(close(a.jobs_done, b.jobs_done),
+              f"{lbl}: jobs_done {a.jobs_done} vs {b.jobs_done}")
+        check(close(a.cost_usd, b.cost_usd),
+              f"{lbl}: cost {a.cost_usd} vs {b.cost_usd}")
+        check(close(a.metrics["download_pb"], b.metrics["download_pb"],
+                    floor=1e-6), f"{lbl}: download_pb")
+        check(a.metrics["jobs_submitted"] == b.metrics["jobs_submitted"],
+              f"{lbl}: jobs_submitted")
+        check(abs(a.metrics["job_waiting_h_mean"]
+                  - b.metrics["job_waiting_h_mean"]) <= 0.05,
+              f"{lbl}: job_waiting_h_mean")
+    return len(ref.results)
+
+
+def kernel_phase(torch, grid, L_sweep: int) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch.kernels.lane_tick import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20210507)
+    L, S, F = L_sweep, len(grid.site_names), grid.sizes.shape[-1]
+    K = grid.max_jobs_per_tick
+    n_months = grid.n_months
+    sizes = torch.as_tensor(grid.sizes[:L], device=dev)
+    check(tuple(sizes.shape) == (L, S, F), f"sizes shape {sizes.shape}")
+    dt = torch.tensor(10.0, dtype=torch.float32, device=dev)
+    month = torch.tensor(0, dtype=torch.int32, device=dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    results = {}
+
+    # -- transfer_tick: ~1 in 3000 files in flight (the link slots' scale),
+    # half of them within one step of completion; random link modes.
+    site = torch.arange(S, device=dev).view(1, S, 1)
+    ltype = torch.randint(0, 3, (L, S, F), generator=gen, device=dev)
+    link_id = (3 * site + ltype).to(torch.int32)
+    active = rand(L, S, F) < 3e-4
+    total = sizes.clone()
+    done = total * (1.0 - 0.01 * rand(L, S, F))
+    bw = torch.as_tensor(grid.link_bw[:L], device=dev)
+    mode = torch.randint(0, 2, (L, 3 * S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    args = (link_id, active, done, total, sizes, bw, mode, dt, month,
+            n_months)
+    got = ops.transfer_tick(*args)
+    want = ref.transfer_tick(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]), "transfer_tick: new_done not bitwise")
+    check(torch.equal(got[1], want[1]), "transfer_tick: completion mask")
+    rel = 0.0
+    for g, w in zip(got[2:], want[2:]):
+        err = (g - w).abs() / w.abs().clamp_min(1.0)
+        rel = max(rel, float(err.max()))
+    check(rel <= 1e-6, f"transfer_tick: billing rel err {rel}")
+    n_comp = int(got[1].sum())
+    check(n_comp > 0, "transfer_tick: no completion exercised")
+    n = L * S * F
+    n_act = int(active.sum())
+    # needed: active, done and total in and new_done and the completion
+    # flag out for every file; the link id only of active transfers, the
+    # size only of completions; the per-link and per-lane vectors
+    need = (n * (1 + 4 + 4) + n * (4 + 1) + sector_bytes(torch, active, 4)
+            + sector_bytes(torch, got[1], 4) + L * 3 * S * 8
+            + 3 * L * S * 4 + 3 * L * n_months * 4)
+    nb, kind = bound_ms(need, 2 * n + 4 * n_act + n_comp)
+    results["transfer_tick"] = dict(
+        max_abs_err=float((got[0] - want[0]).abs().max()),
+        ms=time_ms(torch, lambda: ops.transfer_tick(*args)),
+        plain_ms=time_ms(torch, lambda: ref.transfer_tick(*args)),
+        bound_ms=nb, bound_by=kind, library_ms=None)
+    log(f"kernel transfer_tick: new_done/comp bitwise, billing max rel err "
+        f"{rel:.3g}, {n_act} active, {n_comp} completions, bound counts "
+        f"{need / 1e6:.2f} MB")
+    del link_id, active, total, done, got, want
+
+    # -- gcs_admit: sparse candidates as in the tick (files whose last
+    # consumer just finished), half the lanes under a finite limit that
+    # cuts through the candidates; plus a dense unlimited case.
+    want_m = rand(L, S, F) < 2e-5
+    used = 1e12 * rand(L)
+    wanted = (sizes * want_m).sum((1, 2))
+    finite = torch.arange(L, device=dev) % 2 == 0
+    limit = torch.where(finite, used + 0.5 * wanted,
+                        torch.tensor(float("inf"), device=dev))
+    gargs = (want_m, sizes, used, limit, dt, month, n_months)
+    got = ops.gcs_admit(*gargs)
+    plain = ref.gcs_admit(*gargs)
+    torch.cuda.synchronize()
+    ties, tie_bytes = gcs_tie_check(torch, want_m, sizes, used, limit,
+                                    got[0], plain[0], ref.GCS_ADMIT_PASSES)
+    check(torch.equal(got[0][~finite], want_m[~finite]),
+          "gcs_admit: unlimited lanes must admit every candidate")
+    check(bool((got[0] != want_m)[finite].any()),
+          "gcs_admit: the finite limit did not bind")
+    # every lane: rtol 1e-6, widened on a lane with ties by the tied bytes
+    u_err = (got[1] - plain[1]).abs()
+    check(bool((u_err <= 1e-6 * plain[1].abs() + tie_bytes).all()),
+          f"gcs_admit: used' differs by {u_err.tolist()}")
+    g_tol = 1e-6 * plain[2].abs() + (tie_bytes / 1e9 * dt)[:, None]
+    check(bool(((got[2] - plain[2]).abs() <= g_tol).all()),
+          "gcs_admit: gbsec differs")
+    dense = rand(L, S, F) < 0.3
+    inf_limit = torch.full((L,), float("inf"), device=dev)
+    dg = ops.gcs_admit(dense, sizes, used, inf_limit, dt, month, n_months)
+    dp = ref.gcs_admit(dense, sizes, used, inf_limit, dt, month, n_months)
+    torch.cuda.synchronize()
+    check(torch.equal(dg[0], dp[0]), "gcs_admit: dense unlimited mask")
+    torch.testing.assert_close(dg[1], dp[1], rtol=1e-6, atol=0.0)
+    n_cand = int(want_m.sum())
+    # needed: the candidate flag in and the admission out for every file,
+    # the size only of candidates; per-lane scalars and the month row
+    need = (n * (1 + 1) + sector_bytes(torch, want_m, 4) + L * 4 * 3
+            + L * n_months * 4)
+    nb, kind = bound_ms(need, 3 * n_cand * ref.GCS_ADMIT_PASSES)
+    results["gcs_admit"] = dict(
+        max_abs_err=float(u_err.max()),
+        ms=time_ms(torch, lambda: ops.gcs_admit(*gargs)),
+        plain_ms=time_ms(torch, lambda: ref.gcs_admit(*gargs)),
+        bound_ms=nb, bound_by=kind, library_ms=None)
+    log(f"kernel gcs_admit: {n_cand} candidates, {ties} boundary ties "
+        f"(each within 16 ulps of the limit), used'/gbsec on every lane, "
+        f"dense unlimited case exact, bound counts {need / 1e6:.2f} MB")
+    del want_m, dense, got, plain, dg, dp
+
+    # -- window_admit: the K job window (fifo=False) and the W = 4 wait
+    # queue (fifo=True) against disk headroom.
+    win_err = 0.0
+    win_ms = []
+    for C, fifo in ((K, False), (4, True)):
+        live = rand(L, S, C) < 0.7
+        size = sizes[:, :, :C].contiguous()
+        limit_d = torch.full((L, S), 1e13, device=dev)
+        used_d = limit_d - size.sum(-1) * rand(L, S)
+        wargs = (live, size, used_d, limit_d, fifo)
+        got = ops.window_admit(*wargs)
+        plain = ref.window_admit(*wargs)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], plain[0]), f"window_admit C={C}: mask")
+        check(torch.equal(got[1], plain[1]), f"window_admit C={C}: extra")
+        win_err = max(win_err, float((got[1] - plain[1]).abs().max()))
+        win_ms.append((time_ms(torch, lambda: ops.window_admit(*wargs)),
+                       time_ms(torch, lambda: ref.window_admit(*wargs)),
+                       # live in and admission out per candidate, the size
+                   # only of live ones; used, limit and extra per row
+                   L * S * C * (1 + 1) + sector_bytes(torch, live, 4)
+                   + L * S * (4 + 4 + 4)))
+    nbytes = sum(w[2] for w in win_ms)
+    nb, kind = bound_ms(nbytes / 2, 0.0)
+    results["window_admit"] = dict(
+        max_abs_err=win_err,
+        ms=sum(w[0] for w in win_ms) / 2,
+        plain_ms=sum(w[1] for w in win_ms) / 2,
+        bound_ms=nb, bound_by=kind, library_ms=None)
+    log(f"kernel window_admit: K={K} and W=4 windows bitwise")
+    for name, r in results.items():
+        log(f"  {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    return results
+
+
+def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
+    """Where a tick's time goes on the ``cuda`` path: after ``warm`` ticks,
+    ``n`` ticks of the grid's loop timed on the host clock, then the next
+    ``n`` under ``torch.profiler`` for device time by kernel; the idle
+    share is the device's unused part of the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import _build_lane_sim, _lane_step_fns
+
+    dev = torch.device("cuda")
+    tick_fn, _ = _lane_step_fns(len(grid.site_names), grid.max_jobs_per_tick,
+                                grid.n_months, resolve_tick_impl("cuda", dev))
+    c, st = _build_lane_sim(grid, dev)
+    times = torch.as_tensor(grid.times, device=dev)
+    dts = torch.as_tensor(grid.dts, device=dev)
+    month_idx = torch.as_tensor(grid.month_idx, device=dev)
+    jobs = torch.as_tensor(grid.jobs_per_tick, device=dev)
+
+    def run(t0, t1):
+        for t in range(t0, t1):
+            tick_fn(st, times[t], dts[t], month_idx[t], t, jobs[:, t], c)
+
+    run(0, warm)
+    torch.cuda.synchronize()
+    # the same number of ticks once without the profiler: its own host
+    # cost would inflate the wall time and so the idle share
+    t0 = time.perf_counter()
+    run(warm, warm + n)
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(warm + n, warm + 2 * n)
+        torch.cuda.synchronize()
+        prof_wall_us = 1e6 * (time.perf_counter() - t0)
+    # device-side events only (the operators that launched them carry the
+    # same time again)
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    ours_us = sum(r[1] for r in rows
+                  if any(k in r[0] for k in ("tt_", "ga_", "wa_kernel")))
+    log(f"profile ({n} ticks after {warm + n}): wall {wall_us / n:.1f} "
+        f"us/tick unprofiled ({prof_wall_us / n:.1f} profiled), device busy "
+        f"{busy_us / n:.1f} us/tick (idle share "
+        f"{1 - busy_us / wall_us:.3f}), lane-tick kernels "
+        f"{ours_us / n:.1f} us/tick, {len(rows)} device kernels by name")
+    for key, us, count in rows[:12]:
+        log(f"  {us / n:9.1f} us/tick {count // n:4d}/tick  {key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--days", type=float, default=1.0,
+                    help="simulated horizon of the sweep phase (default 1)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available: this run needs a GPU")
+    try:
+        from repro_torch.core.scenarios import pack_specs
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.lane_tick import ops
+        from repro_torch.sim.batched import run_sweep_torch
+    except ImportError as e:
+        raise SmokeFailure(f"the port is not importable beside this script "
+                           f"({e})") from None
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
+    for lib in secs:
+        for kname, u in _build.ptxas_usage(lib).items():
+            log(f"  ptxas {lib}/{kname}: {u.get('registers')} registers, "
+                f"spill {u.get('spill_stores')}/{u.get('spill_loads')} B "
+                f"stores/loads")
+
+    days, n_files = args.days, 1_000_000
+    specs = pricing_specs(days, n_files)
+    t0 = time.perf_counter()
+    grid = pack_specs(specs, tick=10.0)
+    log(f"pack: {time.perf_counter() - t0:.1f} s; {grid.n_specs} specs, "
+        f"{grid.n_lanes} lanes, {len(grid.site_names)} sites x {n_files} "
+        f"files, K={grid.max_jobs_per_tick}, T={grid.n_ticks} ticks")
+    kern = kernel_phase(torch, grid, grid.n_lanes)
+
+    # -- small reference: CPU plain path against the card's kernels
+    small = pricing_specs(0.1, 1000)
+    cpu = run_sweep_torch(small, tick=60.0, tick_impl="torch", device="cpu")
+    gpu = run_sweep_torch(small, tick=60.0, tick_impl="cuda", device="cuda")
+    log(f"small reference: {lane_parity(cpu, gpu)} specs within the "
+        f"Table-2 bar (CPU plain vs card kernels)")
+
+    # -- sweep phase (the main path)
+    log(f"sweep: horizon cut from the paper's 90 days to {days:g} days "
+        f"({grid.n_ticks} ticks of 10 s); catalogue {n_files} files/site")
+    runs = {}
+    counts = None
+    for impl in ("cuda", "torch"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_sweep_torch(specs, tick=10.0, tick_impl=impl,
+                              device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if impl == "cuda":
+            counts = ops.launch_counts()
+        runs[impl] = res
+        log(f"sweep {impl}: {wall:.2f} s wall, {grid.n_ticks / wall:.1f} "
+            f"ticks/s, {len(res) / wall:.2f} configs/s, launches "
+            f"{ops.launch_counts()}")
+    for name in ops.KERNELS:
+        check(counts[name] > 0, f"{name} was not launched on the main path")
+    n_ok = lane_parity(runs["torch"], runs["cuda"])
+    log(f"sweep parity: {n_ok} specs within the Table-2 bar, jobs "
+        f"submitted equal")
+    profile_phase(torch, grid)
+
+    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+                    replaces=REPLACES[name], launches=counts[name],
+                    max_abs_err=kern[name]["max_abs_err"],
+                    ms=kern[name]["ms"], plain_ms=kern[name]["plain_ms"],
+                    bound_ms=kern[name]["bound_ms"],
+                    bound_by=kern[name]["bound_by"],
+                    library_ms=kern[name]["library_ms"])
+               for name in ops.KERNELS]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

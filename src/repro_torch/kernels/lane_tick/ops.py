@@ -1,0 +1,181 @@
+"""Wrappers of the lane-tick CUDA kernels (``csrc/lane_tick.cu``).
+
+Each wrapper takes the same arguments as its plain version in ``ref.py``.
+A tensor on the CPU goes to that plain version; a CUDA tensor goes to the
+kernel, or the wrapper raises: there is no fallback. On the card a wrapper
+checks device, dtype, shape and contiguity, allocates outputs and scratch
+with ``torch.empty``, launches on ``torch.cuda.current_stream()`` without
+synchronising, raises if the C entry point reports a CUDA error, and adds
+one to its launch count (:func:`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lane_tick import ref
+
+KERNELS = ("transfer_tick", "gcs_admit", "window_admit")
+
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+#: argtypes of the C entry points (pointers and the stream as c_void_p, or
+#: ctypes would pass them as 32-bit ints and cut them).
+_SIGNATURES = {
+    "lt_transfer_tiles": ([_LL], _I),
+    "lt_gcs_tiles": ([_LL], _I),
+    "lt_error_string": ([_I], ctypes.c_char_p),
+    "lt_transfer_tick": ([_P] * 9 + [_I, _I, _LL, _I] + [_P] * 12, _I),
+    "lt_gcs_admit": ([_P] * 6 + [_I, _LL, _I, _I] + [_P] * 8, _I),
+    "lt_window_admit": ([_P] * 4 + [_LL, _I, _I] + [_P] * 3, _I),
+}
+
+_LIB = None
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset (a call that went
+    to the plain version on the CPU does not count)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("lane_tick")
+        for fn, (argtypes, restype) in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _launch(lib, fn: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}: "
+                           f"{lib.lt_error_string(rc).decode()}")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
+                  n_months: int):
+    """See ``ref.transfer_tick``."""
+    if link_id.device.type == "cpu":
+        return ref.transfer_tick(link_id, active, done, total, sizes, bw,
+                                 mode, dt, month, n_months)
+    dev = link_id.device
+    L, S, F = link_id.shape
+    plane = (L, S, F)
+    _check("link_id", link_id, torch.int32, plane, dev)
+    _check("active", active, torch.bool, plane, dev)
+    for name, t in (("done", done), ("total", total), ("sizes", sizes)):
+        _check(name, t, torch.float32, plane, dev)
+    _check("bw", bw, torch.float32, (L, 3 * S), dev)
+    _check("mode", mode, torch.int32, (L, 3 * S), dev)
+    _check("dt", dt, torch.float32, (), dev)
+    _check("month", month, torch.int32, (), dev)
+    lib = _lib()
+    n_tiles = lib.lt_transfer_tiles(F)
+    f32 = dict(dtype=torch.float32, device=dev)
+    counts = torch.empty((L * S * 3,), dtype=torch.int32, device=dev)
+    part_bytes = torch.empty((L * S, n_tiles, 3), **f32)
+    part_cnt = torch.empty((L * S, n_tiles, 2), dtype=torch.int32, device=dev)
+    new_done = torch.empty(plane, **f32)
+    comp = torch.empty(plane, dtype=torch.bool, device=dev)
+    tape, recall, mig = (torch.empty((L, S), **f32) for _ in range(3))
+    egress, cls_a, cls_b = (torch.empty((L, n_months), **f32)
+                            for _ in range(3))
+    _launch(lib, "lt_transfer_tick", dev,
+            *map(_ptr, (link_id, active, done, total, sizes, bw, mode, dt,
+                        month)),
+            L, S, F, n_months,
+            *map(_ptr, (counts, part_bytes, part_cnt, new_done, comp, tape,
+                        recall, mig, egress, cls_a, cls_b)))
+    _LAUNCHES["transfer_tick"] += 1
+    return new_done, comp, tape, recall, mig, egress, cls_a, cls_b
+
+
+def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
+              n_passes: int = ref.GCS_ADMIT_PASSES):
+    """See ``ref.gcs_admit``."""
+    if want.device.type == "cpu":
+        return ref.gcs_admit(want, sizes, used, limit, dt, month, n_months,
+                             n_passes)
+    if n_passes < 1:
+        raise ValueError(f"n_passes must be >= 1, got {n_passes!r}")
+    dev = want.device
+    L, S, F = want.shape
+    _check("want", want, torch.bool, (L, S, F), dev)
+    _check("sizes", sizes, torch.float32, (L, S, F), dev)
+    _check("used", used, torch.float32, (L,), dev)
+    _check("limit", limit, torch.float32, (L,), dev)
+    _check("dt", dt, torch.float32, (), dev)
+    _check("month", month, torch.int32, (), dev)
+    lib = _lib()
+    N = S * F
+    n_tiles = lib.lt_gcs_tiles(N)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bsum, boff, npart = (torch.empty((L, n_tiles), **f32) for _ in range(3))
+    used_cur = torch.empty((L,), **f32)
+    adm = torch.empty((L, S, F), dtype=torch.bool, device=dev)
+    used_out = torch.empty((L,), **f32)
+    gbsec = torch.empty((L, n_months), **f32)
+    _launch(lib, "lt_gcs_admit", dev,
+            *map(_ptr, (want, sizes, used, limit, dt, month)),
+            L, N, n_months, n_passes,
+            *map(_ptr, (bsum, boff, npart, used_cur, adm, used_out, gbsec)))
+    _LAUNCHES["gcs_admit"] += 1
+    return adm, used_out, gbsec
+
+
+def window_admit(live, size, disk_used, disk_limit, fifo: bool):
+    """See ``ref.window_admit``."""
+    if live.device.type == "cpu":
+        return ref.window_admit(live, size, disk_used, disk_limit, fifo)
+    dev = live.device
+    L, S, C = live.shape
+    _check("live", live, torch.bool, (L, S, C), dev)
+    _check("size", size, torch.float32, (L, S, C), dev)
+    _check("disk_used", disk_used, torch.float32, (L, S), dev)
+    _check("disk_limit", disk_limit, torch.float32, (L, S), dev)
+    lib = _lib()
+    adm = torch.empty((L, S, C), dtype=torch.bool, device=dev)
+    extra = torch.empty((L, S), dtype=torch.float32, device=dev)
+    _launch(lib, "lt_window_admit", dev,
+            *map(_ptr, (live, size, disk_used, disk_limit)),
+            L * S, C, int(bool(fifo)), _ptr(adm), _ptr(extra))
+    _LAUNCHES["window_admit"] += 1
+    return adm, extra
