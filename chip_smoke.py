@@ -28,7 +28,39 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 6. profile: 40 ticks of the ``cuda`` path on the host clock, 40 more under
    ``torch.profiler`` — wall and device time per tick, the device's idle
    share, the top kernels;
-7. the ``kernels`` JSON line, then the ``ok`` line.
+7. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
+   catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
+   link types) and on 512, half shared and half per-transfer, dt = 10 s,
+   then ``simulate_ticks`` for 1,000 ticks on 6 links through the kernel
+   and through the plain version: ``new_done``/``completed`` bitwise,
+   counts exact, the engine's final state bitwise and its completions
+   equal; ticks/s of both;
+8. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
+   hd 128, T = S = 4096, bf16, causal), gemma3_27b's local layers (nh 32,
+   nkv 16, published head_dim 128, T = S = 4096, bf16, causal, window
+   1024), the same at hd 168 (the width ``repro``'s gemma3_27b config
+   derives as 5376/32 — not the published head_dim — kept as a width that
+   is not a power of two) in bf16 and in float32 (T = S = 2048), and
+   hymba_1_5b in float32 (nh 25, nkv 5, hd 64, T = S = 2048, causal,
+   window 1024); each against the plain version at atol 4e-3 / rtol 8e-3
+   in bf16 (one bf16 ulp, and at most 1% of the elements unequal) or
+   2e-5 in float32, with PyTorch's
+   ``scaled_dot_product_attention`` timed beside it as the yardstick
+   (never on the port's path), its elements outside the same bar and
+   each side's elements not equal to the plain version counted;
+9. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
+   d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
+   version at 1e-4 atol/rtol;
+10. the ``kernels`` JSON line: one entry per kernel and case (``case``
+    names it), each with its launches on its own path (counts reset just
+    before the path runs, read just after each case), then the ``ok``
+    line.
+
+Phases 3, 7, 8 and 9 print the kernel's and the plain version's
+milliseconds (CUDA events after warm-up) and the bound: the larger of the
+bytes the function needs over the memory rate and its operations over the
+card's peak for their type (float32 outside the tensor cores, bf16 on
+them), from the data sheet of an H100 SXM.
 
 The horizon is cut from the paper's 90 days to ``--days`` (default 1 day,
 8,641 ticks of 10 s) to fit the run's time limit; the catalogue is not cut.
@@ -48,17 +80,34 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM data sheet: device-memory bandwidth and float32 (non-tensor)
-#: peak, the rates the bounds are computed against.
+#: H100 SXM data sheet: device-memory bandwidth, float32 peak outside the
+#: tensor cores and dense bf16 tensor-core peak, the rates the bounds are
+#: computed against.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
-KERNEL_SOURCE = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
+_LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
+KERNEL_SOURCE = {
+    "transfer_tick": _LANE_TICK,
+    "gcs_admit": _LANE_TICK,
+    "window_admit": _LANE_TICK,
+    "carousel_tick":
+        "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+}
 REPLACES = {
     "transfer_tick": "src/repro/kernels/lane_tick/lane_tick.py:81",
     "gcs_admit": "src/repro/kernels/lane_tick/lane_tick.py:194",
     "window_admit": "src/repro/kernels/lane_tick/lane_tick.py:292",
+    "carousel_tick":
+        "src/repro/kernels/carousel_update/carousel_update.py:42",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:28",
+    "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:29",
 }
 
 
@@ -90,13 +139,40 @@ def time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / n
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def device_us(torch, fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` in microseconds: the device-side
+    events ``torch.profiler`` records over ``n`` calls (after one warm-up
+    call), summed and divided by ``n``. Unlike :func:`time_ms` it leaves
+    out the host's gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """Least time for the work: bytes over the memory rate against
-    float32 operations over the peak; returns (ms, bound_by)."""
+    operations over the peak for their type (float32 outside the tensor
+    cores unless ``ops_per_s`` says otherwise); returns (ms, bound_by)."""
     t_bytes = n_bytes / MEM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def n_outside(got, want, atol: float, rtol: float) -> int:
+    """Elements of ``got`` farther from ``want`` than ``atol + rtol *
+    |want|`` (both compared in float32)."""
+    want = want.float()
+    return int(((got.float() - want).abs() > atol + rtol * want.abs()).sum())
 
 
 def sector_bytes(torch, mask, itemsize: int) -> int:
@@ -394,6 +470,275 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
         log(f"  {us / n:9.1f} us/tick {count // n:4d}/tick  {key[:90]}")
 
 
+def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
+    """The carousel tick engine's path: ``carousel_tick`` over ``n``
+    transfers, every file of one site's catalogue in flight, on 6 links
+    (Config III's 2 sites x 3 link types) and on 512 (the Pallas design's
+    ceiling), half of them shared and half per-transfer, dt = 10 s; then
+    ``simulate_ticks`` for ``n_ticks`` ticks on 6 links through the kernel.
+    Bars: ``new_done``/``completed`` bitwise and counts exact against the
+    plain version; the tick engine's final state bitwise and its per-tick
+    completions equal to the plain engine's. Returns one (case, launches,
+    result) per link count; the 6-link case's launches include the
+    engine's ticks."""
+    from repro_torch.kernels.carousel_update import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4101)
+
+    def inputs(m):
+        link_id = torch.randint(0, m, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        total = 1e6 + 1e9 * torch.rand(n, generator=gen, device=dev)
+        done = total * torch.rand(n, generator=gen, device=dev)
+        mode = (torch.arange(m, device=dev) % 2).to(torch.int32)
+        # a transfer's own rate, 10 kB/s to 1 MB/s (log-uniform), so that
+        # completions spread over the ticks; a shared link carries as much
+        # per transfer while it is full
+        bw = 10.0 ** (4.0 + 2.0 * torch.rand(m, generator=gen, device=dev))
+        bw = torch.where(mode == 0, bw * (n / m), bw)
+        return link_id, active, done, total, bw, mode
+
+    cases = {m: inputs(m) for m in (6, 512)}
+    dt = 10.0
+    ops.reset_launch_counts()
+    got, launches = {}, {}
+    for m, a in cases.items():
+        before = ops.launch_counts()["carousel_tick"]
+        got[m] = ops.carousel_tick(*a, dt)
+        launches[m] = ops.launch_counts()["carousel_tick"] - before
+    before = ops.launch_counts()["carousel_tick"]
+    t0 = time.perf_counter()
+    sim_k = ops.simulate_ticks(*cases[6], dt, n_ticks, tick_impl="cuda",
+                               device=dev)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    n_sim = ops.launch_counts()["carousel_tick"] - before
+    check(n_sim == n_ticks and set(launches.values()) == {1},
+          f"carousel_tick: {launches} launches per case and {n_sim} in "
+          f"{n_ticks} ticks")
+    launches[6] += n_sim
+
+    t0 = time.perf_counter()
+    sim_p = ops.simulate_ticks(*cases[6], dt, n_ticks, tick_impl="torch",
+                               device=dev)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    check(torch.equal(sim_k[0], sim_p[0]), "simulate_ticks: active differs")
+    check(torch.equal(sim_k[1], sim_p[1]), "simulate_ticks: done differs")
+    check(torch.equal(sim_k[2], sim_p[2]),
+          "simulate_ticks: completions differ")
+    n_done = int(sim_k[2].sum())
+    check(0 < n_done < n, f"simulate_ticks: {n_done} completions")
+    log(f"carousel simulate_ticks: {n_ticks} ticks of {n} transfers on 6 "
+        f"links, final state bitwise, {n_done} completions equal per tick; "
+        f"kernel {n_ticks / wall_k:.1f} ticks/s, plain "
+        f"{n_ticks / wall_p:.1f} ticks/s")
+
+    per_case = []
+    for m, args in cases.items():
+        label = f"N=1M M={m}" + (f" + simulate_ticks {n_ticks} ticks"
+                                 if m == 6 else "")
+        want = ref.carousel_tick(*args, dt)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got[m], want, ("new_done", "completed",
+                                             "counts")):
+            check(torch.equal(g, w), f"carousel_tick M={m}: {name} not "
+                                     f"bitwise")
+        n_comp = int(got[m][1].sum())
+        check(0 < n_comp < n, f"carousel_tick M={m}: {n_comp} completions")
+        # needed: link id, active, done and total in, new_done and the
+        # completion flag out (18 B a transfer); bw, mode and counts per link
+        nb, kind = bound_ms(18 * n + 12 * m, 5 * n)
+        r = dict(max_abs_err=float((got[m][0] - want[0]).abs().max()),
+                 ms=time_ms(torch, lambda: ops.carousel_tick(
+                     *args, dt, tick_impl="cuda")),
+                 plain_ms=time_ms(torch, lambda: ref.carousel_tick(*args,
+                                                                   dt)),
+                 bound_ms=nb, bound_by=kind, library_ms=None)
+        per_case.append((label, launches[m], r))
+        dev_us = device_us(torch, lambda: ops.carousel_tick(
+            *args, dt, tick_impl="cuda"))
+        log(f"carousel_tick M={m}: new_done/completed bitwise, counts exact, "
+            f"{n_comp} completions; ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {nb:.4f} ({kind}); device time "
+            f"{dev_us:.1f} us per call (profiler: memset and both kernels)")
+    return per_case
+
+
+#: Attention cases: (label, B, nh, nkv, hd, T = S, dtype, causal, window).
+#: Published widths, and hd 168: what ``repro``'s gemma3_27b config derives
+#: (5376/32; the published head_dim is 128), kept as a width that is not a
+#: power of two, with two query heads per kv head.
+ATTENTION_CASES = (
+    ("qwen3_4b", 1, 32, 8, 128, 4096, "bfloat16", True, 0),
+    ("gemma3_27b local", 1, 32, 16, 128, 4096, "bfloat16", True, 1024),
+    ("hd168 bf16", 1, 32, 16, 168, 4096, "bfloat16", True, 1024),
+    ("hd168 f32", 1, 32, 16, 168, 2048, "float32", True, 1024),
+    ("hymba_1_5b f32", 1, 25, 5, 64, 2048, "float32", True, 1024),
+)
+
+#: (atol, rtol) against the plain version. Both sides compute in float32
+#: and round the output once, so in bfloat16 they may differ by one ulp
+#: (at most 2**-7 of the value), and only where the float32 value sits
+#: next to a rounding boundary: at most ``BF16_UNEQUAL_SHARE`` of the
+#: elements may differ at all. SDPA, which rounds its probabilities to
+#: bfloat16, stays within the ulp but differs on about 40% of them.
+ATTENTION_BARS = {"bfloat16": (4e-3, 8e-3), "float32": (2e-5, 2e-5)}
+BF16_UNEQUAL_SHARE = 0.01
+
+
+def unmasked_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: each costs 4*hd flops."""
+    total = 0
+    for t in range(T):
+        lo = max(0, t - window + 1) if window > 0 else 0
+        hi = min(S - 1, t) if causal else S - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_phase(torch):
+    """The attention path: ``flash_attention`` once per case of
+    ``ATTENTION_CASES`` through the kernel, then each result against the
+    plain version on the same inputs at ``ATTENTION_BARS``, and the times
+    of the kernel, the plain version and PyTorch's
+    ``scaled_dot_product_attention`` (the yardstick; the port never calls
+    it). Returns one (case, launches, result) per case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    # the plain version's products in full float32, as the kernel's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2604)
+    inputs = []
+    for label, B, nh, nkv, hd, T, dt_name, causal, window in ATTENTION_CASES:
+        dtype = getattr(torch, dt_name)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, nh, T, hd), (B, nkv, T, hd),
+                                 (B, nkv, T, hd)))
+        inputs.append((q, k, v, dict(causal=causal, window=window)))
+    ops.reset_launch_counts()
+    outs, launches = [], []
+    for q, k, v, kw in inputs:
+        before = ops.launch_counts()["flash_attention"]
+        outs.append(ops.flash_attention(q, k, v, **kw))
+        launches.append(ops.launch_counts()["flash_attention"] - before)
+    torch.cuda.synchronize()
+    check(launches == [1] * len(inputs),
+          f"flash_attention: {launches} launches per case")
+
+    per_case = []
+    for case, (q, k, v, kw), out, n_launch in zip(ATTENTION_CASES, inputs,
+                                                  outs, launches):
+        label, B, nh, nkv, hd, T, dt_name, causal, window = case
+        want = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape,
+              f"attention {label}: output {out.dtype} {tuple(out.shape)}")
+        atol, rtol = ATTENTION_BARS[dt_name]
+        err = (out.float() - want.float()).abs()
+        bad = n_outside(out, want, atol, rtol)
+        check(bad == 0, f"attention {label}: {bad} elements outside atol "
+                        f"{atol} rtol {rtol}, max abs err {float(err.max())}")
+        rel = (torch.arange(T, device=dev)[:, None]
+               - torch.arange(T, device=dev)[None, :])
+        mask = rel >= 0 if causal else torch.ones_like(rel, dtype=bool)
+        if window > 0:
+            mask &= rel < window
+        gqa = {"enable_gqa": True} if nkv != nh else {}
+        if causal and window == 0:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, **gqa)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, **gqa)
+        lib_out = lib()
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        lib_bad = n_outside(lib_out, want, atol, rtol)
+        # elements not equal to the plain version at all: the kernel differs
+        # only where its float32 value sits next to an output rounding
+        # boundary, SDPA also where its low-precision products move it
+        ne, lib_ne = int((out != want).sum()), int((lib_out != want).sum())
+        del lib_out
+        check(dt_name != "bfloat16" or ne <= BF16_UNEQUAL_SHARE * out.numel(),
+              f"attention {label}: {ne} of {out.numel()} elements differ "
+              f"from the plain version")
+        pairs = B * nh * unmasked_pairs(T, T, causal, window)
+        n_bytes = out.element_size() * (2 * q.numel() + 2 * k.numel())
+        rate = BF16_OPS_PER_S if dt_name == "bfloat16" else F32_OPS_PER_S
+        nb, kind = bound_ms(n_bytes, 4 * hd * pairs, rate)
+        r = dict(max_abs_err=float(err.max()),
+                 ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                            n=10),
+                 plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw),
+                                  n=5),
+                 bound_ms=nb, bound_by=kind,
+                 library_ms=time_ms(torch, lib, n=10))
+        per_case.append((f"{label} (nh {nh} nkv {nkv} hd {hd} T=S {T} "
+                         f"{dt_name} window {window})", n_launch, r))
+        log(f"attention {label} (B={B} nh={nh} nkv={nkv} hd={hd} T=S={T} "
+            f"{dt_name} causal={causal} window={window}): max abs err "
+            f"{r['max_abs_err']:.3g} (bar atol {atol} rtol {rtol}; SDPA's "
+            f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
+            f"the bar); elements not equal to the plain version: kernel "
+            f"{ne}, SDPA {lib_ne}; ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {nb:.4f} ({kind}, "
+            f"{4 * hd * pairs / 1e9:.2f} GFLOP)")
+        del want
+    return per_case
+
+
+def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
+                N: int = 16):
+    """The selective-scan path at falcon_mamba_7b's widths (d_inner 8192,
+    state 16; T = 2048): ``mamba_scan`` once through the kernel, held
+    against the plain version at 1e-4 atol/rtol. Returns one (case,
+    launches, result)."""
+    from repro_torch.kernels.mamba_scan import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7007)
+    dA = torch.rand((B, T, D, N), generator=gen, device=dev).neg_().exp_()
+    dBu = torch.randn((B, T, D, N), generator=gen, device=dev).mul_(0.1)
+    C = torch.randn((B, T, N), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    y = ops.mamba_scan(dA, dBu, C)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["mamba_scan"]
+    check(launches == 1, f"mamba_scan: {launches} launches on its path")
+    want = ref.mamba_scan(dA, dBu, C)
+    torch.cuda.synchronize()
+    check(tuple(y.shape) == (B, T, D) and bool(torch.isfinite(y).all()),
+          "mamba_scan: output shape or finiteness")
+    err = (y - want).abs()
+    bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
+    check(bad == 0, f"mamba_scan: {bad} elements outside 1e-4 atol/rtol, "
+                    f"max abs err {float(err.max())}")
+    # dA and dBu read once, C read once, y written once; 4 flops per state
+    # and step (multiply, add, multiply by C, sum)
+    n_bytes = 4 * (2 * dA.numel() + C.numel() + y.numel())
+    nb, kind = bound_ms(n_bytes, 4 * dA.numel())
+    r = dict(max_abs_err=float(err.max()),
+             ms=time_ms(torch, lambda: ops.mamba_scan(dA, dBu, C), n=10),
+             plain_ms=time_ms(torch, lambda: ref.mamba_scan(dA, dBu, C),
+                              n=2, warm=1),
+             bound_ms=nb, bound_by=kind, library_ms=None)
+    log(f"mamba_scan (B={B} T={T} D={D} N={N}, dA/dBu "
+        f"{dA.numel() * 4 / 1e9:.2f} GB each): max abs err "
+        f"{r['max_abs_err']:.3g} (bar 1e-4); ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} bound_ms {nb:.4f} ({kind}, "
+        f"{n_bytes / 1e9:.3f} GB)")
+    return [(f"falcon_mamba_7b (B {B} T {T} D {D} N {N})", launches, r)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--days", type=float, default=1.0,
@@ -474,14 +819,31 @@ def main(argv=None) -> int:
         f"submitted equal")
     profile_phase(torch, grid)
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=counts[name],
-                    max_abs_err=kern[name]["max_abs_err"],
-                    ms=kern[name]["ms"], plain_ms=kern[name]["plain_ms"],
-                    bound_ms=kern[name]["bound_ms"],
-                    bound_by=kern[name]["bound_by"],
-                    library_ms=kern[name]["library_ms"])
-               for name in ops.KERNELS]
+    # one entry per kernel and case: the lane-tick kernels at the sweep's
+    # shapes with their launches on the sweep, then the three further
+    # kernel paths, each driven with its count reset just before and read
+    # just after each case
+    shapes = (f"sweep shapes (L {grid.n_lanes}, S {len(grid.site_names)}, "
+              f"F {n_files})")
+    cases = [(name, shapes + (", mean of the K and W=4 windows"
+                              if name == "window_admit" else ""),
+              counts[name], kern[name]) for name in ops.KERNELS]
+    for name, phase in (("carousel_tick", carousel_phase),
+                        ("flash_attention", attention_phase),
+                        ("mamba_scan", mamba_phase)):
+        cases += [(name, *c) for c in phase(torch)]
+
+    kernels = [dict(name=name, case=case, route="cuda",
+                    source=KERNEL_SOURCE[name], replaces=REPLACES[name],
+                    launches=n, **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")})
+               for name, case, n, r in cases]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} ({k['case']}) was not "
+                                 f"launched on its path")
+    check({k["name"] for k in kernels} == set(KERNEL_SOURCE),
+          "the kernels line misses a kernel")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

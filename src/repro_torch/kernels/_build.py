@@ -31,6 +31,9 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 #: Kernel libraries of the port: name -> source, relative to this package.
 SOURCES: Dict[str, str] = {
     "lane_tick": "lane_tick/csrc/lane_tick.cu",
+    "carousel_update": "carousel_update/csrc/carousel_update.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,3 +153,68 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+class KernelLib:
+    """One kernel library with its C entry points typed, loaded (and built)
+    at its first :meth:`get`, and the launch count of each of its kernels.
+
+    ``signatures`` maps each entry point to ``(argtypes, restype)``:
+    pointers and the stream as ``c_void_p``, or ctypes would pass them as
+    32-bit ints and cut them. ``error_fn`` names the library's
+    ``cudaGetErrorString`` wrapper, which :meth:`launch` reports with.
+    ``kernels`` names the wrappers whose launches are counted."""
+
+    def __init__(self, name: str, signatures, error_fn: str,
+                 kernels: Iterable[str]):
+        self.name, self.signatures, self.error_fn = name, signatures, error_fn
+        self.launches: Dict[str, int] = {k: 0 for k in kernels}
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def launch_counts(self) -> Dict[str, int]:
+        """Kernel launches per wrapper since the last reset (a call that
+        went to the plain version does not count)."""
+        return dict(self.launches)
+
+    def reset_launch_counts(self) -> None:
+        for k in self.launches:
+            self.launches[k] = 0
+
+    def get(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            for fn, (argtypes, restype) in self.signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            self._lib = lib
+        return self._lib
+
+    def launch(self, kernel: str, fn: str, device, *args) -> None:
+        """Call entry point ``fn`` with ``args`` and the current stream of
+        ``device`` last; raise if it returns a CUDA error code, else count
+        one launch of ``kernel``."""
+        import torch
+
+        lib = self.get()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, fn)(*args, stream)
+        if rc != 0:
+            msg = getattr(lib, self.error_fn)(rc).decode()
+            raise RuntimeError(f"{fn}: CUDA error {rc}: {msg}")
+        self.launches[kernel] += 1
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

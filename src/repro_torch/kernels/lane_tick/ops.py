@@ -12,7 +12,6 @@ one to its launch count (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
@@ -21,14 +20,11 @@ from repro_torch.kernels.lane_tick import ref
 
 KERNELS = ("transfer_tick", "gcs_admit", "window_admit")
 
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-#: argtypes of the C entry points (pointers and the stream as c_void_p, or
-#: ctypes would pass them as 32-bit ints and cut them).
+#: argtypes of the C entry points (see ``_build.KernelLib``).
 _SIGNATURES = {
     "lt_transfer_tiles": ([_LL], _I),
     "lt_gcs_tiles": ([_LL], _I),
@@ -38,52 +34,12 @@ _SIGNATURES = {
     "lt_window_admit": ([_P] * 4 + [_LL, _I, _I] + [_P] * 3, _I),
 }
 
-_LIB = None
+_LIB = _build.KernelLib("lane_tick", _SIGNATURES, "lt_error_string",
+                        KERNELS)
+launch_counts = _LIB.launch_counts
+reset_launch_counts = _LIB.reset_launch_counts
+_check = _build.check_tensor
 
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset (a call that went
-    to the plain version on the CPU does not count)."""
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("lane_tick")
-        for fn, (argtypes, restype) in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LIB = lib
-    return _LIB
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, "
-                         f"got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _launch(lib, fn: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: CUDA error {rc}: "
-                           f"{lib.lt_error_string(rc).decode()}")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -107,7 +63,7 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
     _check("mode", mode, torch.int32, (L, 3 * S), dev)
     _check("dt", dt, torch.float32, (), dev)
     _check("month", month, torch.int32, (), dev)
-    lib = _lib()
+    lib = _LIB.get()
     n_tiles = lib.lt_transfer_tiles(F)
     f32 = dict(dtype=torch.float32, device=dev)
     counts = torch.empty((L * S * 3,), dtype=torch.int32, device=dev)
@@ -118,13 +74,12 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
     tape, recall, mig = (torch.empty((L, S), **f32) for _ in range(3))
     egress, cls_a, cls_b = (torch.empty((L, n_months), **f32)
                             for _ in range(3))
-    _launch(lib, "lt_transfer_tick", dev,
-            *map(_ptr, (link_id, active, done, total, sizes, bw, mode, dt,
-                        month)),
-            L, S, F, n_months,
-            *map(_ptr, (counts, part_bytes, part_cnt, new_done, comp, tape,
-                        recall, mig, egress, cls_a, cls_b)))
-    _LAUNCHES["transfer_tick"] += 1
+    _LIB.launch("transfer_tick", "lt_transfer_tick", dev,
+                *map(_ptr, (link_id, active, done, total, sizes, bw, mode, dt,
+                            month)),
+                L, S, F, n_months,
+                *map(_ptr, (counts, part_bytes, part_cnt, new_done, comp,
+                            tape, recall, mig, egress, cls_a, cls_b)))
     return new_done, comp, tape, recall, mig, egress, cls_a, cls_b
 
 
@@ -144,7 +99,7 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
     _check("limit", limit, torch.float32, (L,), dev)
     _check("dt", dt, torch.float32, (), dev)
     _check("month", month, torch.int32, (), dev)
-    lib = _lib()
+    lib = _LIB.get()
     N = S * F
     n_tiles = lib.lt_gcs_tiles(N)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -153,11 +108,11 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
     adm = torch.empty((L, S, F), dtype=torch.bool, device=dev)
     used_out = torch.empty((L,), **f32)
     gbsec = torch.empty((L, n_months), **f32)
-    _launch(lib, "lt_gcs_admit", dev,
-            *map(_ptr, (want, sizes, used, limit, dt, month)),
-            L, N, n_months, n_passes,
-            *map(_ptr, (bsum, boff, npart, used_cur, adm, used_out, gbsec)))
-    _LAUNCHES["gcs_admit"] += 1
+    _LIB.launch("gcs_admit", "lt_gcs_admit", dev,
+                *map(_ptr, (want, sizes, used, limit, dt, month)),
+                L, N, n_months, n_passes,
+                *map(_ptr, (bsum, boff, npart, used_cur, adm, used_out,
+                            gbsec)))
     return adm, used_out, gbsec
 
 
@@ -171,11 +126,9 @@ def window_admit(live, size, disk_used, disk_limit, fifo: bool):
     _check("size", size, torch.float32, (L, S, C), dev)
     _check("disk_used", disk_used, torch.float32, (L, S), dev)
     _check("disk_limit", disk_limit, torch.float32, (L, S), dev)
-    lib = _lib()
     adm = torch.empty((L, S, C), dtype=torch.bool, device=dev)
     extra = torch.empty((L, S), dtype=torch.float32, device=dev)
-    _launch(lib, "lt_window_admit", dev,
-            *map(_ptr, (live, size, disk_used, disk_limit)),
-            L * S, C, int(bool(fifo)), _ptr(adm), _ptr(extra))
-    _LAUNCHES["window_admit"] += 1
+    _LIB.launch("window_admit", "lt_window_admit", dev,
+                *map(_ptr, (live, size, disk_used, disk_limit)),
+                L * S, C, int(bool(fifo)), _ptr(adm), _ptr(extra))
     return adm, extra
