@@ -42,7 +42,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    derives as 5376/32 — not the published head_dim — kept as a width that
    is not a power of two) in bf16 and in float32 (T = S = 2048), and
    hymba_1_5b in float32 (nh 25, nkv 5, hd 64, T = S = 2048, causal,
-   window 1024); each against the plain version at atol 4e-3 / rtol 8e-3
+   window 1024); the bf16 cases through the tensor-core kernel
+   (``wgmma`` route), the float32 ones through the SIMT kernel (``simt``),
+   each case checked to launch its route's kernel exactly once; each
+   against the plain version at atol 4e-3 / rtol 8e-3
    in bf16 (one bf16 ulp, and at most 1% of the elements unequal) or
    2e-5 in float32, with PyTorch's
    ``scaled_dot_product_attention`` timed beside it as the yardstick
@@ -53,8 +56,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    version at 1e-4 atol/rtol;
 10. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
-    before the path runs, read just after each case), then the ``ok``
-    line.
+    before the path runs, read just after each case); attention entries
+    also name their route (``variant``: ``wgmma`` or ``simt``) and that
+    kernel's source; then the ``ok`` line.
 
 Phases 3, 7, 8 and 9 print the kernel's and the plain version's
 milliseconds (CUDA events after warm-up) and the bound: the larger of the
@@ -98,6 +102,13 @@ KERNEL_SOURCE = {
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+}
+#: The attention kernel each route launches (``flash_attention.ops._route``:
+#: bfloat16 at hd a multiple of 8 -> ``wgmma``, else ``simt``).
+ATTENTION_SOURCE = {
+    "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_wgmma.cu",
+    "simt": KERNEL_SOURCE["flash_attention"],
 }
 REPLACES = {
     "transfer_tick": "src/repro/kernels/lane_tick/lane_tick.py:81",
@@ -624,18 +635,25 @@ def attention_phase(torch):
                                  (B, nkv, T, hd)))
         inputs.append((q, k, v, dict(causal=causal, window=window)))
     ops.reset_launch_counts()
-    outs, launches = [], []
+    outs, launches, routes = [], [], []
     for q, k, v, kw in inputs:
-        before = ops.launch_counts()["flash_attention"]
+        route = ops._route(q.dtype, q.shape[-1])
+        before = ops.launch_counts()
         outs.append(ops.flash_attention(q, k, v, **kw))
-        launches.append(ops.launch_counts()["flash_attention"] - before)
+        after = ops.launch_counts()
+        launches.append(after["flash_attention"] - before["flash_attention"])
+        key = f"flash_attention_{route}"
+        check(after[key] - before[key] == 1,
+              f"flash_attention: the {route} kernel launched "
+              f"{after[key] - before[key]} times for one call")
+        routes.append(route)
     torch.cuda.synchronize()
     check(launches == [1] * len(inputs),
           f"flash_attention: {launches} launches per case")
 
     per_case = []
-    for case, (q, k, v, kw), out, n_launch in zip(ATTENTION_CASES, inputs,
-                                                  outs, launches):
+    for case, (q, k, v, kw), out, n_launch, route in zip(
+            ATTENTION_CASES, inputs, outs, launches, routes):
         label, B, nh, nkv, hd, T, dt_name, causal, window = case
         want = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -679,11 +697,13 @@ def attention_phase(torch):
                  plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw),
                                   n=5),
                  bound_ms=nb, bound_by=kind,
-                 library_ms=time_ms(torch, lib, n=10))
+                 library_ms=time_ms(torch, lib, n=10),
+                 variant=route, source=ATTENTION_SOURCE[route])
         per_case.append((f"{label} (nh {nh} nkv {nkv} hd {hd} T=S {T} "
                          f"{dt_name} window {window})", n_launch, r))
         log(f"attention {label} (B={B} nh={nh} nkv={nkv} hd={hd} T=S={T} "
-            f"{dt_name} causal={causal} window={window}): max abs err "
+            f"{dt_name} causal={causal} window={window}, {route} kernel): "
+            f"max abs err "
             f"{r['max_abs_err']:.3g} (bar atol {atol} rtol {rtol}; SDPA's "
             f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
             f"the bar); elements not equal to the plain version: kernel "
@@ -776,6 +796,8 @@ def main(argv=None) -> int:
             log(f"  ptxas {lib}/{kname}: {u.get('registers')} registers, "
                 f"spill {u.get('spill_stores')}/{u.get('spill_loads')} B "
                 f"stores/loads")
+        for w in _build.ptxas_warnings(lib):
+            log(f"  ptxas {lib}: {w}")
 
     days, n_files = args.days, 1_000_000
     specs = pricing_specs(days, n_files)
@@ -834,10 +856,12 @@ def main(argv=None) -> int:
         cases += [(name, *c) for c in phase(torch)]
 
     kernels = [dict(name=name, case=case, route="cuda",
-                    source=KERNEL_SOURCE[name], replaces=REPLACES[name],
-                    launches=n, **{k: r[k] for k in (
+                    source=r.get("source", KERNEL_SOURCE[name]),
+                    replaces=REPLACES[name], launches=n,
+                    **{k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")})
+                        "bound_by", "library_ms") + (
+                        ("variant",) if "variant" in r else ())})
                for name, case, n, r in cases]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} ({k['case']}) was not "

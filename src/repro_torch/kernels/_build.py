@@ -33,6 +33,7 @@ SOURCES: Dict[str, str] = {
     "lane_tick": "lane_tick/csrc/lane_tick.cu",
     "carousel_update": "carousel_update/csrc/carousel_update.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
 }
 
@@ -106,10 +107,36 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
+def _template_args(mangled: str, i: int):
+    """The template arguments that start at ``mangled[i]`` (an ``I``), as
+    text: integer literals (``Li128E``), builtin types by their one-letter
+    code and named types (``13__nv_bfloat16``); ``None`` where there are
+    none or they take another form."""
+    if mangled[i:i + 1] != "I":
+        return None
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        m = (re.match(r"L[a-z](\d+)E", mangled[i:])
+             or re.match(r"(\d+)", mangled[i:]))
+        if m is None:
+            args.append(mangled[i])  # a builtin type: f, i, ...
+            i += 1
+        elif mangled[i] == "L":
+            args.append(m.group(1))
+            i += m.end()
+        else:
+            n = int(m.group(1))
+            args.append(mangled[i + m.end():i + m.end() + n])
+            i += m.end() + n
+    return ",".join(args) if i < len(mangled) else None
+
+
 def _kernel_name(mangled: str) -> str:
-    """The last name of a mangled kernel's nested name: ``wa_kernel`` from
+    """The last name of a mangled kernel's nested name, with its template
+    arguments: ``wa_kernel`` from
     ``_ZN45_GLOBAL__N__<hash>_12_lane_tick_cu_<hash>9wa_kernelE...`` or
-    from ``_Z9wa_kernel...``; else the name as given."""
+    from ``_Z9wa_kernel...``, ``fa_kernel<f>`` from ``...9fa_kernelIfEEv...``;
+    else the name as given."""
     m = re.match(r"_Z(N?)", mangled)
     name, i = mangled, m.end() if m else len(mangled)
     while m:
@@ -119,6 +146,9 @@ def _kernel_name(mangled: str) -> str:
         i += d.end()
         name = mangled[i:i + int(d.group())]
         i += int(d.group())
+        args = _template_args(mangled, i)
+        if args is not None:
+            return f"{name}<{args}>"
         if not m.group(1):  # not nested: one name only
             break
     return name
@@ -144,6 +174,14 @@ def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
     return usage
+
+
+def ptxas_warnings(name: str) -> list:
+    """The compiler's warnings in the build log of library ``name`` (for
+    example ``setmaxnreg`` ignored, or wgmma serialised)."""
+    log = library_path(name).with_suffix(".log").read_text()
+    return [line.strip() for line in log.splitlines()
+            if "warning" in line.lower()]
 
 
 def load(name: str) -> ctypes.CDLL:

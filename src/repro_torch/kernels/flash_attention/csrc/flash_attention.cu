@@ -7,6 +7,10 @@
 //
 //   fa_forward -> fa_kernel<float> or fa_kernel<__nv_bfloat16>
 //
+// It takes float32 at any hd in 1..256 and bfloat16 at widths that are not
+// a multiple of 8; bfloat16 at multiples of 8 goes to the tensor-core
+// kernel of flash_attention_wgmma.cu (../ops.py routes by dtype and hd).
+//
 // Design (the simple, right kernel first): one block of 256 threads per
 // (query tile of kBQ = 64 rows, head, batch). The block holds its query
 // tile, pre-scaled by hd^-0.5, in shared memory as float32, then walks the
@@ -32,8 +36,9 @@
 // pair; at bf16 that is the tensor cores' 989 TFLOP/s, at f32 the 67
 // TFLOP/s outside them. This kernel uses neither wgmma nor TMA and reads
 // its operands from shared memory one float at a time, so shared-memory
-// bandwidth, not the bound, limits it; wgmma and a TMA pipeline are later
-// work.
+// bandwidth, not the bound, limits it. In float32 it is faster than
+// PyTorch's SDPA at the widths measured (PERF.md); TF32 tensor cores would
+// break its 2e-5 bar.
 //
 // Plain C entry point, loaded with ctypes: launches on the caller's stream,
 // allocates nothing, returns cudaGetLastError().
@@ -241,8 +246,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 extern "C" {
-
-int fa_max_head_dim() { return kMaxHd; }
 
 const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -3,14 +3,24 @@
 
 ``impl`` follows ``repro_torch.kernels.registry`` and takes the place of
 ``repro``'s ``use_pallas``/``interpret``: ``"torch"`` runs the plain
-version (``ref.py``) on any device, ``"cuda"`` the hand-written kernel
-(``csrc/flash_attention.cu``) and raises off a CUDA device, ``"auto"`` is
-``"cuda"`` for CUDA tensors and ``"torch"`` for CPU ones. The function runs
-where its tensors live. No padding: the kernel masks the ragged edges of T
-and S itself. The kernel's wrapper checks device, dtype, shape and
-contiguity, launches on the current stream without synchronising, raises
-on a CUDA error and counts its launches (:func:`launch_counts`); it has no
-fallback.
+version (``ref.py``) on any device, ``"cuda"`` a hand-written kernel and
+raises off a CUDA device, ``"auto"`` is ``"cuda"`` for CUDA tensors and
+``"torch"`` for CPU ones. The function runs where its tensors live. No
+padding: the kernels mask the ragged edges of T and S themselves.
+
+Two kernels compute the same function, and :func:`_route` picks one from
+the dtype and the head width alone, never from a failure:
+
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with hd a
+  multiple of 8 in 8..256 (TMA needs 16-byte rows) — tensor cores fed by
+  a TMA ring;
+- ``"simt"`` (``csrc/flash_attention.cu``): float32 at any hd in 1..256,
+  and bfloat16 at the other widths.
+
+The wrapper checks device, dtype, shape, contiguity and (for ``wgmma``)
+16-byte alignment, launches on the current stream without synchronising,
+raises on a CUDA error and counts its launches per kernel
+(:func:`launch_counts`); it has no fallback.
 """
 
 from __future__ import annotations
@@ -25,24 +35,63 @@ from repro_torch.kernels.registry import resolve_tick_impl
 
 KERNELS = ("flash_attention",)
 
+#: Widest head either kernel takes.
+MAX_HEAD_DIM = 256
+
+#: The wgmma kernel's head-width buckets (hd runs padded to the narrowest
+#: one at least hd) and its keys per K/V tile.
+WGMMA_WIDTHS = (64, 128, 192, 256)
+WGMMA_KEYS = 64
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_FORWARD = [_P] * 4 + [_I] * 8 + [ctypes.c_float]
 
 #: argtypes of the C entry points (see ``_build.KernelLib``).
-_SIGNATURES = {
-    "fa_max_head_dim": ([], _I),
+_SIMT_SIGNATURES = {
     "fa_error_string": ([_I], ctypes.c_char_p),
-    "fa_forward": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P], _I),
+    "fa_forward": (_FORWARD + [_I, _P], _I),
+}
+_WGMMA_SIGNATURES = {
+    "fa_wgmma_error_string": ([_I], ctypes.c_char_p),
+    "fa_wgmma_forward": (_FORWARD + [_P], _I),
+    "fa_wgmma_tile_check": ([_P] * 5 + [_I, _P], _I),
 }
 
-_LIB = _build.KernelLib("flash_attention", _SIGNATURES, "fa_error_string",
-                        KERNELS)
-launch_counts = _LIB.launch_counts
-reset_launch_counts = _LIB.reset_launch_counts
+_SIMT = _build.KernelLib("flash_attention", _SIMT_SIGNATURES,
+                         "fa_error_string", ("flash_attention_simt",))
+_WGMMA = _build.KernelLib("flash_attention_wgmma", _WGMMA_SIGNATURES,
+                          "fa_wgmma_error_string",
+                          ("flash_attention_wgmma", "tile_check"))
+
+
+def launch_counts():
+    """Kernel launches since the last reset: ``flash_attention`` (both
+    kernels), ``flash_attention_wgmma`` and ``flash_attention_simt``. A
+    call that went to the plain version does not count."""
+    per_route = {"flash_attention_simt":
+                 _SIMT.launch_counts()["flash_attention_simt"],
+                 "flash_attention_wgmma":
+                 _WGMMA.launch_counts()["flash_attention_wgmma"]}
+    return {"flash_attention": sum(per_route.values()), **per_route}
+
+
+def reset_launch_counts() -> None:
+    _SIMT.reset_launch_counts()
+    _WGMMA.reset_launch_counts()
+
+
+def _route(dtype, hd: int) -> str:
+    """The kernel that takes inputs of ``dtype`` and head width ``hd``:
+    ``"wgmma"`` for bfloat16 with hd a multiple of 8 in 8..256, else
+    ``"simt"``."""
+    if dtype == torch.bfloat16 and hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM:
+        return "wgmma"
+    return "simt"
 
 
 def _attention_kernel(q, k, v, causal: bool, window: int):
-    """Launch ``csrc/flash_attention.cu`` on CUDA tensors (contract of
+    """Launch the route's kernel on CUDA tensors (contract of
     ``ref.attention``)."""
     dev = q.device
     if dev.type != "cuda":
@@ -61,19 +110,55 @@ def _attention_kernel(q, k, v, causal: bool, window: int):
     if nkv < 1 or nh % nkv:
         raise ValueError(f"{nh} query heads are not a multiple of {nkv} kv "
                          f"heads")
-    max_hd = _LIB.get().fa_max_head_dim()  # the accumulator patch's width
-    if not 1 <= hd <= max_hd:
-        raise ValueError(f"head_dim {hd} outside 1..{max_hd}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {hd} outside 1..{MAX_HEAD_DIM}: bfloat16 at a "
+            f"multiple of 8 in 8..{MAX_HEAD_DIM} runs the wgmma kernel; "
+            f"float32 at 1..{MAX_HEAD_DIM}, and bfloat16 at other widths, "
+            f"the SIMT kernel")
     if S < 1:
         raise ValueError("no keys: S must be at least 1")
     out = torch.empty_like(q)
     if T == 0 or B == 0 or nh == 0:
         return out
-    _LIB.launch("flash_attention", "fa_forward", dev,
-                *(t.data_ptr() for t in (q, k, v, out)), B, nh, nkv, T, S,
-                hd, int(bool(causal)), int(window), hd ** -0.5,
-                int(q.dtype == torch.bfloat16))
+    args = (*(t.data_ptr() for t in (q, k, v, out)), B, nh, nkv, T, S, hd,
+            int(bool(causal)), int(window), hd ** -0.5)
+    if _route(q.dtype, hd) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the wgmma kernel reads through "
+                                 f"TMA and needs a 16-byte aligned start")
+        _WGMMA.launch("flash_attention_wgmma", "fa_wgmma_forward", dev,
+                      *args)
+    else:
+        _SIMT.launch("flash_attention_simt", "fa_forward", dev, *args,
+                     int(q.dtype == torch.bfloat16))
     return out
+
+
+def _wgmma_tile_check(q, k, v):
+    """Bring-up probe of the wgmma kernel's pieces (TMA maps, swizzle,
+    descriptors, fragment layouts, the split of P into two bf16 halves) on
+    one warpgroup, without scale, masks or softmax: ``q [64, HDP]``, ``k``
+    and ``v [WGMMA_KEYS, HDP]`` contiguous bfloat16 on a CUDA device, with
+    HDP one of :data:`WGMMA_WIDTHS`. Returns float32 ``S = q k^T [64,
+    WGMMA_KEYS]`` and ``O = S v [64, HDP]``, exact for small integer
+    inputs."""
+    hdp, bk = q.shape[-1], WGMMA_KEYS
+    if hdp not in WGMMA_WIDTHS:
+        raise ValueError(f"width {hdp} is not a bucket of the wgmma kernel "
+                         f"{WGMMA_WIDTHS}")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the wgmma probe needs CUDA tensors, got {dev}")
+    _build.check_tensor("q", q, torch.bfloat16, (64, hdp), dev)
+    _build.check_tensor("k", k, torch.bfloat16, (bk, hdp), dev)
+    _build.check_tensor("v", v, torch.bfloat16, (bk, hdp), dev)
+    s = torch.empty((64, bk), dtype=torch.float32, device=dev)
+    o = torch.empty((64, hdp), dtype=torch.float32, device=dev)
+    _WGMMA.launch("tile_check", "fa_wgmma_tile_check", dev,
+                  *(t.data_ptr() for t in (q, k, v, s, o)), hdp)
+    return s, o
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

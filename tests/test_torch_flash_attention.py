@@ -91,4 +91,6 @@ def test_cuda_impl_on_cpu_tensors_raises():
         ops.flash_attention(*tt, impl="cuda")
     with pytest.raises(ValueError, match="unknown"):
         ops.flash_attention(*tt, impl="pallas")
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_simt": 0,
+                                   "flash_attention_wgmma": 0}

@@ -14,9 +14,12 @@ rtol 1e-5; carousel ``new_done``, completion and counts bitwise (the
 kernel rounds like the plain version, counts are integer atomics);
 attention in float32 at 2e-5 atol/rtol, in bfloat16 at atol 4e-3 and
 rtol 8e-3 with at most 1% of the elements unequal (both sides compute in
-float32 and round once, so they differ by at most one ulp and only next
-to a rounding boundary; SDPA, which rounds its probabilities to
-bfloat16, differs on about 40%); the Mamba scan at 1e-4 (the sum over
+float32, the wgmma kernel carrying its probabilities as two bf16 halves,
+and round once, so they differ by at most one ulp and only next to a
+rounding boundary; SDPA, which rounds its probabilities to bfloat16,
+differs on about 40%), each case through the kernel its dtype and width
+route to, and the wgmma kernel's pieces bitwise on integer inputs; the
+Mamba scan at 1e-4 (the sum over
 the state runs in another order).
 """
 
@@ -163,6 +166,15 @@ ATTENTION_CASES = [
     (1, 2, 1, 100, 100, 32, torch.float32, False, 0),
     (1, 2, 2, 80, 40, 16, torch.float32, True, 8),
     (2, 2, 1, 70, 150, 256, torch.float32, False, 16),
+    # bf16 on the wgmma kernel: both ends of its widths, ragged T and S,
+    # rows whose every key is masked, batches with a GQA group of 4
+    (1, 4, 2, 256, 256, 64, torch.bfloat16, True, 0),
+    (1, 2, 1, 200, 200, 256, torch.bfloat16, True, 0),
+    (1, 2, 1, 70, 150, 128, torch.bfloat16, False, 0),
+    (1, 2, 2, 80, 40, 64, torch.bfloat16, True, 8),
+    (2, 8, 2, 160, 160, 128, torch.bfloat16, True, 0),
+    # bf16 at a width that is not a multiple of 8: the SIMT kernel
+    (1, 4, 2, 150, 150, 100, torch.bfloat16, True, 0),
 ]
 
 
@@ -175,17 +187,39 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
                for shape in ((B, nh, T, hd), (B, nkv, S, hd),
                              (B, nkv, S, hd)))
-    before = fa_ops.launch_counts()["flash_attention"]
+    route = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "simt"
+    assert fa_ops._route(dtype, hd) == route
+    before = fa_ops.launch_counts()
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     want = fa_ref.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa_ops.launch_counts()["flash_attention"] == before + 1
+    after = fa_ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    key = f"flash_attention_{route}"
+    assert after[key] == before[key] + 1
     assert got.dtype == dtype and got.shape == q.shape
     atol, rtol = ATTENTION_BARS[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     if dtype == torch.bfloat16:
         assert int((got != want).sum()) <= 0.01 * got.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hdp", fa_ops.WGMMA_WIDTHS)
+def test_cuda_wgmma_tile_bitwise(cuda_device, hdp):
+    """The wgmma kernel's TMA maps, swizzle, descriptors, fragment layouts
+    and two-half split on one 64-row tile: with small integer inputs every
+    sum is exact, so S = q k^T and O = S v equal the plain products."""
+    bk = fa_ops.WGMMA_KEYS
+    g = torch.Generator().manual_seed(hdp)
+    q, k, v = (torch.randint(-3, 4, shape, generator=g)
+               .to(cuda_device, torch.bfloat16)
+               for shape in ((64, hdp), (bk, hdp), (bk, hdp)))
+    s, o = fa_ops._wgmma_tile_check(q, k, v)
+    s_ref = q.float() @ k.float().T
+    assert torch.equal(s, s_ref)
+    assert torch.equal(o, s_ref @ v.float())
 
 
 @pytest.mark.cuda
@@ -199,6 +233,15 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
     with pytest.raises(ValueError, match="multiple"):
         fa_ops.flash_attention(q, q[:, :1].repeat(1, 3, 1, 1), q[:, :1]
                                .repeat(1, 3, 1, 1))
+    qb = torch.randn(1, 2, 8, 64, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(qb.transpose(2, 3).contiguous()
+                               .transpose(2, 3), qb, qb)
+    # contiguous, but starting 2 bytes past TMA's 16-byte alignment
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention(shifted, qb, qb)
 
 
 @pytest.mark.cuda
