@@ -13,10 +13,13 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
    files, the grid's K window, W = 4), with a finite-limit GCS admission
    case whose every admission difference must be a tie within a few ulps
-   of the limit; prints the differences, the kernel's and the plain
-   version's milliseconds (CUDA events, after warm-up) and the bound: the
-   bytes the function needs at these inputs (dense planes once, sparse
-   reads by the 32-byte sectors they touch) over the memory rate;
+   of the limit and whose migration rank must be bitwise the plain one,
+   and a dense unlimited case; prints the differences, the kernel's and
+   the plain version's milliseconds (CUDA events, after warm-up), the
+   kernel's device time (``torch.profiler``) and the bound: the bytes the
+   function needs at these inputs (dense planes once, sparse reads by the
+   32-byte sectors they touch) over the memory rate (for ``gcs_admit``
+   also the bound of the function without its rank plane);
 4. small reference: a 1,000-file grid on the CPU's plain path against the
    card's kernel path, at the Table-2 5% bar;
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
@@ -27,7 +30,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    jobs submitted, and every kernel launched on the ``cuda`` run;
 6. profile: 40 ticks of the ``cuda`` path on the host clock, 40 more under
    ``torch.profiler`` — wall and device time per tick, the device's idle
-   share, the top kernels;
+   share, the top kernels, ``torch.cumsum``'s calls and device time per
+   tick, and the GCS candidates and admissions per lane per tick of the
+   profiled ticks (counted after them) and of 40 ticks half-way through
+   the horizon;
 7. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
@@ -332,6 +338,7 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     results["transfer_tick"] = dict(
         max_abs_err=float((got[0] - want[0]).abs().max()),
         ms=time_ms(torch, lambda: ops.transfer_tick(*args)),
+        device_us=device_us(torch, lambda: ops.transfer_tick(*args)),
         plain_ms=time_ms(torch, lambda: ref.transfer_tick(*args)),
         bound_ms=nb, bound_by=kind, library_ms=None)
     log(f"kernel transfer_tick: new_done/comp bitwise, billing max rel err "
@@ -354,6 +361,12 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     torch.cuda.synchronize()
     ties, tie_bytes = gcs_tie_check(torch, want_m, sizes, used, limit,
                                     got[0], plain[0], ref.GCS_ADMIT_PASSES)
+    # the migration rank: bitwise the plain rank of the kernel's own mask,
+    # and so the plain version's wherever the masks agree (no tie)
+    check(torch.equal(got[3], ref.admission_rank(got[0])),
+          "gcs_admit: rank differs from the per-site rank of its mask")
+    check(ties > 0 or torch.equal(got[3], plain[3]),
+          "gcs_admit: rank differs from the plain version's")
     check(torch.equal(got[0][~finite], want_m[~finite]),
           "gcs_admit: unlimited lanes must admit every candidate")
     check(bool((got[0] != want_m)[finite].any()),
@@ -371,21 +384,32 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     dp = ref.gcs_admit(dense, sizes, used, inf_limit, dt, month, n_months)
     torch.cuda.synchronize()
     check(torch.equal(dg[0], dp[0]), "gcs_admit: dense unlimited mask")
+    check(torch.equal(dg[3], dp[3]), "gcs_admit: dense unlimited rank")
     torch.testing.assert_close(dg[1], dp[1], rtol=1e-6, atol=0.0)
+    dense_ms = time_ms(torch, lambda: ops.gcs_admit(
+        dense, sizes, used, inf_limit, dt, month, n_months), n=5)
     n_cand = int(want_m.sum())
     # needed: the candidate flag in and the admission out for every file,
-    # the size only of candidates; per-lane scalars and the month row
+    # the size only of candidates; per-lane scalars and the month row; the
+    # migration rank out for every file (int32) since the kernel returns it
     need = (n * (1 + 1) + sector_bytes(torch, want_m, 4) + L * 4 * 3
             + L * n_months * 4)
-    nb, kind = bound_ms(need, 3 * n_cand * ref.GCS_ADMIT_PASSES)
+    n_ops = 3 * n_cand * ref.GCS_ADMIT_PASSES
+    nb_old, _ = bound_ms(need, n_ops)
+    nb, kind = bound_ms(need + 4 * n, n_ops)
     results["gcs_admit"] = dict(
         max_abs_err=float(u_err.max()),
         ms=time_ms(torch, lambda: ops.gcs_admit(*gargs)),
+        device_us=device_us(torch, lambda: ops.gcs_admit(*gargs)),
         plain_ms=time_ms(torch, lambda: ref.gcs_admit(*gargs)),
-        bound_ms=nb, bound_by=kind, library_ms=None)
+        bound_ms=nb, bound_by=kind, bound_ms_without_rank=nb_old,
+        library_ms=None)
     log(f"kernel gcs_admit: {n_cand} candidates, {ties} boundary ties "
-        f"(each within 16 ulps of the limit), used'/gbsec on every lane, "
-        f"dense unlimited case exact, bound counts {need / 1e6:.2f} MB")
+        f"(each within 16 ulps of the limit), rank bitwise, used'/gbsec on "
+        f"every lane, dense unlimited case ({int(dense.sum())} candidates) "
+        f"exact in {dense_ms:.4f} ms, bound counts {(need + 4 * n) / 1e6:.2f}"
+        f" MB ({need / 1e6:.2f} MB without the rank plane: bound "
+        f"{nb_old:.4f} ms)")
     del want_m, dense, got, plain, dg, dp
 
     # -- window_admit: the K job window (fifo=False) and the W = 4 wait
@@ -407,20 +431,23 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
         win_ms.append((time_ms(torch, lambda: ops.window_admit(*wargs)),
                        time_ms(torch, lambda: ref.window_admit(*wargs)),
                        # live in and admission out per candidate, the size
-                   # only of live ones; used, limit and extra per row
-                   L * S * C * (1 + 1) + sector_bytes(torch, live, 4)
-                   + L * S * (4 + 4 + 4)))
+                       # only of live ones; used, limit and extra per row
+                       L * S * C * (1 + 1) + sector_bytes(torch, live, 4)
+                       + L * S * (4 + 4 + 4),
+                       device_us(torch, lambda: ops.window_admit(*wargs))))
     nbytes = sum(w[2] for w in win_ms)
     nb, kind = bound_ms(nbytes / 2, 0.0)
     results["window_admit"] = dict(
         max_abs_err=win_err,
         ms=sum(w[0] for w in win_ms) / 2,
+        device_us=sum(w[3] for w in win_ms) / 2,
         plain_ms=sum(w[1] for w in win_ms) / 2,
         bound_ms=nb, bound_by=kind, library_ms=None)
     log(f"kernel window_admit: K={K} and W=4 windows bitwise")
     for name, r in results.items():
-        log(f"  {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+        log(f"  {name}: ms {r['ms']:.4f} device_us {r['device_us']:.1f} "
+            f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
     return results
 
 
@@ -432,6 +459,7 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.lane_tick import ops
     from repro_torch.kernels.registry import resolve_tick_impl
     from repro_torch.sim.batched import _build_lane_sim, _lane_step_fns
 
@@ -456,12 +484,42 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
     run(warm, warm + n)
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
+    # the profiled ticks keep each GCS admission's candidate plane and
+    # mask (references only: no device work added), counted afterwards
+    seen = []
+    gcs_admit = ops.gcs_admit
+
+    def keeping(want, *args, **kw):
+        out = gcs_admit(want, *args, **kw)
+        seen.append((want, out[0]))
+        return out
+
+    def run_keeping(t0, t1):
+        ops.gcs_admit = keeping
+        try:
+            run(t0, t1)
+        finally:
+            ops.gcs_admit = gcs_admit
+        torch.cuda.synchronize()
+
+    def counts(n_ticks):
+        """Mean and max GCS candidates and admissions per lane per tick
+        over the kept ticks (then dropped)."""
+        check(len(seen) == n_ticks, f"profile: {len(seen)} GCS admissions "
+                                    f"in {n_ticks} ticks")
+        cand = torch.stack([w.sum((1, 2)) for w, _ in seen]).float()
+        adm = torch.stack([a.sum((1, 2)) for _, a in seen]).float()
+        seen.clear()
+        return (f"mean {float(cand.mean()):.2f} max {int(cand.max())}; "
+                f"admissions: mean {float(adm.mean()):.2f} max "
+                f"{int(adm.max())}")
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(warm + n, warm + 2 * n)
-        torch.cuda.synchronize()
+        run_keeping(warm + n, warm + 2 * n)
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
+    profiled = counts(n)
     # device-side events only (the operators that launched them carry the
     # same time again)
     rows = sorted(((e.key, e.self_device_time_total, e.count)
@@ -479,6 +537,23 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
         f"{ours_us / n:.1f} us/tick, {len(rows)} device kernels by name")
     for key, us, count in rows[:12]:
         log(f"  {us / n:9.1f} us/tick {count // n:4d}/tick  {key[:90]}")
+    # torch.cumsum by its operator: calls and the device time under them
+    cumsum = [e for e in prof.key_averages() if e.key == "aten::cumsum"]
+    cs_calls = sum(e.count for e in cumsum)
+    cs_us = sum(e.device_time_total for e in cumsum)
+    log(f"  torch.cumsum: {cs_calls / n:.1f} calls/tick, {cs_us / n:.1f} "
+        f"us/tick of device time")
+    log(f"  GCS candidates per lane per tick, ticks {warm + n}-"
+        f"{warm + 2 * n} (the profiled ones, counted after them): "
+        f"{profiled}")
+    # the same counts half-way through the horizon, where jobs have
+    # finished and files lose their last consumer
+    mid = max(warm + 2 * n, grid.n_ticks // 2)
+    if mid + n <= grid.n_ticks:
+        run(warm + 2 * n, mid)
+        run_keeping(mid, mid + n)
+        log(f"  GCS candidates per lane per tick, ticks {mid}-{mid + n}: "
+            f"{counts(n)}")
 
 
 def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
@@ -860,8 +935,10 @@ def main(argv=None) -> int:
                     replaces=REPLACES[name], launches=n,
                     **{k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms") + (
-                        ("variant",) if "variant" in r else ())})
+                        "bound_by", "library_ms")},
+                    **{k: r[k] for k in (
+                        "variant", "device_us", "bound_ms_without_rank")
+                       if k in r})
                for name, case, n, r in cases]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} ({k['case']}) was not "

@@ -233,12 +233,15 @@ class KernelLib:
         one launch of ``kernel``."""
         import torch
 
-        lib = self.get()
+        entry = getattr(self.get(), fn)
+        if len(args) + 1 != len(entry.argtypes):  # ctypes would not check
+            raise TypeError(f"{fn}: {len(args)} arguments and the stream "
+                            f"for {len(entry.argtypes)} parameters")
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(lib, fn)(*args, stream)
+            rc = entry(*args, stream)
         if rc != 0:
-            msg = getattr(lib, self.error_fn)(rc).decode()
+            msg = getattr(self.get(), self.error_fn)(rc).decode()
             raise RuntimeError(f"{fn}: CUDA error {rc}: {msg}")
         self.launches[kernel] += 1
 

@@ -2,7 +2,7 @@
 
 - :func:`transfer_tick` — carousel transfer advance + completion billing;
 - :func:`gcs_admit` — the shared-GCS prefix-sum admission passes fused with
-  the GB-second storage integration;
+  the GB-second storage integration and the per-site migration rank;
 - :func:`window_admit` — the ``[L, S, C]`` candidate-window recurrences.
 
 ``ops`` holds the wrappers (CPU tensors go to the plain versions in

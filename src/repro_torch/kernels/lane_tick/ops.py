@@ -27,10 +27,10 @@ _LL = ctypes.c_longlong
 #: argtypes of the C entry points (see ``_build.KernelLib``).
 _SIGNATURES = {
     "lt_transfer_tiles": ([_LL], _I),
-    "lt_gcs_tiles": ([_LL], _I),
+    "lt_gcs_scratch_bytes": ([_I, _LL], _LL),
     "lt_error_string": ([_I], ctypes.c_char_p),
     "lt_transfer_tick": ([_P] * 9 + [_I, _I, _LL, _I] + [_P] * 12, _I),
-    "lt_gcs_admit": ([_P] * 6 + [_I, _LL, _I, _I] + [_P] * 8, _I),
+    "lt_gcs_admit": ([_P] * 6 + [_I, _LL, _LL, _I, _I] + [_P] * 6, _I),
     "lt_window_admit": ([_P] * 4 + [_LL, _I, _I] + [_P] * 3, _I),
 }
 
@@ -99,21 +99,23 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
     _check("limit", limit, torch.float32, (L,), dev)
     _check("dt", dt, torch.float32, (), dev)
     _check("month", month, torch.int32, (), dev)
-    lib = _LIB.get()
     N = S * F
-    n_tiles = lib.lt_gcs_tiles(N)
-    f32 = dict(dtype=torch.float32, device=dev)
-    bsum, boff, npart = (torch.empty((L, n_tiles), **f32) for _ in range(3))
-    used_cur = torch.empty((L,), **f32)
+    if N >= 2 ** 31:
+        raise ValueError(f"gcs_admit: S*F = {N} elements a lane; the kernel "
+                         f"indexes a lane with int32")
+    # tile counts, the candidate list (indices, sizes, flags) sized for N
+    # candidates a lane, per-chunk bytes: one buffer, carved by the library
+    scratch = torch.empty((_LIB.get().lt_gcs_scratch_bytes(L, N),),
+                          dtype=torch.uint8, device=dev)
     adm = torch.empty((L, S, F), dtype=torch.bool, device=dev)
-    used_out = torch.empty((L,), **f32)
-    gbsec = torch.empty((L, n_months), **f32)
+    rank = torch.empty((L, S, F), dtype=torch.int32, device=dev)
+    used_out = torch.empty((L,), dtype=torch.float32, device=dev)
+    gbsec = torch.empty((L, n_months), dtype=torch.float32, device=dev)
     _LIB.launch("gcs_admit", "lt_gcs_admit", dev,
                 *map(_ptr, (want, sizes, used, limit, dt, month)),
-                L, N, n_months, n_passes,
-                *map(_ptr, (bsum, boff, npart, used_cur, adm, used_out,
-                            gbsec)))
-    return adm, used_out, gbsec
+                L, N, F, n_months, n_passes,
+                *map(_ptr, (scratch, adm, rank, used_out, gbsec)))
+    return adm, used_out, gbsec, rank
 
 
 def window_admit(live, size, disk_used, disk_limit, fifo: bool):

@@ -9,7 +9,7 @@ order of the jnp branch of ``repro.sim.batched._lane_step_fns``:
 
 - :func:`transfer_tick` — ``batched.py:217-250``;
 - :func:`gcs_admit` — ``batched.py:318-329`` plus the end-of-tick GB-second
-  integration (``:582``);
+  integration (``:582``) and the per-site migration rank (``:337``);
 - :func:`window_admit` — ``batched.py:438-446`` (``fifo=False``) and
   ``:490-500`` (``fifo=True``).
 
@@ -81,17 +81,27 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
     return new_done, comp, tape, recall, mig, egress, cls_a, cls_b
 
 
+def admission_rank(admitted: torch.Tensor) -> torch.Tensor:
+    """Position of each admitted file among the admitted files of its own
+    (lane, site) row: ``cumsum(admitted, -1) - 1`` where ``admitted``
+    holds, ``-1`` elsewhere (int32, the shape of ``admitted``)."""
+    csum = torch.cumsum(admitted, dim=-1, dtype=torch.int32)
+    return torch.where(admitted, csum - 1, -1)
+
+
 def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
               n_passes: int = GCS_ADMIT_PASSES):
     """Shared-capacity admission over every lane's ``[L, S, F]`` candidate
     plane: ``n_passes`` passes of one global cumsum per lane over the
     site-major flattened ``S*F`` vector, each gated on the pass-start
-    occupancy, fused with the GB-second integration of the final occupancy.
+    occupancy, fused with the GB-second integration of the final occupancy
+    and the per-site rank of each admission (:func:`admission_rank`).
 
     want: ``[L,S,F]`` bool; sizes: ``[L,S,F]`` f32; used/limit: ``[L]`` f32;
     dt: 0-d f32; month: 0-d int.
 
-    Returns ``(admitted [L,S,F] bool, used' [L] f32, gbsec [L,n_months])``.
+    Returns ``(admitted [L,S,F] bool, used' [L] f32, gbsec [L,n_months],
+    rank [L,S,F] int32)``.
     """
     L = want.shape[0]
     want_flat = want.reshape(L, -1)
@@ -104,7 +114,8 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
         used = used + (sizes_flat * new).sum(1)
         admitted = admitted | new
     gbsec = month_onehot(month, n_months) * (used / 1e9 * dt)[:, None]
-    return admitted.view(want.shape), used, gbsec
+    admitted = admitted.view(want.shape)
+    return admitted, used, gbsec, admission_rank(admitted)
 
 
 def window_admit(live, size, disk_used, disk_limit, fifo: bool):

@@ -160,7 +160,7 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         delete = cand & (~gcs_en | (gs == PRESENT)
                          | ((gs == ABSENT) & ~pop_ok))
         want_mig = cand & migratable
-        mig, gcs_used, gbsec_add = lt.gcs_admit(
+        mig, gcs_used, gbsec_add, rank = lt.gcs_admit(
             want_mig, sizes, st["gcs_used"], c["gcs_limit"], dt, month,
             n_months, GCS_ADMIT_PASSES)
         st["gcs_used"] = gcs_used
@@ -168,13 +168,16 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         st["disk_used"] = st["disk_used"] - (sizes * delete).sum(-1)
         st["disk_state"] = torch.where(delete, ABSENT, st["disk_state"])
         # submit migrations on each site's disk->gcs link (FIFO: direct
-        # slots only while the link queue is empty, overflow queues)
-        rank = torch.cumsum(mig.to(torch.float32), dim=-1) - 1.0
+        # slots only while the link queue is empty, overflow queues). rank
+        # is each admission's place among its site's admissions; the direct
+        # ones are the first n_direct of them (or none while the queue is
+        # busy), so a queued file's place in the queue is rank - n_direct.
         q_empty = (lqn3[..., 2] == lqs3[..., 2])[..., None]
         free_m = torch.clamp_min(slots3[..., 2] - occ3[..., 2], 0.0)[..., None]
         direct = mig & q_empty & (rank < free_m)
         queued = mig & ~direct
-        qrank = torch.cumsum(queued, dim=-1, dtype=torch.int32) - 1
+        n_direct = direct.sum(-1, keepdim=True, dtype=torch.int32)
+        qrank = rank - n_direct
         st["tr_slot"] = st["tr_slot"] | direct
         st["tr_link"] = torch.where(mig, c["mig_link"], st["tr_link"])
         st["tr_total"] = torch.where(mig, sizes, st["tr_total"])
@@ -184,7 +187,7 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
                                       st["lq_ticket"])
         st["lq_queued"] = st["lq_queued"] | queued
         lqn3[..., 2] += queued.sum(-1, dtype=torch.int32)
-        occ3[..., 2] += direct.sum(-1).to(torch.float32)
+        occ3[..., 2] += n_direct[..., 0].to(torch.float32)
 
         # -- candidate windows: this tick's job arrivals (K per site) and
         # the waiting-queue heads (W per site) as prefix recurrences over

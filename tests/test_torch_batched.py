@@ -11,6 +11,8 @@ source of difference in the float aggregates, held at rtol 1e-5. On the
 ``repro``'s own implementations.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -75,6 +77,15 @@ def test_tiny_grid_matches_jnp_program():
     ref = jx_simulate_packed(grid, tick_impl="jnp")
     got = simulate_packed(packed_grid_from_arrays(grid), tick_impl="torch",
                           device="cpu")
+    _assert_exact_parity(ref, got)
+    # the grid exercised the paths: jobs ran, files crossed every tier
+    assert (got["jobs_done_site"] > 0).all()
+    assert (got["diskgcs_b"].sum(1) > 0).sum() >= 3
+    assert (got["gcsdisk_b"].sum(1) > 0).any()
+
+
+def _assert_exact_parity(ref, got):
+    """Integer-valued outputs exact, float aggregates at rtol 1e-5."""
     assert set(got) == set(ref)
     for key, want in ref.items():
         want = np.asarray(want)
@@ -84,10 +95,27 @@ def test_tiny_grid_matches_jnp_program():
         else:
             assert got[key].dtype == want.dtype, key
             np.testing.assert_allclose(got[key], want, rtol=1e-5, err_msg=key)
-    # the grid exercised the paths: jobs ran, files crossed every tier
-    assert (got["jobs_done_site"] > 0).all()
-    assert (got["diskgcs_b"].sum(1) > 0).sum() >= 3
-    assert (got["gcsdisk_b"].sum(1) > 0).any()
+
+
+def test_busy_migration_queue_matches_jnp_program():
+    """Two disk->GCS slots per site, so migrations overflow into the link
+    queue and later ones arrive while it is busy: both branches of the
+    queue-rank glue (``rank - n_direct``, direct slots only while the
+    queue is empty) run, against the jnp program's second cumsum."""
+    specs = [
+        jx.ScenarioSpec(base="III", cache_tb=10.0, seed=1, **TINY),
+        jx.ScenarioSpec(base="III", cache_tb=15.0, gcs_limit_tb=5.0,
+                        seed=3, **TINY),
+    ]
+    grid = jx.pack_specs(specs, tick=10.0)
+    slots = np.array(grid.link_slots, copy=True)
+    slots[:, 2::3] = 2.0  # link 3*site + 2: disk -> GCS
+    grid = dataclasses.replace(grid, link_slots=slots)
+    ref = jx_simulate_packed(grid, tick_impl="jnp")
+    got = simulate_packed(packed_grid_from_arrays(grid), tick_impl="torch",
+                          device="cpu")
+    _assert_exact_parity(ref, got)
+    assert (got["diskgcs_b"].sum(1) > 0).all()
 
 
 @pytest.fixture(scope="module")

@@ -10,8 +10,11 @@ Bars: transfer ``new_done`` and completion bitwise (the kernel rounds like
 the plain version's separate ops), billing at rtol 1e-6 (reduction
 order); windows bitwise; GCS admission equal except at capacity-boundary
 ties (no bitwise promise against ``torch.cumsum``'s order), occupancy at
-rtol 1e-5; carousel ``new_done``, completion and counts bitwise (the
-kernel rounds like the plain version, counts are integer atomics);
+rtol 1e-5, the migration rank bitwise against the per-site rank of the
+kernel's own mask (and of the plain version's, where the masks agree),
+two calls bitwise equal; carousel ``new_done``, completion and counts
+bitwise (the kernel rounds like the plain version, counts are integer
+atomics);
 attention in float32 at 2e-5 atol/rtol, in bfloat16 at atol 4e-3 and
 rtol 8e-3 with at most 1% of the elements unequal (both sides compute in
 float32, the wgmma kernel carrying its probabilities as two bf16 halves,
@@ -23,6 +26,7 @@ Mamba scan at 1e-4 (the sum over
 the state runs in another order).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,19 +70,128 @@ def test_cuda_transfer_tick_bitwise(cuda_device):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
 
 
+def _gcs_run(want, sizes, used, limit, dt=10.0, month=1):
+    """One kernel call and the plain version on the same inputs; the kernel
+    must launch once and its rank be the per-site rank of its own mask."""
+    dev = want.device
+    dt_t = torch.tensor(dt, dtype=torch.float32, device=dev)
+    month_t = torch.tensor(month, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["gcs_admit"]
+    got = ops.gcs_admit(want, sizes, used, limit, dt_t, month_t, N_MONTHS)
+    plain = ref.gcs_admit(want, sizes, used, limit, dt_t, month_t, N_MONTHS)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gcs_admit"] == before + 1
+    assert got[0].dtype == torch.bool and got[3].dtype == torch.int32
+    assert got[0].shape == want.shape and got[3].shape == want.shape
+    assert torch.equal(got[3], ref.admission_rank(got[0]))
+    return got, plain
+
+
+def _assert_gcs_equal(got, plain):
+    """Mask and rank bitwise, occupancy and GB-seconds at rtol 1e-6."""
+    assert torch.equal(got[0], plain[0])
+    assert torch.equal(got[3], plain[3])
+    torch.testing.assert_close(got[1], plain[1], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-6, atol=0.0)
+
+
 @pytest.mark.cuda
 def test_cuda_gcs_admit_matches_plain(cuda_device):
     want, sizes, used0, limit = (torch.as_tensor(a, device=cuda_device)
                                  for a in gcs_inputs(S=2, F=20000))
-    dt, month = scalars(cuda_device, dt=10.0)
-    before = ops.launch_counts()["gcs_admit"]
-    got = ops.gcs_admit(want, sizes, used0, limit, dt, month, N_MONTHS)
-    plain = ref.gcs_admit(want, sizes, used0, limit, dt, month, N_MONTHS)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["gcs_admit"] == before + 1
+    got, plain = _gcs_run(want, sizes, used0, limit)
     assert int((got[0] != plain[0]).sum()) <= 2
     torch.testing.assert_close(got[1], plain[1], rtol=1e-5, atol=0.0)
     assert torch.equal(got[0][-1], want[-1])  # unlimited lane
+    if torch.equal(got[0], plain[0]):
+        assert torch.equal(got[3], plain[3])
+
+
+def _gcs_case(case, device):
+    """(want, sizes, used, limit) of one edge case; sizes 1 MB to 1 GB,
+    occupancy 1 to 3 GB, the last lane unlimited where L > 1."""
+    L, S, F = {"no candidates": (3, 2, 5000),
+               "all candidates": (3, 4, 3000),
+               "last partial tile, vector loads": (2, 2, 5000),
+               "last partial tile, byte loads": (2, 2, 5001),
+               "N not a multiple of the tile": (3, 3, 4099),
+               "unaligned want": (2, 2, 4096),
+               "L = 1": (1, 2, 7000),
+               "sites without candidates": (2, 5, 3000)}[case]
+    rng = np.random.default_rng(len(case))
+    sizes = rng.uniform(1e6, 1e9, (L, S, F)).astype(np.float32)
+    used = rng.uniform(1e9, 3e9, L).astype(np.float32)
+    want = rng.random((L, S, F)) < 0.3
+    if case == "no candidates":
+        want[:] = False
+    elif case == "all candidates":
+        want[:] = True
+    elif case.startswith("last partial tile"):
+        tile = 4096  # the kernel's tile of candidate flags
+        flat = want.reshape(L, S * F)
+        flat[:, :(S * F - 1) // tile * tile] = False
+    elif case == "sites without candidates":
+        want[:, 1] = False
+        want[:, 3] = False
+    wanted = (sizes * want).sum((1, 2))
+    limit = (used + 0.5 * wanted).astype(np.float32)
+    if L > 1:
+        limit[-1] = np.inf
+    t = [torch.as_tensor(a, device=device)
+         for a in (want, sizes, used, limit)]
+    if case == "unaligned want":  # contiguous, one byte past 16-byte lines
+        buf = torch.zeros(want.size + 1, dtype=torch.bool, device=device)
+        t[0] = buf[1:].view(want.shape)
+        t[0].copy_(torch.as_tensor(want, device=device))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "no candidates", "all candidates", "last partial tile, vector loads",
+    "last partial tile, byte loads", "N not a multiple of the tile",
+    "unaligned want", "L = 1", "sites without candidates"])
+def test_cuda_gcs_admit_edge_cases(cuda_device, case):
+    want, sizes, used, limit = _gcs_case(case, cuda_device)
+    got, plain = _gcs_run(want, sizes, used, limit)
+    # a lane with a finite limit: equal to the plain version but at ties
+    n_diff = int((got[0] != plain[0]).sum())
+    assert n_diff <= 2, f"{n_diff} admissions differ"
+    if n_diff == 0:
+        _assert_gcs_equal(got, plain)
+    if want.shape[0] > 1:  # the unlimited lane admits every candidate
+        assert torch.equal(got[0][-1], want[-1])
+    if case == "no candidates":
+        assert not bool(got[0].any()) and bool((got[3] == -1).all())
+        assert torch.equal(got[1], used)
+
+
+@pytest.mark.cuda
+def test_cuda_gcs_admit_limit_at_first_candidate(cuda_device):
+    """A limit equal to the occupancy plus the first candidate's size
+    admits exactly that candidate in every lane (an exact tie at the
+    gate, the same float sum on both sides)."""
+    want, sizes, used, _ = _gcs_case("L = 1", cuda_device)
+    want, sizes = want.repeat(3, 1, 1), sizes.repeat(3, 1, 1)
+    used = used.repeat(3) + torch.tensor([0.0, 1e9, 2e9], device=cuda_device)
+    flat = want.reshape(3, -1)
+    first = flat.to(torch.int8).argmax(1)
+    limit = used + sizes.reshape(3, -1).gather(1, first[:, None])[:, 0]
+    got, plain = _gcs_run(want, sizes, used, limit)
+    _assert_gcs_equal(got, plain)
+    assert got[0].reshape(3, -1).sum(1).tolist() == [1, 1, 1]
+    assert bool(got[0].reshape(3, -1).gather(1, first[:, None]).all())
+    assert torch.equal(got[1], limit)
+
+
+@pytest.mark.cuda
+def test_cuda_gcs_admit_two_calls_bitwise(cuda_device):
+    want, sizes, used0, limit = (torch.as_tensor(a, device=cuda_device)
+                                 for a in gcs_inputs(S=2, F=50000, seed=3))
+    a, _ = _gcs_run(want, sizes, used0, limit)
+    b, _ = _gcs_run(want, sizes, used0, limit)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

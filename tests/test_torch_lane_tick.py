@@ -8,7 +8,8 @@ interpret mode on the inputs ``tests/test_kernels.py`` builds:
 - transfer: completion mask exact, ``new_done`` at rtol 1e-6 (the Pallas
   trace may fuse a multiply-add), billing at rtol 1e-5 (reduction order);
 - shared-GCS admission: the mask exact against the global-cumsum numpy
-  oracle (and the interpret kernel), occupancy at rtol 1e-5;
+  oracle (and the interpret kernel), occupancy at rtol 1e-5, the
+  migration rank exact (the per-site cumsum of that mask, ``-1`` off it);
 - candidate windows: bitwise.
 
 The CUDA kernels themselves are held against the plain versions on a card
@@ -76,7 +77,7 @@ def test_transfer_tick_plain_matches_pallas_per_lane():
 def test_gcs_admit_plain_matches_global_cumsum_oracle():
     want, sizes, used0, limit = gcs_inputs()
     dt, month = scalars(dt=60.0)
-    adm, used, gbsec = ref.gcs_admit(
+    adm, used, gbsec, _ = ref.gcs_admit(
         torch.as_tensor(want), torch.as_tensor(sizes),
         torch.as_tensor(used0), torch.as_tensor(limit), dt, month, N_MONTHS,
         n_passes=ref.GCS_ADMIT_PASSES)
@@ -98,6 +99,48 @@ def test_gcs_admit_plain_matches_global_cumsum_oracle():
     # the finite limits bind, the infinite one admits every candidate
     assert not np.array_equal(adm[0].numpy(), want[0])
     np.testing.assert_array_equal(adm[-1].numpy(), want[-1])
+
+
+def _site_rank(mask):
+    """The jnp tick's migration rank (``repro/sim/batched.py:337``): the
+    per-site cumsum of the admitted mask, minus one, ``-1`` off the mask."""
+    return np.where(mask, np.cumsum(mask, axis=-1) - 1, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_gcs_admit_rank_is_site_cumsum_of_jnp_admissions(seed):
+    want, sizes, used0, limit = gcs_inputs(seed=seed)
+    dt, month = scalars(dt=60.0)
+    adm, _, _, rank = ref.gcs_admit(
+        torch.as_tensor(want), torch.as_tensor(sizes),
+        torch.as_tensor(used0), torch.as_tensor(limit), dt, month, N_MONTHS)
+    assert rank.dtype == torch.int32 and rank.shape == adm.shape
+    onehot = np.zeros(N_MONTHS, np.float32)
+    onehot[MONTH] = 1.0
+    for li in range(want.shape[0]):
+        oracle, _ = _gcs_numpy_oracle(want[li], sizes[li], used0[li],
+                                      limit[li], ref.GCS_ADMIT_PASSES)
+        np.testing.assert_array_equal(rank[li].numpy(), _site_rank(oracle))
+        pallas = jx_lane_tick.gcs_admit(
+            jnp.asarray(want[li]), jnp.asarray(sizes[li]), used0[li],
+            limit[li], 60.0, jnp.asarray(onehot),
+            n_passes=ref.GCS_ADMIT_PASSES, interpret=True)
+        np.testing.assert_array_equal(
+            rank[li].numpy(), _site_rank(np.asarray(pallas[0]) > 0.5))
+    # every site of the unlimited lane ranks 0..n-1 over its candidates
+    for s in range(want.shape[1]):
+        got = rank[-1, s].numpy()
+        np.testing.assert_array_equal(np.sort(got[want[-1, s]]),
+                                      np.arange(want[-1, s].sum()))
+
+
+def test_admission_rank_restarts_per_site_row():
+    T, F = True, False
+    mask = torch.tensor([[[T, F, T, T], [F, T, F, T]],
+                         [[F, F, F, F], [T, T, F, F]]])
+    assert ref.admission_rank(mask).tolist() == [
+        [[0, -1, 1, 2], [-1, 0, -1, 1]],
+        [[-1, -1, -1, -1], [0, 1, -1, -1]]]
 
 
 @pytest.mark.parametrize("fifo", [False, True])
