@@ -12,14 +12,16 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 3. kernel phase: each hand-written kernel against its plain PyTorch version
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
    files, the grid's K window, W = 4), with a finite-limit GCS admission
-   case whose every admission difference must be a tie within a few ulps
+   case whose every admission difference must be a tie within 16 ulps
    of the limit and whose migration rank must be bitwise the plain one,
-   and a dense unlimited case; prints the differences, the kernel's and
-   the plain version's milliseconds (CUDA events, after warm-up), the
-   kernel's device time (``torch.profiler``) and the bound: the bytes the
-   function needs at these inputs (dense planes once, sparse reads by the
-   32-byte sectors they touch) over the memory rate (for ``gcs_admit``
-   also the bound of the function without its rank plane);
+   a dense unlimited case, and the dense candidates (share 0.3) under
+   finite limits, held to the same tie bar; prints the differences, the
+   kernel's and the plain version's milliseconds (CUDA events, after
+   warm-up), the kernel's device time (``torch.profiler``) and the bound:
+   the bytes the function needs at these inputs (dense planes once,
+   sparse reads by the 32-byte sectors they touch) over the memory rate
+   (for ``gcs_admit`` also the bound of the function without its rank
+   plane);
 4. small reference: a 1,000-file grid on the CPU's plain path against the
    card's kernel path, at the Table-2 5% bar;
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
@@ -204,35 +206,45 @@ def sector_bytes(torch, mask, itemsize: int) -> int:
     return 32 * int(flat.view(-1, per).any(-1).sum())
 
 
+def transfer_bound(torch, active, comp, n_months: int):
+    """Bytes and operations ``transfer_tick`` needs at these inputs: the
+    active flag, done and total in and new_done and the completion flag
+    out for every file; the link id only of active transfers and the size
+    only of completions (by the 32-byte sectors they touch); the per-link
+    and per-lane vectors. Operations: a compare and a select per file, a
+    rate, multiply, add and compare per active transfer, an add per
+    completion."""
+    L, S, _ = active.shape
+    n = active.numel()
+    need = (n * (1 + 4 + 4) + n * (4 + 1) + sector_bytes(torch, active, 4)
+            + sector_bytes(torch, comp, 4) + L * 3 * S * 8
+            + 3 * L * S * 4 + 3 * L * n_months * 4)
+    return need, 2 * n + 4 * int(active.sum()) + int(comp.sum())
+
+
 def gcs_tie_check(torch, want, sizes, used, limit, got, plain, n_passes,
                   ulps: int = 16):
     """Hold the kernel's GCS admission to the plain version's up to ties.
 
-    Replays the plain passes and keeps, per candidate, the least distance
-    of its gate value ``used + cumsum`` to the limit over the passes that
+    Replays the plain passes (``ref.gcs_gate_distance``: the prefix and
+    the gate in float64) and keeps, per candidate, the least distance of
+    its gate value ``used + cumsum`` to the limit over the passes that
     still held it. A candidate the two admit differently must lie within
     ``ulps`` float32 ulps of a finite limit there: the kernel sums in
     another order than ``torch.cumsum``, and nothing else may differ.
     Returns the count of tied candidates and their bytes per lane."""
+    from repro_torch.kernels.lane_tick import ref
+
     L = want.shape[0]
-    w, sz = want.reshape(L, -1), sizes.reshape(L, -1)
-    dist = torch.full_like(sz, float("inf"))
-    adm = torch.zeros_like(w)
-    u = used
-    for _ in range(n_passes):
-        rem = w & ~adm
-        gate = u[:, None] + torch.cumsum(sz * rem, dim=1)
-        dist = torch.where(rem, torch.minimum(
-            dist, (gate - limit[:, None]).abs()), dist)
-        new = rem & (gate <= limit[:, None])
-        u = u + (sz * new).sum(1)
-        adm = adm | new
+    sz = sizes.reshape(L, -1)
+    adm, _, dist = ref.gcs_gate_distance(want, sizes, used, limit, n_passes)
     check(torch.equal(adm, plain.reshape(L, -1)),
           "gcs_admit: the replay of the plain passes disagrees with ref")
     diff = got.reshape(L, -1) != adm
     tol = torch.where(torch.isfinite(limit),
-                      ulps * torch.finfo(torch.float32).eps * limit.abs(),
-                      torch.zeros_like(limit))
+                      ulps * torch.finfo(torch.float32).eps
+                      * limit.double().abs(),
+                      torch.zeros_like(limit, dtype=torch.float64))
     bad = int((diff & ~(dist <= tol[:, None])).sum())
     check(bad == 0, f"gcs_admit: {bad} admission differences farther than "
                     f"{ulps} ulps from the limit")
@@ -328,13 +340,8 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     check(n_comp > 0, "transfer_tick: no completion exercised")
     n = L * S * F
     n_act = int(active.sum())
-    # needed: active, done and total in and new_done and the completion
-    # flag out for every file; the link id only of active transfers, the
-    # size only of completions; the per-link and per-lane vectors
-    need = (n * (1 + 4 + 4) + n * (4 + 1) + sector_bytes(torch, active, 4)
-            + sector_bytes(torch, got[1], 4) + L * 3 * S * 8
-            + 3 * L * S * 4 + 3 * L * n_months * 4)
-    nb, kind = bound_ms(need, 2 * n + 4 * n_act + n_comp)
+    need, n_ops = transfer_bound(torch, active, got[1], n_months)
+    nb, kind = bound_ms(need, n_ops)
     results["transfer_tick"] = dict(
         max_abs_err=float((got[0] - want[0]).abs().max()),
         ms=time_ms(torch, lambda: ops.transfer_tick(*args)),
@@ -388,6 +395,20 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     torch.testing.assert_close(dg[1], dp[1], rtol=1e-6, atol=0.0)
     dense_ms = time_ms(torch, lambda: ops.gcs_admit(
         dense, sizes, used, inf_limit, dt, month, n_months), n=5)
+    # the same dense candidates under finite limits on half the lanes:
+    # about 600k candidates a lane summed in two orders, each difference a
+    # tie within 16 ulps of the limit
+    dense_limit = torch.where(finite, used + 0.5 * (sizes * dense).sum(
+        (1, 2)), inf_limit)
+    dl = ops.gcs_admit(dense, sizes, used, dense_limit, dt, month, n_months)
+    dlp = ref.gcs_admit(dense, sizes, used, dense_limit, dt, month,
+                        n_months)
+    torch.cuda.synchronize()
+    dense_ties, _ = gcs_tie_check(torch, dense, sizes, used, dense_limit,
+                                  dl[0], dlp[0], ref.GCS_ADMIT_PASSES)
+    check(bool((dl[0] != dense)[finite].any()),
+          "gcs_admit: the dense finite limit did not bind")
+    del dl, dlp
     n_cand = int(want_m.sum())
     # needed: the candidate flag in and the admission out for every file,
     # the size only of candidates; per-lane scalars and the month row; the
@@ -407,7 +428,9 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     log(f"kernel gcs_admit: {n_cand} candidates, {ties} boundary ties "
         f"(each within 16 ulps of the limit), rank bitwise, used'/gbsec on "
         f"every lane, dense unlimited case ({int(dense.sum())} candidates) "
-        f"exact in {dense_ms:.4f} ms, bound counts {(need + 4 * n) / 1e6:.2f}"
+        f"exact in {dense_ms:.4f} ms, dense case with finite limits on half "
+        f"the lanes: {dense_ties} boundary ties (each within 16 ulps of the "
+        f"limit), bound counts {(need + 4 * n) / 1e6:.2f}"
         f" MB ({need / 1e6:.2f} MB without the rank plane: bound "
         f"{nb_old:.4f} ms)")
     del want_m, dense, got, plain, dg, dp

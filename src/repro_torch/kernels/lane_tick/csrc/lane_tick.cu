@@ -33,27 +33,33 @@ namespace {
 
 constexpr int kWarp = 32;
 
+// Fixed-order sum over the 32 lanes of a warp (valid in lane 0).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Fixed-order block reduction: warp shuffle tree, then warp 0 reduces the
 // warp sums. The order depends only on blockDim, so the result is
 // reproducible. Valid in thread 0. Every thread of the block must call it.
 template <typename T>
 __device__ T block_sum(T v) {
   __shared__ T warp_sums[32];
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  v = warp_sum(v);
   const int lane = threadIdx.x & (kWarp - 1);
   const int wid = threadIdx.x / kWarp;
   if (lane == 0) warp_sums[wid] = v;
   __syncthreads();
   const int nw = blockDim.x / kWarp;
   v = (static_cast<int>(threadIdx.x) < nw) ? warp_sums[threadIdx.x] : T(0);
-  if (wid == 0)
-    for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (wid == 0) v = warp_sum(v);
   __syncthreads();  // warp_sums may be reused by the next call
   return v;
 }
 
-struct AddF {
-  __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
+struct AddD {
+  __device__ double operator()(double a, double b) const { return __dadd_rn(a, b); }
 };
 struct AddI {
   __device__ int operator()(int a, int b) const { return a + b; }
@@ -105,148 +111,355 @@ __device__ T block_exclusive_scan(T v, T id, Op op, T* total) {
 // ---------------------------------------------------------------------------
 // transfer tick
 //
-// Replaces transfer_kernel (lane_tick.py:81). Per element it reads link id,
-// active flag, done, total and size (17 bytes) and writes new_done and the
-// completion flag (5 bytes); the per-link-type counts it needs first are a
-// reduction over the whole site row. Design: pass 1 counts active
-// transfers per (lane, site, link type) with one integer atomic per block
-// and type (exact, order-free); pass 2 streams the row once more with
-// coalesced loads, advances and classifies, and leaves per-block billing
-// partials; pass 3, one block per lane, sums those partials in a fixed
-// order. Passes 1 and 2 read link and active twice (5 of 22 bytes): the
-// price of blocks that cannot carry counts from one to the next.
-// new_done rounds like the plain version's separate ops (__fmul_rn /
-// __fadd_rn / __fdiv_rn, no FMA contraction), so it matches bitwise.
+// Replaces transfer_kernel (lane_tick.py:81). What bounds it: for every
+// element the function must read the active flag, done and total and
+// write new_done and the completion flag (14 bytes); it needs the link id
+// only of active transfers and the size only of completions. That is
+// device-memory bandwidth (224 MB at 8 x 2 x 1M). The per-link-type active
+// counts it needs before any rate are a reduction over the whole site
+// row, so a pass that counts must end before any active transfer can
+// advance. Active transfers are few in the sweep's tick (a few thousand of
+// 16M) but may be all of them (unlimited link slots), so the design reads
+// the link id and the size only where they are needed, at any share:
+//
+//   tt_count_kernel    one tile of 16384 elements of a row per block, 16
+//                      block-striped groups of 4 a thread: the active flags
+//                      (4-byte loads, 1 byte an element), the link id of
+//                      active elements only; writes the tile's active count
+//                      per link type. Its tile is 4 of the advance's, so
+//                      that its blocks, which move little each, are few;
+//   tt_advance_kernel  one tile of 4096 elements per block, 4 block-striped
+//                      groups of 4 a thread (every warp instruction moves
+//                      one contiguous line): flags, done and total of every
+//                      element, the link id of active ones; writes new_done
+//                      and comp once, reads the size of completions only.
+//                      A tile whose counting tile holds an active element
+//                      first sums its row's per-type counts (integers, no
+//                      atomics; one warp) into the three rates. Billing
+//                      partials are summed per warp, then over the warps,
+//                      in a fixed order;
+//   tt_fold_kernel     one block per lane folds the partials in a fixed
+//                      order into the per-site bytes and the month rows.
+//
+// So the flags are read twice (16 of 240 MB at sparse shares), and so are
+// the link ids of active elements. Finishing each warp's 512-element unit
+// without an active transfer in the counting pass moves fewer bytes and
+// was measured slower on an H100 (PERF.md): it leaves each tile's writes
+// to two kernels, and the second kernel's blocks are bound by the latency
+// of their dependent loads. A list of active indices would move more
+// bytes than the tile above a few percent of active elements (an index
+// written and read back, then scattered reads and writes of done, total
+// and the outputs). new_done rounds like the plain version's
+// separate ops (__fmul_rn / __fadd_rn / __fdiv_rn, no FMA contraction), so
+// it matches bitwise; an inactive element's is min(total, done + 0), what
+// the plain version computes at a finite rate. Every grid is sized from
+// the shapes; the wrapper reads nothing back.
 // ---------------------------------------------------------------------------
 
 constexpr int kTtThreads = 256;
-constexpr int kTtItems = 4;
-constexpr int kTtTile = kTtThreads * kTtItems;
+constexpr int kTtGroups = 4;                         // 4-element groups a thread
+constexpr int kTtTile = kTtThreads * kTtGroups * 4;  // 4096 elements a block
+constexpr int kTtCountSpan = 4;  // advance tiles a counting block covers
+constexpr int kTtCountGroups = kTtGroups * kTtCountSpan;
+constexpr int kTtCountTile = kTtTile * kTtCountSpan;  // 16384 elements
 
-__global__ void tt_count_kernel(const int32_t* __restrict__ link,
-                                const uint8_t* __restrict__ active,
-                                int64_t F, int32_t* __restrict__ counts) {
-  const int64_t row = blockIdx.y;
-  const int64_t base = row * F;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTtTile;
-  int c0 = 0, c1 = 0, c2 = 0;
-  for (int i = 0; i < kTtItems; ++i) {
-    const int64_t f = start + static_cast<int64_t>(i) * kTtThreads + threadIdx.x;
-    if (f < F && active[base + f]) {
-      const int t = link[base + f] % 3;
-      c0 += (t == 0);
-      c1 += (t == 1);
-      c2 += (t == 2);
-    }
+// The group of 4 elements of a row at f: element b's active flag in byte b
+// (0 past F). vec: one 4-byte load (F % 4 == 0 and the rows aligned, so a
+// group lies wholly inside or outside the row).
+__device__ __forceinline__ uint32_t tt_flags(const uint8_t* __restrict__ row,
+                                             int64_t f, int64_t F, int vec) {
+  if (vec) return f < F ? *reinterpret_cast<const uint32_t*>(row + f) : 0u;
+  uint32_t w = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (f + b < F && row[f + b]) w |= 1u << (8 * b);
+  return w;
+}
+
+__device__ __forceinline__ bool tt_on(uint32_t w, int b) {
+  return (w >> (8 * b)) & 1u;
+}
+
+// The link type (link id mod 3, as torch.remainder) of the active elements
+// of the group at f; 0 elsewhere.
+__device__ __forceinline__ void tt_types(const int32_t* __restrict__ row,
+                                         int64_t f, int vec, uint32_t w,
+                                         int t[4]) {
+  int l[4] = {0, 0, 0, 0};
+  if (vec) {
+    const int4 q = *reinterpret_cast<const int4*>(row + f);
+    l[0] = q.x;
+    l[1] = q.y;
+    l[2] = q.z;
+    l[3] = q.w;
+  } else {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (tt_on(w, b)) l[b] = row[f + b];
   }
-  c0 = block_sum(c0);
-  c1 = block_sum(c1);
-  c2 = block_sum(c2);
-  if (threadIdx.x == 0) {
-    if (c0) atomicAdd(&counts[row * 3 + 0], c0);
-    if (c1) atomicAdd(&counts[row * 3 + 1], c1);
-    if (c2) atomicAdd(&counts[row * 3 + 2], c2);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int r = l[b] % 3;
+    t[b] = tt_on(w, b) ? (r < 0 ? r + 3 : r) : 0;
   }
 }
 
-__global__ void tt_advance_kernel(
-    const int32_t* __restrict__ link, const uint8_t* __restrict__ active,
-    const float* __restrict__ done, const float* __restrict__ total,
-    const float* __restrict__ sizes, const float* __restrict__ bw,
-    const int32_t* __restrict__ mode, const float* __restrict__ dt_ptr,
-    const int32_t* __restrict__ counts, int S, int64_t F,
-    float* __restrict__ new_done, uint8_t* __restrict__ comp,
-    float* __restrict__ part_bytes, int32_t* __restrict__ part_cnt) {
-  const int64_t row = blockIdx.y;
-  const int64_t lane_id = row / S;
-  const int64_t site = row % S;
-  const int64_t base = row * F;
-  const int64_t link0 = lane_id * 3 * S + 3 * site;
-  float rate[3];
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    const float b = bw[link0 + t];
-    const float cnt = static_cast<float>(counts[row * 3 + t]);
-    const float shared = __fdiv_rn(b, fmaxf(cnt, 1.0f));
-    rate[t] = (mode[link0 + t] > 0) ? b : shared;
+__device__ __forceinline__ void tt_load(const float* __restrict__ row,
+                                        int64_t f, int64_t F, int vec,
+                                        float x[4]) {
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(row + f);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+    return;
   }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) x[b] = f + b < F ? row[f + b] : 0.0f;
+}
+
+// new_done of the group and its completion flags (one per byte).
+__device__ __forceinline__ void tt_store(float* __restrict__ nd_row,
+                                         uint8_t* __restrict__ comp_row,
+                                         int64_t f, int64_t F, int vec,
+                                         const float nd[4], uint32_t c) {
+  if (vec) {
+    *reinterpret_cast<float4*>(nd_row + f) =
+        make_float4(nd[0], nd[1], nd[2], nd[3]);
+    *reinterpret_cast<uint32_t*>(comp_row + f) = c;
+    return;
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (f + b < F) {
+      nd_row[f + b] = nd[b];
+      comp_row[f + b] = tt_on(c, b) ? 1 : 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTtThreads)
+tt_count_kernel(const int32_t* __restrict__ link,
+                const uint8_t* __restrict__ active, int64_t F, int vec,
+                int4* __restrict__ tcount) {
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * F;
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTtCountTile;
+  const int tid = threadIdx.x;
+  // per-type counts packed in 16-bit fields: a tile holds at most 16384
+  // elements, so no field carries into the next
+  unsigned long long packed = 0ull;
+#pragma unroll
+  for (int g = 0; g < kTtCountGroups; ++g) {
+    const int64_t f = tile0 + 4 * (g * kTtThreads + tid);
+    const uint32_t w = tt_flags(active + base, f, F, vec);
+    if (w) {
+      int t[4];
+      tt_types(link + base, f, vec, w, t);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (tt_on(w, b)) packed += 1ull << (16 * t[b]);
+    }
+  }
+  packed = block_sum(packed);
+  if (tid == 0) {
+    const int c0 = static_cast<int>(packed & 0xffffu);
+    const int c1 = static_cast<int>((packed >> 16) & 0xffffu);
+    const int c2 = static_cast<int>((packed >> 32) & 0xffffu);
+    tcount[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] =
+        make_int4(c0, c1, c2, c0 + c1 + c2);
+  }
+}
+
+__global__ void __launch_bounds__(kTtThreads)
+tt_advance_kernel(const int32_t* __restrict__ link,
+                  const uint8_t* __restrict__ active,
+                  const float* __restrict__ done,
+                  const float* __restrict__ total,
+                  const float* __restrict__ sizes,
+                  const float* __restrict__ bw,
+                  const int32_t* __restrict__ mode,
+                  const float* __restrict__ dt_ptr,
+                  const int4* __restrict__ tcount, int n_ctiles, int S,
+                  int64_t F, int vec, float* __restrict__ new_done,
+                  uint8_t* __restrict__ comp, float4* __restrict__ pbytes,
+                  int2* __restrict__ pcnt) {
+  constexpr int kWarps = kTtThreads / kWarp;
+  const int64_t row = blockIdx.y;
+  const int4* rc = tcount + row * n_ctiles;
+  const int64_t p = row * gridDim.x + blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp;
+  const int lane = tid & (kWarp - 1);
+  __shared__ float s_rate[3];
+  __shared__ float s_bytes[kWarps][3];
+  __shared__ int s_cnt[kWarps][2];
+  // an active element in this tile's counting tile (the same for every
+  // thread)
+  const bool any = rc[blockIdx.x / kTtCountSpan].w > 0;
+  if (any) {
+    if (warp == 0) {
+      // the row's active transfers per link type (integers), the rates
+      const int64_t link0 = (row / S) * 3 * S + 3 * (row % S);
+      int c0 = 0, c1 = 0, c2 = 0;
+      for (int j = lane; j < n_ctiles; j += kWarp) {
+        const int4 v = rc[j];
+        c0 += v.x;
+        c1 += v.y;
+        c2 += v.z;
+      }
+      c0 = __shfl_sync(0xffffffffu, warp_sum(c0), 0);
+      c1 = __shfl_sync(0xffffffffu, warp_sum(c1), 0);
+      c2 = __shfl_sync(0xffffffffu, warp_sum(c2), 0);
+      if (lane < 3) {
+        const float b = bw[link0 + lane];
+        const int cnt = lane == 0 ? c0 : (lane == 1 ? c1 : c2);
+        const float shared =
+            __fdiv_rn(b, fmaxf(static_cast<float>(cnt), 1.0f));
+        s_rate[lane] = mode[link0 + lane] > 0 ? b : shared;
+      }
+    }
+    __syncthreads();
+  }
+  const float r0 = any ? s_rate[0] : 0.0f;
+  const float r1 = any ? s_rate[1] : 0.0f;
+  const float r2 = any ? s_rate[2] : 0.0f;
   const float dt = *dt_ptr;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTtTile;
+  const int64_t base = row * F;
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTtTile;
   float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f;
   int n1 = 0, n2 = 0;
-  for (int i = 0; i < kTtItems; ++i) {
-    const int64_t f = start + static_cast<int64_t>(i) * kTtThreads + threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < kTtGroups; ++g) {
+    const int64_t f = tile0 + 4 * (g * kTtThreads + tid);
     if (f >= F) break;
-    const int64_t idx = base + f;
-    const bool a = active[idx] != 0;
-    const int t = link[idx] % 3;
-    const float r = (t == 0) ? rate[0] : ((t == 1) ? rate[1] : rate[2]);
-    const float tot = total[idx];
-    const float step = __fmul_rn(__fmul_rn(a ? 1.0f : 0.0f, r), dt);
-    const float nd = fminf(tot, __fadd_rn(done[idx], step));
-    const bool c = a && (nd >= tot);
-    new_done[idx] = nd;
-    comp[idx] = c ? 1 : 0;
-    if (c) {
-      const float s = sizes[idx];
-      if (t == 0) b0 += s;
-      else if (t == 1) { b1 += s; n1 += 1; }
-      else { b2 += s; n2 += 1; }
+    const uint32_t w = tt_flags(active + base, f, F, vec);
+    float d[4], tot[4], nd[4];
+    int t[4] = {0, 0, 0, 0};
+    tt_load(done + base, f, F, vec, d);
+    tt_load(total + base, f, F, vec, tot);
+    if (w) tt_types(link + base, f, vec, w, t);
+    uint32_t c = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const bool a = tt_on(w, b);
+      const float r = t[b] == 0 ? r0 : (t[b] == 1 ? r1 : r2);
+      const float step = a ? __fmul_rn(r, dt) : 0.0f;
+      nd[b] = fminf(tot[b], __fadd_rn(d[b], step));
+      if (a && nd[b] >= tot[b]) {
+        c |= 1u << (8 * b);
+        const float sz = sizes[base + f + b];
+        if (t[b] == 0) {
+          b0 += sz;
+        } else if (t[b] == 1) {
+          b1 += sz;
+          n1 += 1;
+        } else {
+          b2 += sz;
+          n2 += 1;
+        }
+      }
     }
+    tt_store(new_done + base, comp + base, f, F, vec, nd, c);
   }
-  b0 = block_sum(b0);
-  b1 = block_sum(b1);
-  b2 = block_sum(b2);
-  n1 = block_sum(n1);
-  n2 = block_sum(n2);
-  if (threadIdx.x == 0) {
-    const int64_t p = row * gridDim.x + blockIdx.x;
-    part_bytes[p * 3 + 0] = b0;
-    part_bytes[p * 3 + 1] = b1;
-    part_bytes[p * 3 + 2] = b2;
-    part_cnt[p * 2 + 0] = n1;
-    part_cnt[p * 2 + 1] = n2;
+  if (!any) {  // no completion in the tile
+    if (tid == 0) {
+      pbytes[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      pcnt[p] = make_int2(0, 0);
+    }
+    return;
+  }
+  // billing: each warp in a fixed order, then the warps in order
+  b0 = warp_sum(b0);
+  b1 = warp_sum(b1);
+  b2 = warp_sum(b2);
+  n1 = warp_sum(n1);
+  n2 = warp_sum(n2);
+  if (lane == 0) {
+    s_bytes[warp][0] = b0;
+    s_bytes[warp][1] = b1;
+    s_bytes[warp][2] = b2;
+    s_cnt[warp][0] = n1;
+    s_cnt[warp][1] = n2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float4 pb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int2 pc = make_int2(0, 0);
+    for (int k = 0; k < kWarps; ++k) {
+      pb.x += s_bytes[k][0];
+      pb.y += s_bytes[k][1];
+      pb.z += s_bytes[k][2];
+      pc.x += s_cnt[k][0];
+      pc.y += s_cnt[k][1];
+    }
+    pbytes[p] = pb;
+    pcnt[p] = pc;
   }
 }
 
-// One block per lane: fixed-order sums of the per-block partials into the
+// One block per lane: fixed-order sums of the per-tile partials into the
 // per-site byte totals and the lane's month deltas.
-__global__ void tt_finalize_kernel(
-    const float* __restrict__ part_bytes, const int32_t* __restrict__ part_cnt,
-    int S, int n_tiles, const int32_t* __restrict__ month_ptr, int n_months,
-    float* __restrict__ tape, float* __restrict__ recall, float* __restrict__ mig,
-    float* __restrict__ egress, float* __restrict__ cls_a,
-    float* __restrict__ cls_b) {
+__global__ void tt_fold_kernel(const float4* __restrict__ pbytes,
+                               const int2* __restrict__ pcnt, int S,
+                               int n_tiles, const int32_t* __restrict__ month_ptr,
+                               int n_months, float* __restrict__ tape,
+                               float* __restrict__ recall,
+                               float* __restrict__ mig,
+                               float* __restrict__ egress,
+                               float* __restrict__ cls_a,
+                               float* __restrict__ cls_b) {
+  constexpr int kWarps = kTtThreads / kWarp;
+  __shared__ float s_bytes[kWarps][3];
+  __shared__ int s_cnt[kWarps][2];
   const int64_t lane_id = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp;
   float egress_sum = 0.0f;
   int64_t n1_sum = 0, n2_sum = 0;
   for (int s = 0; s < S; ++s) {
     const int64_t row = lane_id * S + s;
     float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f;
     int n1 = 0, n2 = 0;
-    for (int j = threadIdx.x; j < n_tiles; j += blockDim.x) {
-      const int64_t p = row * n_tiles + j;
-      b0 += part_bytes[p * 3 + 0];
-      b1 += part_bytes[p * 3 + 1];
-      b2 += part_bytes[p * 3 + 2];
-      n1 += part_cnt[p * 2 + 0];
-      n2 += part_cnt[p * 2 + 1];
+    for (int j = tid; j < n_tiles; j += kTtThreads) {
+      const float4 v = pbytes[row * n_tiles + j];
+      const int2 c = pcnt[row * n_tiles + j];
+      b0 += v.x;
+      b1 += v.y;
+      b2 += v.z;
+      n1 += c.x;
+      n2 += c.y;
     }
-    b0 = block_sum(b0);
-    b1 = block_sum(b1);
-    b2 = block_sum(b2);
-    n1 = block_sum(n1);
-    n2 = block_sum(n2);
-    if (threadIdx.x == 0) {
-      tape[row] = b0;
-      recall[row] = b1;
-      mig[row] = b2;
-      egress_sum += b1;
-      n1_sum += n1;
-      n2_sum += n2;
+    b0 = warp_sum(b0);
+    b1 = warp_sum(b1);
+    b2 = warp_sum(b2);
+    n1 = warp_sum(n1);
+    n2 = warp_sum(n2);
+    if ((tid & (kWarp - 1)) == 0) {
+      s_bytes[warp][0] = b0;
+      s_bytes[warp][1] = b1;
+      s_bytes[warp][2] = b2;
+      s_cnt[warp][0] = n1;
+      s_cnt[warp][1] = n2;
     }
+    __syncthreads();
+    if (tid == 0) {
+      float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
+      for (int k = 0; k < kWarps; ++k) {
+        t0 += s_bytes[k][0];
+        t1 += s_bytes[k][1];
+        t2 += s_bytes[k][2];
+        n1_sum += s_cnt[k][0];
+        n2_sum += s_cnt[k][1];
+      }
+      tape[row] = t0;
+      recall[row] = t1;
+      mig[row] = t2;
+      egress_sum += t1;
+    }
+    __syncthreads();  // s_bytes and s_cnt are written again for the next row
   }
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     const int month = *month_ptr;
     for (int m = 0; m < n_months; ++m) {
       const bool on = (m == month);
@@ -295,6 +508,14 @@ __global__ void tt_finalize_kernel(
 //                      and the GB-seconds, and one walk that scans the
 //                      admitted flags, restarting at the first entry of
 //                      each site, and scatters adm = 1 and the rank.
+//
+// The prefix, the gate and the admitted bytes are float64, as in the plain
+// version (ref.gcs_admit): a float32 prefix over hundreds of thousands of
+// sizes drifts by about a hundred float32 ulps of the total with its
+// summation order, so no float32 order can match torch.cumsum's decisions
+// to within a few ulps of the limit; two float64 orders agree to about
+// n * 2^-53 of the total. used' is the pass's float64 sum rounded to
+// float32 once.
 //
 // Every count is an integer; every float sum is a fixed-order scan or
 // tree, so two calls on the same inputs give the same bits. A pass that
@@ -415,13 +636,13 @@ ga_compact_kernel(const uint8_t* __restrict__ want,
 
 // One block per lane. lidx/lsz/ladm: the lane's list (stride entries a
 // lane, a multiple of 16, so the vector loads below stay aligned and in
-// bounds); part: f32 [L, n_chunks_max] per-chunk admitted bytes, used
+// bounds); part: f64 [L, n_chunks_max] per-chunk admitted bytes, used
 // where they do not fit in shared memory.
 __global__ void __launch_bounds__(kGaLaneThreads)
 ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
                const int32_t* __restrict__ lidx, const float* __restrict__ lsz,
                uint8_t* __restrict__ ladm, int64_t stride,
-               float* __restrict__ part, int n_chunks_max, int64_t N,
+               double* __restrict__ part, int n_chunks_max, int64_t N,
                int64_t F, int n_passes, const float* __restrict__ used_in,
                const float* __restrict__ limit,
                const float* __restrict__ dt_ptr,
@@ -433,7 +654,7 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
   const int tid = threadIdx.x;
   __shared__ int s_int;
   __shared__ float s_used;
-  __shared__ float s_part[kGaSharedChunks];
+  __shared__ double s_part[kGaSharedChunks];
   int n = 0;
   for (int j = tid; j < n_tiles; j += blockDim.x)
     n += tcount[lane_id * n_tiles + j];
@@ -445,11 +666,11 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
   __syncthreads();
   const int total = s_int;  // candidates in the lane's list
   float used = s_used;      // pass-start occupancy
-  const float lim = limit[lane_id];
+  const double lim = limit[lane_id];
   const int32_t* li = lidx + lane_id * stride;
   const float* ls = lsz + lane_id * stride;
   uint32_t* la = reinterpret_cast<uint32_t*>(ladm + lane_id * stride);
-  float* lp = n_chunks_max <= kGaSharedChunks
+  double* lp = n_chunks_max <= kGaSharedChunks
                   ? s_part
                   : part + lane_id * n_chunks_max;
   const int n_chunks = (total + kGaChunk - 1) / kGaChunk;
@@ -458,7 +679,8 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
 
   // -- the admission passes
   for (int pass = 0; pass < n_passes && remaining > 0; ++pass) {
-    float carry = 0.0f;  // sizes still remaining before this chunk
+    double carry = 0.0;  // sizes still remaining before this chunk
+    const double used_d = used;
     int n_new = 0;
     for (int c = 0; c < n_chunks; ++c) {
       const int first = c * kGaChunk + tid * kGaItems;
@@ -478,26 +700,26 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
         }
       }
       uint32_t rem = 0u;  // bit k: entry k still remains
-      float s = 0.0f;
+      double s = 0.0;
 #pragma unroll
       for (int k = 0; k < kGaItems; ++k) {
         if (k < n_valid && !((was[k / 4] >> (8 * (k & 3))) & 1u)) {
           rem |= 1u << k;
-          s = __fadd_rn(s, sz[k]);
+          s = __dadd_rn(s, sz[k]);
         }
       }
-      float tot;
-      float run = __fadd_rn(carry, block_exclusive_scan(s, 0.0f, AddF(), &tot));
-      float nb = 0.0f;
+      double tot;
+      double run = __dadd_rn(carry, block_exclusive_scan(s, 0.0, AddD(), &tot));
+      double nb = 0.0;
       uint32_t now[kWords];
 #pragma unroll
       for (int q = 0; q < kWords; ++q) now[q] = was[q];
 #pragma unroll
       for (int k = 0; k < kGaItems; ++k) {
         const bool r = (rem >> k) & 1u;
-        run = __fadd_rn(run, r ? sz[k] : 0.0f);
-        if (r && __fadd_rn(used, run) <= lim) {
-          nb = __fadd_rn(nb, sz[k]);
+        run = __dadd_rn(run, r ? static_cast<double>(sz[k]) : 0.0);
+        if (r && __dadd_rn(used_d, run) <= lim) {
+          nb = __dadd_rn(nb, sz[k]);
           ++n_new;
           now[k / 4] |= 1u << (8 * (k & 3));
         }
@@ -508,15 +730,15 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
       }
       nb = block_sum(nb);
       if (tid == 0) lp[c] = nb;
-      carry = __fadd_rn(carry, tot);
+      carry = __dadd_rn(carry, tot);
     }
     n_new = block_sum(n_new);
     __syncthreads();  // thread 0's lp writes, for every thread
-    float a = 0.0f;   // this pass's admitted bytes, chunks in a fixed order
-    for (int j = tid; j < n_chunks; j += blockDim.x) a = __fadd_rn(a, lp[j]);
+    double a = 0.0;   // this pass's admitted bytes, chunks in a fixed order
+    for (int j = tid; j < n_chunks; j += blockDim.x) a = __dadd_rn(a, lp[j]);
     a = block_sum(a);
     if (tid == 0) {
-      s_used = __fadd_rn(used, a);
+      s_used = __double2float_rn(__dadd_rn(used_d, a));
       s_int = n_new;
     }
     __syncthreads();
@@ -658,6 +880,22 @@ inline int tiles(int64_t n, int tile) {
   return static_cast<int>((n + tile - 1) / tile);
 }
 
+// The byte offsets of the transfer tick's scratch regions for L*S rows of
+// F elements (see lt_transfer_tick); returns the total.
+int64_t tt_layout(int L, int S, int64_t F, int64_t off[3]) {
+  const int64_t rows = static_cast<int64_t>(L) * S;
+  const int64_t n = rows * tiles(F, kTtTile);
+  const int64_t bytes[3] = {16 * rows * tiles(F, kTtCountTile),  // counts
+                            16 * n,   // billing bytes (float4) per tile
+                            8 * n};   // billing counts (int2) per tile
+  int64_t at = 0;
+  for (int i = 0; i < 3; ++i) {
+    off[i] = at;
+    at += (bytes[i] + kGaAlign - 1) / kGaAlign * kGaAlign;
+  }
+  return at;
+}
+
 // The byte offsets of the GCS admission's scratch regions for L lanes of
 // N = S*F elements (see lt_gcs_admit); returns the total.
 int64_t ga_layout(int L, int64_t N, int64_t off[5]) {
@@ -667,7 +905,7 @@ int64_t ga_layout(int L, int64_t N, int64_t off[5]) {
       4 * L * stride,                                     // list: indices
       4 * L * stride,                                     // list: sizes
       L * stride,                                         // list: admitted
-      4 * static_cast<int64_t>(L) * tiles(N, kGaChunk)};  // chunk bytes
+      8 * static_cast<int64_t>(L) * tiles(N, kGaChunk)};  // chunk bytes
   int64_t at = 0;
   for (int i = 0; i < 5; ++i) {
     off[i] = at;
@@ -684,7 +922,10 @@ inline bool aligned16(const void* p) {
 
 extern "C" {
 
-int lt_transfer_tiles(long long F) { return tiles(F, kTtTile); }
+long long lt_transfer_scratch_bytes(int L, int S, long long F) {
+  int64_t off[3];
+  return tt_layout(L, S, F, off);
+}
 
 long long lt_gcs_scratch_bytes(int L, long long N) {
   int64_t off[5];
@@ -695,41 +936,54 @@ const char* lt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// counts: int32 [L*S*3] scratch; part_bytes: f32 [L*S, tiles, 3];
-// part_cnt: int32 [L*S, tiles, 2] (tiles = lt_transfer_tiles(F)).
+// Planes [L, S, F] (row r = l*S + s), bw and mode [L, 3*S]; scratch: a
+// device buffer of lt_transfer_scratch_bytes(L, S, F) bytes, 256-byte
+// aligned. Outputs: new_done (f32) and comp (bool) [L, S, F], tape,
+// recall, mig [L, S], egress, cls_a, cls_b [L, n_months]. Three launches,
+// none sized from the data.
 int lt_transfer_tick(const void* link, const void* active, const void* done,
                      const void* total, const void* sizes, const void* bw,
                      const void* mode, const void* dt, const void* month,
-                     int L, int S, long long F, int n_months, void* counts,
-                     void* part_bytes, void* part_cnt, void* new_done,
-                     void* comp, void* tape, void* recall, void* mig,
-                     void* egress, void* cls_a, void* cls_b, void* stream) {
+                     int L, int S, long long F, int n_months, void* scratch,
+                     void* new_done, void* comp, void* tape, void* recall,
+                     void* mig, void* egress, void* cls_a, void* cls_b,
+                     void* stream) {
+  if (L <= 0) return static_cast<int>(cudaSuccess);
+  const int64_t rows = static_cast<int64_t>(L) * S;
+  if (S < 0 || F < 0 || rows > 65535)  // rows are gridDim.y
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = L * S;
+  int64_t off[3];
+  tt_layout(L, S, F, off);
+  char* base = static_cast<char*>(scratch);
+  int4* tcount = reinterpret_cast<int4*>(base + off[0]);
+  float4* pbytes = reinterpret_cast<float4*>(base + off[1]);
+  int2* pcnt = reinterpret_cast<int2*>(base + off[2]);
   const int n_tiles = tiles(F, kTtTile);
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * rows * 3, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_tiles > 0) {
-    const dim3 grid(n_tiles, rows);
-    tt_count_kernel<<<grid, kTtThreads, 0, st>>>(
-        static_cast<const int32_t*>(link), static_cast<const uint8_t*>(active),
-        F, static_cast<int32_t*>(counts));
-    tt_advance_kernel<<<grid, kTtThreads, 0, st>>>(
+  const uintptr_t a4 = reinterpret_cast<uintptr_t>(active) |
+                       reinterpret_cast<uintptr_t>(comp);
+  const int vec = F % 4 == 0 && (a4 & 3u) == 0 && aligned16(link) &&
+                  aligned16(done) && aligned16(total) && aligned16(new_done);
+  if (n_tiles > 0 && rows > 0) {
+    const int n_ctiles = tiles(F, kTtCountTile);
+    tt_count_kernel<<<dim3(n_ctiles, static_cast<unsigned>(rows)), kTtThreads,
+                      0, st>>>(static_cast<const int32_t*>(link),
+                               static_cast<const uint8_t*>(active), F, vec,
+                               tcount);
+    tt_advance_kernel<<<dim3(n_tiles, static_cast<unsigned>(rows)),
+                        kTtThreads, 0, st>>>(
         static_cast<const int32_t*>(link), static_cast<const uint8_t*>(active),
         static_cast<const float*>(done), static_cast<const float*>(total),
         static_cast<const float*>(sizes), static_cast<const float*>(bw),
         static_cast<const int32_t*>(mode), static_cast<const float*>(dt),
-        static_cast<const int32_t*>(counts), S, F,
-        static_cast<float*>(new_done), static_cast<uint8_t*>(comp),
-        static_cast<float*>(part_bytes), static_cast<int32_t*>(part_cnt));
+        tcount, n_ctiles, S, F, vec, static_cast<float*>(new_done),
+        static_cast<uint8_t*>(comp), pbytes, pcnt);
   }
-  tt_finalize_kernel<<<L, 256, 0, st>>>(
-      static_cast<const float*>(part_bytes),
-      static_cast<const int32_t*>(part_cnt), S, n_tiles,
-      static_cast<const int32_t*>(month), n_months, static_cast<float*>(tape),
-      static_cast<float*>(recall), static_cast<float*>(mig),
-      static_cast<float*>(egress), static_cast<float*>(cls_a),
-      static_cast<float*>(cls_b));
+  tt_fold_kernel<<<L, kTtThreads, 0, st>>>(
+      pbytes, pcnt, S, n_tiles, static_cast<const int32_t*>(month), n_months,
+      static_cast<float*>(tape), static_cast<float*>(recall),
+      static_cast<float*>(mig), static_cast<float*>(egress),
+      static_cast<float*>(cls_a), static_cast<float*>(cls_b));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -754,7 +1008,7 @@ int lt_gcs_admit(const void* want, const void* sizes, const void* used_in,
   int32_t* lidx = reinterpret_cast<int32_t*>(base + off[1]);
   float* lsz = reinterpret_cast<float*>(base + off[2]);
   uint8_t* ladm = reinterpret_cast<uint8_t*>(base + off[3]);
-  float* part = reinterpret_cast<float*>(base + off[4]);
+  double* part = reinterpret_cast<double*>(base + off[4]);
   const int64_t stride = (N + 15) / 16 * 16;
   const int n_tiles = tiles(N, kGaTile);
   const int vec = N % 16 == 0 && aligned16(want) && aligned16(adm) &&

@@ -26,10 +26,10 @@ _LL = ctypes.c_longlong
 
 #: argtypes of the C entry points (see ``_build.KernelLib``).
 _SIGNATURES = {
-    "lt_transfer_tiles": ([_LL], _I),
+    "lt_transfer_scratch_bytes": ([_I, _I, _LL], _LL),
     "lt_gcs_scratch_bytes": ([_I, _LL], _LL),
     "lt_error_string": ([_I], ctypes.c_char_p),
-    "lt_transfer_tick": ([_P] * 9 + [_I, _I, _LL, _I] + [_P] * 12, _I),
+    "lt_transfer_tick": ([_P] * 9 + [_I, _I, _LL, _I] + [_P] * 10, _I),
     "lt_gcs_admit": ([_P] * 6 + [_I, _LL, _LL, _I, _I] + [_P] * 6, _I),
     "lt_window_admit": ([_P] * 4 + [_LL, _I, _I] + [_P] * 3, _I),
 }
@@ -63,12 +63,11 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
     _check("mode", mode, torch.int32, (L, 3 * S), dev)
     _check("dt", dt, torch.float32, (), dev)
     _check("month", month, torch.int32, (), dev)
-    lib = _LIB.get()
-    n_tiles = lib.lt_transfer_tiles(F)
+    # per-tile counts and billing partials: one buffer, carved by the
+    # library
+    scratch = torch.empty((_LIB.get().lt_transfer_scratch_bytes(L, S, F),),
+                          dtype=torch.uint8, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    counts = torch.empty((L * S * 3,), dtype=torch.int32, device=dev)
-    part_bytes = torch.empty((L * S, n_tiles, 3), **f32)
-    part_cnt = torch.empty((L * S, n_tiles, 2), dtype=torch.int32, device=dev)
     new_done = torch.empty(plane, **f32)
     comp = torch.empty(plane, dtype=torch.bool, device=dev)
     tape, recall, mig = (torch.empty((L, S), **f32) for _ in range(3))
@@ -78,8 +77,8 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
                 *map(_ptr, (link_id, active, done, total, sizes, bw, mode, dt,
                             month)),
                 L, S, F, n_months,
-                *map(_ptr, (counts, part_bytes, part_cnt, new_done, comp,
-                            tape, recall, mig, egress, cls_a, cls_b)))
+                *map(_ptr, (scratch, new_done, comp, tape, recall, mig,
+                            egress, cls_a, cls_b)))
     return new_done, comp, tape, recall, mig, egress, cls_a, cls_b
 
 

@@ -97,25 +97,60 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
     occupancy, fused with the GB-second integration of the final occupancy
     and the per-site rank of each admission (:func:`admission_rank`).
 
+    The prefix and the gate are float64: a float32 prefix over hundreds of
+    thousands of sizes drifts by about a hundred float32 ulps of the total
+    with its summation order, while two float64 orders agree to about
+    ``n * 2**-53`` of it, far inside a float32 ulp: the CUDA kernel's
+    block scans and ``torch.cumsum`` decide alike except within about a
+    float32 ulp of the limit. ``used'`` is each pass's float64 sum rounded
+    to float32 once.
+
     want: ``[L,S,F]`` bool; sizes: ``[L,S,F]`` f32; used/limit: ``[L]`` f32;
     dt: 0-d f32; month: 0-d int.
 
     Returns ``(admitted [L,S,F] bool, used' [L] f32, gbsec [L,n_months],
     rank [L,S,F] int32)``.
     """
-    L = want.shape[0]
-    want_flat = want.reshape(L, -1)
-    sizes_flat = sizes.reshape(L, -1)
-    admitted = torch.zeros_like(want_flat)
-    for _ in range(n_passes):
-        rem = want_flat & ~admitted
-        csum = torch.cumsum(sizes_flat * rem, dim=1)
-        new = rem & (used[:, None] + csum <= limit[:, None])
-        used = used + (sizes_flat * new).sum(1)
-        admitted = admitted | new
+    admitted, used, _ = _gcs_passes(want, sizes, used, limit, n_passes,
+                                    with_dist=False)
     gbsec = month_onehot(month, n_months) * (used / 1e9 * dt)[:, None]
     admitted = admitted.view(want.shape)
     return admitted, used, gbsec, admission_rank(admitted)
+
+
+def gcs_gate_distance(want, sizes, used, limit,
+                      n_passes: int = GCS_ADMIT_PASSES):
+    """The passes of :func:`gcs_admit`, keeping per candidate the least
+    distance ``|used + cumsum - limit|`` (float64) of its gate value to the
+    limit over the passes that still held it (``inf`` elsewhere): how near
+    each decision came to a tie.
+
+    Returns ``(admitted [L, S*F] bool, used' [L] f32, dist [L, S*F] f64)``.
+    """
+    return _gcs_passes(want, sizes, used, limit, n_passes, with_dist=True)
+
+
+def _gcs_passes(want, sizes, used, limit, n_passes: int, with_dist: bool):
+    L = want.shape[0]
+    want_flat = want.reshape(L, -1)
+    sizes_flat = sizes.reshape(L, -1)
+    limit64 = limit.double()[:, None]
+    admitted = torch.zeros_like(want_flat)
+    dist = None
+    if with_dist:
+        dist = torch.full(sizes_flat.shape, float("inf"),
+                          dtype=torch.float64, device=sizes.device)
+    for _ in range(n_passes):
+        rem = want_flat & ~admitted
+        gate = used.double()[:, None] + torch.cumsum(
+            (sizes_flat * rem).double(), dim=1)
+        if with_dist:
+            dist = torch.where(rem, torch.minimum(
+                dist, (gate - limit64).abs()), dist)
+        new = rem & (gate <= limit64)
+        used = (used.double() + (sizes_flat * new).double().sum(1)).float()
+        admitted = admitted | new
+    return admitted, used, dist
 
 
 def window_admit(live, size, disk_used, disk_limit, fifo: bool):

@@ -8,8 +8,10 @@ package, so it runs where only PyTorch is installed::
 
 Bars: transfer ``new_done`` and completion bitwise (the kernel rounds like
 the plain version's separate ops), billing at rtol 1e-6 (reduction
-order); windows bitwise; GCS admission equal except at capacity-boundary
-ties (no bitwise promise against ``torch.cumsum``'s order), occupancy at
+order), at active shares from 0 to 1, two calls bitwise equal; windows
+bitwise; GCS admission equal except at capacity-boundary ties within 16
+float32 ulps of the limit (both sides take the prefix in float64, in
+different orders), also at a candidate share of 0.3, occupancy at
 rtol 1e-5, the migration rank bitwise against the per-site rank of the
 kernel's own mask (and of the plain version's, where the masks agree),
 two calls bitwise equal; carousel ``new_done``, completion and counts
@@ -68,6 +70,94 @@ def test_cuda_transfer_tick_bitwise(cuda_device):
     assert torch.equal(got[1], want[1])
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+
+
+def _transfer_case(L, S, F, share, seed=0, one_type_row=False):
+    """Seeded transfer planes with a share ``share`` of active transfers: a
+    quarter of the files already at their total (active ones complete at
+    any rate), the others within 1% of it; sizes 1 MB to 1 GB, links 100
+    kB/s to 10 MB/s, half per-transfer. ``one_type_row``: every active
+    transfer of row 0 on the gcs->disk link (type 1)."""
+    rng = np.random.default_rng(seed)
+    site = np.arange(S)[None, :, None]
+    ltype = rng.integers(0, 3, (L, S, F))
+    active = rng.random((L, S, F)) < share
+    if one_type_row:
+        ltype[0, 0] = 1
+    link_id = (3 * site + ltype).astype(np.int32)
+    total = rng.uniform(1e6, 1e9, (L, S, F)).astype(np.float32)
+    done = np.where(rng.random((L, S, F)) < 0.25, total,
+                    total * (1.0 - 0.01 * rng.random((L, S, F)))
+                    ).astype(np.float32)
+    sizes = total.copy()
+    bw = rng.uniform(1e5, 1e7, (L, 3 * S)).astype(np.float32)
+    mode = rng.integers(0, 2, (L, 3 * S)).astype(np.int32)
+    return [link_id, active, done, total, sizes, bw, mode]
+
+
+def _transfer_run(args, device):
+    """Two kernel calls and the plain version on the same inputs: each call
+    launches once, both give the same bits, new_done and the completions
+    equal the plain version's bitwise and the billing is within rtol 1e-6.
+    Returns the kernel's outputs."""
+    dt, month = scalars(device)
+    before = ops.launch_counts()["transfer_tick"]
+    got = ops.transfer_tick(*args, dt, month, N_MONTHS)
+    assert ops.launch_counts()["transfer_tick"] == before + 1
+    again = ops.transfer_tick(*args, dt, month, N_MONTHS)
+    assert ops.launch_counts()["transfer_tick"] == before + 2
+    want = ref.transfer_tick(*args, dt, month, N_MONTHS)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+    return got
+
+
+TRANSFER_CASES = {
+    # name: (L, S, F, active share, extra)
+    "share 0": (2, 2, 50_000, 0.0, {}),
+    "share 3e-4": (2, 2, 200_000, 3e-4, {}),
+    "share 0.3": (2, 2, 200_000, 0.3, {}),
+    "share 1": (2, 2, 200_000, 1.0, {}),
+    "F not a multiple of the tile": (2, 3, 3 * 4096 + 100, 0.05, {}),
+    "F not a multiple of 4, byte loads": (2, 3, 10_001, 0.05, {}),
+    "a row's actives of one link type": (2, 2, 20_000, 0.2,
+                                         {"one_type_row": True}),
+    "many rows": (16, 4, 3000, 0.1, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRANSFER_CASES))
+def test_cuda_transfer_tick_by_share_and_shape(cuda_device, case):
+    L, S, F, share, extra = TRANSFER_CASES[case]
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _transfer_case(L, S, F, share, **extra)]
+    got = _transfer_run(args, cuda_device)
+    n_act = int(args[1].sum())
+    assert int(got[1].sum()) > 0 or n_act == 0
+    if share == 0.0:
+        assert not bool(got[1].any())
+        assert not bool(torch.cat([g.reshape(-1) for g in got[2:]]).any())
+
+
+@pytest.mark.cuda
+def test_cuda_transfer_tick_unaligned_planes(cuda_device):
+    """Planes that start one element past a 16-byte line take the byte
+    path (contiguous views into a larger buffer)."""
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _transfer_case(2, 2, 8192, 0.1, seed=5)]
+    for i in range(5):
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                          device=cuda_device)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        args[i] = view
+    _transfer_run(args, cuda_device)
 
 
 def _gcs_run(want, sizes, used, limit, dt=10.0, month=1):
@@ -176,12 +266,50 @@ def test_cuda_gcs_admit_limit_at_first_candidate(cuda_device):
     used = used.repeat(3) + torch.tensor([0.0, 1e9, 2e9], device=cuda_device)
     flat = want.reshape(3, -1)
     first = flat.to(torch.int8).argmax(1)
+    # multiples of 1 kB below 16 GB: the float32 sum of the occupancy
+    # and the first size is exact, so the float64 gate meets it too
+    used = torch.round(used / 1024.0) * 1024.0
+    sizes = sizes.reshape(3, -1).scatter(
+        1, first[:, None],
+        torch.round(sizes.reshape(3, -1).gather(1, first[:, None]) / 1024.0)
+        * 1024.0).view(sizes.shape)
     limit = used + sizes.reshape(3, -1).gather(1, first[:, None])[:, 0]
     got, plain = _gcs_run(want, sizes, used, limit)
     _assert_gcs_equal(got, plain)
     assert got[0].reshape(3, -1).sum(1).tolist() == [1, 1, 1]
     assert bool(got[0].reshape(3, -1).gather(1, first[:, None]).all())
     assert torch.equal(got[1], limit)
+
+
+@pytest.mark.cuda
+def test_cuda_gcs_admit_dense_share_finite_limits(cuda_device):
+    """At a candidate share of 0.3 (about 600k candidates a lane, the
+    sweep's 2 x 1M files) under finite limits, the kernel and the plain
+    version (both with the prefix in float64, in different orders) differ
+    on no candidate farther than 16 float32 ulps from the limit."""
+    L, S, F = 4, 2, 1_000_000
+    rng = np.random.default_rng(1605)
+    sizes = (10.0 ** rng.uniform(6.0, 10.0, (L, S, F))).astype(np.float32)
+    want = rng.random((L, S, F)) < 0.3
+    used = rng.uniform(0.0, 1e12, L).astype(np.float32)
+    limit = (used + np.linspace(0.3, 0.9, L)
+             * (sizes * want).sum((1, 2), dtype=np.float64)).astype(
+                 np.float32)
+    want, sizes, used, limit = (torch.as_tensor(a, device=cuda_device)
+                                for a in (want, sizes, used, limit))
+    got, plain = _gcs_run(want, sizes, used, limit)
+    adm, _, dist = ref.gcs_gate_distance(want, sizes, used, limit)
+    assert torch.equal(adm, plain[0].reshape(L, -1))
+    diff = got[0].reshape(L, -1) != adm
+    tol = 16 * torch.finfo(torch.float32).eps * limit.double()
+    far = int((diff & ~(dist <= tol[:, None])).sum())
+    print(f"{int(diff.sum())} admissions differ, {far} farther than 16 "
+          f"ulps from the limit")
+    assert far == 0
+    assert bool((plain[0] != want).reshape(L, -1).any(1).all())
+    tied = (sizes.reshape(L, -1) * diff).sum(1)
+    assert bool(((got[1] - plain[1]).abs()
+                 <= 1e-6 * plain[1].abs() + tied).all())
 
 
 @pytest.mark.cuda

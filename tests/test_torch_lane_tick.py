@@ -23,6 +23,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import lane_tick as jx_lane_tick
+from repro.kernels.lane_tick.lane_tick import F_BLOCK
 from repro_torch.kernels import registry
 from repro_torch.kernels.lane_tick import ops, ref
 
@@ -99,6 +100,174 @@ def test_gcs_admit_plain_matches_global_cumsum_oracle():
     # the finite limits bind, the infinite one admits every candidate
     assert not np.array_equal(adm[0].numpy(), want[0])
     np.testing.assert_array_equal(adm[-1].numpy(), want[-1])
+
+
+#: Float32 ulps of the limit within which two summation orders of the GCS
+#: prefix may decide a candidate differently (``chip_smoke.py``'s bar).
+TIE_ULPS = 16
+
+
+def _dense_gcs_lanes(L=2, S=2, F=300_000, share=0.3, seed=31):
+    """Candidates at a dense share with log-normal sizes around 2 GB (the
+    tick's catalogue), and finite limits that cut through them."""
+    rng = np.random.default_rng(seed)
+    want = rng.random((L, S, F)) < share
+    sizes = np.exp(rng.normal(np.log(2e9), 1.0, (L, S, F))).astype(
+        np.float32)
+    used0 = rng.uniform(1e11, 1e12, L).astype(np.float32)
+    wanted = (sizes * want).sum((1, 2), dtype=np.float64)
+    limit = (used0 + np.linspace(0.4, 0.8, L) * wanted).astype(np.float32)
+    return want, sizes, used0, limit
+
+
+def _drift_margin(want, sizes, used0, limit, n_passes, prefix32):
+    """One lane's passes with the float64 gate (``ref.gcs_admit``'s),
+    keeping per candidate the least ``|gate - limit| - |c32 - c64|`` over
+    the passes that still held it, where ``c64`` is the float64 prefix and
+    ``c32`` what ``prefix32`` makes of the same float32 vector: a float32
+    program with that prefix must decide a candidate as the float64 gate
+    does wherever this margin exceeds a few ulps of the limit.
+
+    Returns ``(admitted, margin, drift)``, ``drift`` the largest
+    ``|c32 - c64|`` seen."""
+    w, sz = want.ravel(), sizes.ravel()
+    adm = np.zeros(w.shape, bool)
+    margin = np.full(w.shape, np.inf)
+    used, drift = np.float32(used0), 0.0
+    for _ in range(n_passes):
+        rem = w & ~adm
+        x = sz * rem
+        c64 = np.cumsum(x.astype(np.float64))
+        off = np.abs(prefix32(x).astype(np.float64) - c64)
+        drift = max(drift, float(off.max()))
+        gate = np.float64(used) + c64
+        margin = np.where(rem, np.minimum(
+            margin, np.abs(gate - np.float64(limit)) - off), margin)
+        new = rem & (gate <= np.float64(limit))
+        used = np.float32(np.float64(used) + x[new].sum(dtype=np.float64))
+        adm |= new
+    return adm.reshape(want.shape), margin.reshape(want.shape), drift
+
+
+def _pallas_prefix32(S):
+    """The float32 prefix of ``repro``'s Pallas ``gcs_admit`` pass over a
+    flattened ``[S, F]`` vector: a ``jnp.cumsum`` per site row (padded to
+    the kernel's file tile) plus the running float32 total of the rows
+    before it."""
+    def prefix(x):
+        rows = x.reshape(S, -1)
+        pad = (-rows.shape[1]) % F_BLOCK
+        carry, out = np.float32(0.0), []
+        for r in rows:
+            rp = jnp.pad(jnp.asarray(r), (0, pad))
+            out.append(np.asarray(jnp.cumsum(rp) + carry)[:rows.shape[1]])
+            carry = np.float32(carry + np.asarray(jnp.sum(rp)))
+        return np.concatenate(out)
+    return prefix
+
+
+def test_gcs_admit_dense_share_within_global_cumsum_drift():
+    """At a candidate share of 0.3 (about 180k candidates a lane) the plain
+    version may differ from ``repro``'s float32 global-cumsum programs (the
+    numpy oracle and the Pallas kernel in interpret mode) only where the
+    float64 gate lies within that program's own float32 drift, plus 16
+    ulps, of the limit."""
+    want, sizes, used0, limit = _dense_gcs_lanes()
+    L, S, _ = want.shape
+    dt, month = scalars(dt=60.0)
+    adm = ref.gcs_admit(torch.as_tensor(want), torch.as_tensor(sizes),
+                        torch.as_tensor(used0), torch.as_tensor(limit), dt,
+                        month, N_MONTHS)[0].numpy()
+    onehot = np.zeros(N_MONTHS, np.float32)
+    onehot[MONTH] = 1.0
+    tol = TIE_ULPS * np.finfo(np.float32).eps * limit
+    for li in range(L):
+        oracle, _ = _gcs_numpy_oracle(want[li], sizes[li], used0[li],
+                                      limit[li], ref.GCS_ADMIT_PASSES)
+        pallas = np.asarray(jx_lane_tick.gcs_admit(
+            jnp.asarray(want[li]), jnp.asarray(sizes[li]), used0[li],
+            limit[li], 60.0, jnp.asarray(onehot),
+            n_passes=ref.GCS_ADMIT_PASSES, interpret=True)[0]) > 0.5
+        for name, got, prefix32 in (
+                ("numpy", oracle, lambda x: np.cumsum(x)),
+                ("pallas", pallas, _pallas_prefix32(S))):
+            replay, margin, drift = _drift_margin(
+                want[li], sizes[li], used0[li], limit[li],
+                ref.GCS_ADMIT_PASSES, prefix32)
+            np.testing.assert_array_equal(replay, adm[li])
+            diff = got != adm[li]
+            far = int((diff & (margin > tol[li])).sum())
+            print(f"lane {li} {name}: {int(diff.sum())} admissions differ "
+                  f"from the plain version, {far} beyond the band; f32 "
+                  f"drift {drift / limit[li]:.3g} of the limit")
+            assert far == 0
+        assert adm[li].sum() < want[li].sum()  # the limit binds
+
+
+def _chunked_prefix64(x, chunk):
+    """Float64 inclusive prefix along the last axis in another order than
+    ``torch.cumsum``'s: per-chunk sums, a scan of the chunk totals, then a
+    scan inside each chunk from its offset (the CUDA kernel's shape)."""
+    L, n = x.shape
+    pad = (-n) % chunk
+    xc = torch.nn.functional.pad(x, (0, pad)).view(L, -1, chunk)
+    totals = xc.sum(-1)
+    offsets = torch.cumsum(totals, -1) - totals
+    return (offsets[..., None] + torch.cumsum(xc, -1)).view(L, -1)[:, :n]
+
+
+def test_gcs_f64_gate_is_order_free():
+    """The float64 gate decides every candidate alike whether the prefix
+    is ``torch.cumsum``'s or a chunked one, while two float32 orders of the
+    same prefix drift apart by more than the 16-ulp band."""
+    want, sizes, used0, limit = (torch.as_tensor(a)
+                                 for a in _dense_gcs_lanes(L=3, seed=32))
+    L = want.shape[0]
+    w, sz = want.reshape(L, -1), sizes.reshape(L, -1)
+    lim = limit.double()[:, None]
+    adm_ref = ref.gcs_admit(want, sizes, used0, limit, *scalars(),
+                            N_MONTHS)[0].reshape(L, -1)
+    for chunk in (8192, 1000):
+        adm = torch.zeros_like(w)
+        used = used0
+        for _ in range(ref.GCS_ADMIT_PASSES):
+            rem = w & ~adm
+            x = (sz * rem).double()
+            new = rem & (used.double()[:, None]
+                         + _chunked_prefix64(x, chunk) <= lim)
+            used = (used.double() + (sz * new).double().sum(1)).float()
+            adm = adm | new
+        assert torch.equal(adm, adm_ref)
+        assert bool((adm != w).any(1).all())  # every limit binds
+    x32 = (sz * w).numpy()
+    seq = np.cumsum(x32, axis=1)
+    chunked = _chunked_prefix64(torch.as_tensor(x32), 8192).float().numpy()
+    band = TIE_ULPS * np.finfo(np.float32).eps * np.abs(seq[:, -1:])
+    print(f"f32 orders differ by up to "
+          f"{float((np.abs(seq - chunked) / band).max()):.1f} bands")
+    assert bool((np.abs(seq - chunked) > band).any())
+
+
+def test_gcs_gate_distance_replays_the_plain_passes():
+    want, sizes, used0, limit = (torch.as_tensor(a) for a in gcs_inputs())
+    L = want.shape[0]
+    adm, used, gbsec, _ = ref.gcs_admit(want, sizes, used0, limit,
+                                        *scalars(), N_MONTHS)
+    replay, used_r, dist = ref.gcs_gate_distance(want, sizes, used0, limit)
+    assert torch.equal(replay, adm.reshape(L, -1))
+    assert torch.equal(used_r, used)
+    assert dist.dtype == torch.float64
+    w = want.reshape(L, -1)
+    assert bool(torch.isinf(dist[~w]).all())
+    finite = torch.isfinite(limit)
+    assert bool(torch.isfinite(dist[finite][w[finite]]).all())
+    assert bool(torch.isinf(dist[~finite]).all())
+    # the first candidate's gate is the occupancy plus its size
+    first = w.to(torch.int8).argmax(1)
+    d0 = dist.gather(1, first[:, None])[:, 0]
+    s0 = sizes.reshape(L, -1).gather(1, first[:, None])[:, 0].double()
+    gate0 = used0.double() + s0
+    assert torch.equal(d0[finite], (gate0 - limit.double()).abs()[finite])
 
 
 def _site_rank(mask):
