@@ -11,7 +11,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    registers and spill bytes from ``ptxas``;
 3. kernel phase: each hand-written kernel against its plain PyTorch version
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
-   files, the grid's K window, W = 4), with a finite-limit GCS admission
+   files; both candidate windows of a tick, the grid's K and W = 4, in
+   one launch, some heads stale because a K slot started their file,
+   also timed replayed from a CUDA graph of 20 calls), with a
+   finite-limit GCS admission
    case whose every admission difference must be a tie within 16 ulps
    of the limit and whose migration rank must be bitwise the plain one,
    a dense unlimited case, and the dense candidates (share 0.3) under
@@ -27,15 +30,20 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
    TB; 3 egress options; 9 storage prices; 2 seeds; 8 dynamics lanes) at
    the paper's full catalogue of 1,000,000 files per site through
-   ``run_sweep_torch`` once with ``tick_impl="cuda"`` and once with
-   ``"torch"`` on the card; per-spec agreement at the Table-2 5% bar, equal
-   jobs submitted, and every kernel launched on the ``cuda`` run;
-6. profile: 40 ticks of the ``cuda`` path on the host clock, 40 more under
+   ``run_sweep_torch`` once with ``tick_impl="cuda"`` (the tick replayed
+   from a CUDA graph) and once with ``"torch"`` on the card; per-spec
+   agreement at the Table-2 5% bar, equal jobs submitted, and each kernel
+   launched once a tick on the ``cuda`` run, replays counted; then
+   ``simulate_packed`` on the packed grid with the ``cuda`` tick eager
+   and replayed, every output bitwise equal;
+6. profile, for the eager and the replayed ``cuda`` tick
+   (``sim.batched.TickLoop``): 40 ticks on the host clock, 40 more under
    ``torch.profiler`` — wall and device time per tick, the device's idle
    share, the top kernels, ``torch.cumsum``'s calls and device time per
-   tick, and the GCS candidates and admissions per lane per tick of the
-   profiled ticks (counted after them) and of 40 ticks half-way through
-   the horizon;
+   tick; for the replayed tick the capture's host time and the graph
+   pool's bytes; for the eager one the GCS candidates and admissions per
+   lane per tick of the profiled ticks (counted after them) and of 40
+   ticks half-way through the horizon;
 7. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
@@ -88,6 +96,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -153,6 +163,31 @@ def time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
     start.record()
     for _ in range(n):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def graph_ms(torch, fn, n: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` with ``n`` calls captured in one
+    CUDA graph and replayed (CUDA events around one replay, after a
+    warm-up replay): the device's time for the calls without the host's
+    Python between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
@@ -435,38 +470,59 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
         f"{nb_old:.4f} ms)")
     del want_m, dense, got, plain, dg, dp
 
-    # -- window_admit: the K job window (fifo=False) and the W = 4 wait
-    # queue (fifo=True) against disk headroom.
-    win_err = 0.0
-    win_ms = []
-    for C, fifo in ((K, False), (4, True)):
-        live = rand(L, S, C) < 0.7
-        size = sizes[:, :, :C].contiguous()
-        limit_d = torch.full((L, S), 1e13, device=dev)
-        used_d = limit_d - size.sum(-1) * rand(L, S)
-        wargs = (live, size, used_d, limit_d, fifo)
-        got = ops.window_admit(*wargs)
-        plain = ref.window_admit(*wargs)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], plain[0]), f"window_admit C={C}: mask")
-        check(torch.equal(got[1], plain[1]), f"window_admit C={C}: extra")
-        win_err = max(win_err, float((got[1] - plain[1]).abs().max()))
-        win_ms.append((time_ms(torch, lambda: ops.window_admit(*wargs)),
-                       time_ms(torch, lambda: ref.window_admit(*wargs)),
-                       # live in and admission out per candidate, the size
-                       # only of live ones; used, limit and extra per row
-                       L * S * C * (1 + 1) + sector_bytes(torch, live, 4)
-                       + L * S * (4 + 4 + 4),
-                       device_us(torch, lambda: ops.window_admit(*wargs))))
-    nbytes = sum(w[2] for w in win_ms)
-    nb, kind = bound_ms(nbytes / 2, 0.0)
+    # -- window_admit: both candidate windows of a tick in one launch, the
+    # K job window and the W = 4 wait-queue heads, some heads holding a
+    # file of a K slot, against disk headroom that some candidates fill
+    W = 4
+    absent = rand(L, S, K) < 0.7
+    size_k = sizes[:, :, :K].contiguous()
+    fid_k = torch.randint(0, 64, (L, S, K), generator=gen, device=dev)
+    valid_w = rand(L, S, W) < 0.8
+    present_w = rand(L, S, W) < 0.2
+    size_w = sizes[:, :, K:K + W].contiguous()
+    idx_w = torch.where(rand(L, S, W) < 0.5,
+                        fid_k[..., torch.arange(W, device=dev) % max(K, 1)],
+                        torch.randint(64, F, (L, S, W), generator=gen,
+                                      device=dev))
+    limit_d = torch.full((L, S), 1e13, device=dev)
+    used_d = limit_d - (size_k.sum(-1) + size_w.sum(-1)) * rand(L, S)
+    wargs = (absent, size_k, fid_k, valid_w, present_w, size_w, idx_w,
+             used_d, limit_d)
+    before = ops.launch_counts()["window_admit"]
+    got = ops.windows_admit(*wargs)
+    check(ops.launch_counts()["window_admit"] == before + 1,
+          "window_admit: not one launch for both windows")
+    plain = ref.windows_admit(*wargs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("started", "admitted", "stale", "disk_used"),
+                          got, plain):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"window_admit: {name} not bitwise")
+    n_jump = int((plain[2] & ~present_w).sum())
+    check(n_jump > 0 and bool(plain[0].any()) and bool(plain[1].any()),
+          "window_admit: no started, admitted or jumped head exercised")
+    live_w = valid_w & ~plain[2]
+    # needed: the K and W masks in and out per slot (absent, started;
+    # valid, present, stale, admitted), the size of absent slots and live
+    # heads, the fid of started slots and the head index of valid heads
+    # (by the sectors they touch); used, limit and used' per row
+    need = (L * S * (2 * K + 4 * W) + sector_bytes(torch, absent, 4)
+            + sector_bytes(torch, live_w, 4)
+            + sector_bytes(torch, plain[0], 8)
+            + sector_bytes(torch, valid_w, 8) + L * S * 12)
+    nb, kind = bound_ms(need, 0.0)
     results["window_admit"] = dict(
-        max_abs_err=win_err,
-        ms=sum(w[0] for w in win_ms) / 2,
-        device_us=sum(w[3] for w in win_ms) / 2,
-        plain_ms=sum(w[1] for w in win_ms) / 2,
+        max_abs_err=float((got[3] - plain[3]).abs().max()),
+        ms=time_ms(torch, lambda: ops.windows_admit(*wargs)),
+        graph_ms=graph_ms(torch, lambda: ops.windows_admit(*wargs)),
+        device_us=device_us(torch, lambda: ops.windows_admit(*wargs)),
+        plain_ms=time_ms(torch, lambda: ref.windows_admit(*wargs)),
         bound_ms=nb, bound_by=kind, library_ms=None)
-    log(f"kernel window_admit: K={K} and W=4 windows bitwise")
+    log(f"kernel window_admit: K={K} and W={W} windows in one launch, "
+        f"started/admitted/stale/disk_used bitwise, {n_jump} heads stale "
+        f"because a K slot started their file; {need} bytes needed; "
+        f"{results['window_admit']['graph_ms']:.4f} ms a call replayed "
+        f"from a graph of 20 calls")
     for name, r in results.items():
         log(f"  {name}: ms {r['ms']:.4f} device_us {r['device_us']:.1f} "
             f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -474,41 +530,37 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     return results
 
 
-def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
-    """Where a tick's time goes on the ``cuda`` path: after ``warm`` ticks,
-    ``n`` ticks of the grid's loop timed on the host clock, then the next
-    ``n`` under ``torch.profiler`` for device time by kernel; the idle
-    share is the device's unused part of the unprofiled wall time."""
+def profile_phase(torch, grid, graph: bool, warm: int = 20,
+                  n: int = 40) -> dict:
+    """Where a tick's time goes on the ``cuda`` path, replayed from its
+    CUDA graph (``graph``) or eager: after ``warm`` ticks, ``n`` ticks of
+    the grid's loop (``sim.batched.TickLoop``, as ``simulate_packed``
+    drives it) timed on the host clock, then the next ``n`` under
+    ``torch.profiler`` for device time by kernel; the idle share is the
+    device's unused part of the unprofiled wall time. Returns the wall and
+    device-busy microseconds per tick (busy ``None`` when the profiler saw
+    no kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.lane_tick import ops
     from repro_torch.kernels.registry import resolve_tick_impl
-    from repro_torch.sim.batched import _build_lane_sim, _lane_step_fns
+    from repro_torch.sim.batched import TickLoop
 
     dev = torch.device("cuda")
-    tick_fn, _ = _lane_step_fns(len(grid.site_names), grid.max_jobs_per_tick,
-                                grid.n_months, resolve_tick_impl("cuda", dev))
-    c, st = _build_lane_sim(grid, dev)
-    times = torch.as_tensor(grid.times, device=dev)
-    dts = torch.as_tensor(grid.dts, device=dev)
-    month_idx = torch.as_tensor(grid.month_idx, device=dev)
-    jobs = torch.as_tensor(grid.jobs_per_tick, device=dev)
-
-    def run(t0, t1):
-        for t in range(t0, t1):
-            tick_fn(st, times[t], dts[t], month_idx[t], t, jobs[:, t], c)
-
-    run(0, warm)
+    loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev, graph=graph)
+    name = "captured" if graph else "eager"
+    loop.advance(warm)
     torch.cuda.synchronize()
     # the same number of ticks once without the profiler: its own host
     # cost would inflate the wall time and so the idle share
     t0 = time.perf_counter()
-    run(warm, warm + n)
+    loop.advance(n)
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
-    # the profiled ticks keep each GCS admission's candidate plane and
-    # mask (references only: no device work added), counted afterwards
+    # the eager ticks keep each GCS admission's candidate plane and mask
+    # (references only: no device work added), counted afterwards; a
+    # replayed tick runs no wrapper
     seen = []
     gcs_admit = ops.gcs_admit
 
@@ -517,10 +569,10 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
         seen.append((want, out[0]))
         return out
 
-    def run_keeping(t0, t1):
+    def run_keeping(n_ticks):
         ops.gcs_admit = keeping
         try:
-            run(t0, t1)
+            loop.advance(n_ticks)
         finally:
             ops.gcs_admit = gcs_admit
         torch.cuda.synchronize()
@@ -540,9 +592,8 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_keeping(warm + n, warm + 2 * n)
+        run_keeping(n)
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
-    profiled = counts(n)
     # device-side events only (the operators that launched them carry the
     # same time again)
     rows = sorted(((e.key, e.self_device_time_total, e.count)
@@ -552,31 +603,43 @@ def profile_phase(torch, grid, warm: int = 20, n: int = 40) -> dict:
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     ours_us = sum(r[1] for r in rows
-                  if any(k in r[0] for k in ("tt_", "ga_", "wa_kernel")))
-    log(f"profile ({n} ticks after {warm + n}): wall {wall_us / n:.1f} "
-        f"us/tick unprofiled ({prof_wall_us / n:.1f} profiled), device busy "
-        f"{busy_us / n:.1f} us/tick (idle share "
+                  if any(k in r[0] for k in ("tt_", "ga_", "wa_")))
+    capture = (f"; capture {loop.capture_s * 1e3:.1f} ms, graph pool "
+               f"{loop.pool_bytes} bytes" if graph else "")
+    if not rows:
+        log(f"profile {name} ({n} ticks after {warm + n}): wall "
+            f"{wall_us / n:.1f} us/tick unprofiled ({prof_wall_us / n:.1f} "
+            f"profiled); the profiler saw no kernel inside the replays"
+            f"{capture}")
+        return dict(wall_us=wall_us / n, busy_us=None)
+    log(f"profile {name} ({n} ticks after {warm + n}): wall "
+        f"{wall_us / n:.1f} us/tick unprofiled ({prof_wall_us / n:.1f} "
+        f"profiled), device busy {busy_us / n:.1f} us/tick (idle share "
         f"{1 - busy_us / wall_us:.3f}), lane-tick kernels "
-        f"{ours_us / n:.1f} us/tick, {len(rows)} device kernels by name")
+        f"{ours_us / n:.1f} us/tick, {len(rows)} device kernels by name"
+        f"{capture}")
     for key, us, count in rows[:12]:
-        log(f"  {us / n:9.1f} us/tick {count // n:4d}/tick  {key[:90]}")
+        log(f"  {us / n:9.1f} us/tick {count / n:6.1f}/tick  {key[:90]}")
     # torch.cumsum by its operator: calls and the device time under them
+    # (a replay runs no operator, so only the eager ticks show them)
     cumsum = [e for e in prof.key_averages() if e.key == "aten::cumsum"]
     cs_calls = sum(e.count for e in cumsum)
     cs_us = sum(e.device_time_total for e in cumsum)
     log(f"  torch.cumsum: {cs_calls / n:.1f} calls/tick, {cs_us / n:.1f} "
         f"us/tick of device time")
-    log(f"  GCS candidates per lane per tick, ticks {warm + n}-"
-        f"{warm + 2 * n} (the profiled ones, counted after them): "
-        f"{profiled}")
-    # the same counts half-way through the horizon, where jobs have
-    # finished and files lose their last consumer
-    mid = max(warm + 2 * n, grid.n_ticks // 2)
-    if mid + n <= grid.n_ticks:
-        run(warm + 2 * n, mid)
-        run_keeping(mid, mid + n)
-        log(f"  GCS candidates per lane per tick, ticks {mid}-{mid + n}: "
+    if not graph:
+        log(f"  GCS candidates per lane per tick, ticks {warm + n}-"
+            f"{warm + 2 * n} (the profiled ones, counted after them): "
             f"{counts(n)}")
+        # the same counts half-way through the horizon, where jobs have
+        # finished and files lose their last consumer
+        mid = max(warm + 2 * n, grid.n_ticks // 2)
+        if mid + n <= grid.n_ticks:
+            loop.advance(mid - loop.t)
+            run_keeping(n)
+            log(f"  GCS candidates per lane per tick, ticks {mid}-"
+                f"{mid + n}: {counts(n)}")
+    return dict(wall_us=wall_us / n, busy_us=busy_us / n)
 
 
 def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
@@ -871,7 +934,7 @@ def main(argv=None) -> int:
         from repro_torch.core.scenarios import pack_specs
         from repro_torch.kernels import _build
         from repro_torch.kernels.lane_tick import ops
-        from repro_torch.sim.batched import run_sweep_torch
+        from repro_torch.sim.batched import run_sweep_torch, simulate_packed
     except ImportError as e:
         raise SmokeFailure(f"the port is not importable beside this script "
                            f"({e})") from None
@@ -913,7 +976,9 @@ def main(argv=None) -> int:
     log(f"small reference: {lane_parity(cpu, gpu)} specs within the "
         f"Table-2 bar (CPU plain vs card kernels)")
 
-    # -- sweep phase (the main path)
+    # -- sweep phase (the main path: run_sweep_torch, whose cuda tick
+    # replays a CUDA graph), then the plain path, then the cuda path
+    # replayed and eager on the packed grid, bitwise to each other
     log(f"sweep: horizon cut from the paper's 90 days to {days:g} days "
         f"({grid.n_ticks} ticks of 10 s); catalogue {n_files} files/site")
     runs = {}
@@ -929,15 +994,39 @@ def main(argv=None) -> int:
         if impl == "cuda":
             counts = ops.launch_counts()
         runs[impl] = res
-        log(f"sweep {impl}: {wall:.2f} s wall, {grid.n_ticks / wall:.1f} "
-            f"ticks/s, {len(res) / wall:.2f} configs/s, launches "
+        log(f"sweep {impl}{' (captured)' if impl == 'cuda' else ''}: "
+            f"{wall:.2f} s wall, {grid.n_ticks / wall:.1f} ticks/s, "
+            f"{len(res) / wall:.2f} configs/s, launches "
             f"{ops.launch_counts()}")
-    for name in ops.KERNELS:
-        check(counts[name] > 0, f"{name} was not launched on the main path")
+    check(counts == {name: grid.n_ticks for name in ops.KERNELS},
+          f"main path launches {counts}, not one of each kernel in each of "
+          f"{grid.n_ticks} ticks")
     n_ok = lane_parity(runs["torch"], runs["cuda"])
     log(f"sweep parity: {n_ok} specs within the Table-2 bar, jobs "
         f"submitted equal")
-    profile_phase(torch, grid)
+    outs = {}
+    for eager in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[eager] = simulate_packed(grid, tick_impl="cuda", device="cuda",
+                                      _eager=eager)
+        wall = time.perf_counter() - t0
+        log(f"simulate_packed cuda {'eager' if eager else 'captured'}: "
+            f"{wall:.2f} s wall, {grid.n_ticks / wall:.1f} ticks/s "
+            f"(packing not included)")
+    for key, want in outs[True].items():
+        check(outs[False][key].dtype == want.dtype
+              and np.array_equal(outs[False][key], want),
+              f"sweep: captured and eager cuda {key} not bitwise")
+    log(f"sweep: captured and eager cuda paths bitwise on all "
+        f"{len(outs[True])} outputs")
+    prof = {graph: profile_phase(torch, grid, graph) for graph in (False,
+                                                                   True)}
+    if prof[True]["busy_us"] is None:
+        busy = prof[False]["busy_us"]
+        log(f"profile captured: device busy taken from the eager profile, "
+            f"{busy:.1f} us/tick: idle share "
+            f"{1 - busy / prof[True]['wall_us']:.3f}")
 
     # one entry per kernel and case: the lane-tick kernels at the sweep's
     # shapes with their launches on the sweep, then the three further
@@ -945,7 +1034,7 @@ def main(argv=None) -> int:
     # just after each case
     shapes = (f"sweep shapes (L {grid.n_lanes}, S {len(grid.site_names)}, "
               f"F {n_files})")
-    cases = [(name, shapes + (", mean of the K and W=4 windows"
+    cases = [(name, shapes + (", the K and W=4 windows in one launch"
                               if name == "window_admit" else ""),
               counts[name], kern[name]) for name in ops.KERNELS]
     for name, phase in (("carousel_tick", carousel_phase),
@@ -960,7 +1049,8 @@ def main(argv=None) -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")},
                     **{k: r[k] for k in (
-                        "variant", "device_us", "bound_ms_without_rank")
+                        "variant", "device_us", "graph_ms",
+                        "bound_ms_without_rank")
                        if k in r})
                for name, case, n, r in cases]
     for k in kernels:

@@ -218,6 +218,13 @@ class KernelLib:
         for k in self.launches:
             self.launches[k] = 0
 
+    def add_launch_counts(self, counts: Dict[str, int], times: int) -> None:
+        """Add ``counts`` ``times`` over: the launches of a CUDA graph's
+        replays, which run no wrapper (``times`` is -1 for the capture,
+        whose wrappers counted launches that did not run)."""
+        for k, n in counts.items():
+            self.launches[k] += n * times
+
     def get(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = load(self.name)

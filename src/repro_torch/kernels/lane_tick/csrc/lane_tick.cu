@@ -8,7 +8,9 @@
 //   lt_gcs_admit      <- gcs_admit_pass_kernel / gcs_admit (lane_tick.py:194, :235)
 //                        and the per-site migration rank taken right after
 //                        it (src/repro/sim/batched.py:337)
-//   lt_window_admit   <- window_kernel / window_admit      (lane_tick.py:292, :318)
+//   lt_windows_admit  <- window_kernel / window_admit      (lane_tick.py:292, :318)
+//                        called for both of the tick's windows, with the
+//                        glue between them (src/repro/sim/batched.py:474-483)
 //
 // On the TPU the site grid ran in order and carried sums from one step to
 // the next. Here blocks run in parallel and in no order, so every sum that
@@ -839,41 +841,68 @@ ga_lane_kernel(const int32_t* __restrict__ tcount, int n_tiles,
 // ---------------------------------------------------------------------------
 // candidate windows
 //
-// Replaces window_kernel (lane_tick.py:292). One thread per (lane, site)
-// walks its C candidates in order with the plain version's operation
-// order ((used + extra) + size, then extra + size), so admission and
-// extra bytes match bitwise. It moves C*5 + 12 bytes per row, a few
-// hundred bytes per call, so its time is the launch itself; the design
-// keeps it to one launch.
+// Replaces window_kernel (lane_tick.py:292), both of the tick's calls of
+// it (src/repro/sim/batched.py:433, :485) and the glue between them
+// (:474-483). One thread per (lane, site) row, in the plain version's
+// operation order (ref.windows_admit):
+//   1. the K window of job arrivals (no head blocking): fit is
+//      (used + extra) + size <= limit, then extra + size;
+//   2. used' = used + extra, rounded once;
+//   3. stale heads: a W-window head is stale when its file is no longer
+//      absent or a K slot just started it (K x W fid compares, kept as a
+//      W-bit mask in a register while the K window is walked);
+//   4. the W window of wait-queue heads against used', a live head that
+//      does not fit blocking every head behind it.
+// It moves 14 bytes per K slot and 16 per W slot, a few hundred bytes a
+// call at the sweep's 16 rows, so its time is the launch and each row's
+// serial chain: the design makes the tick's two windows one launch (the
+// tick program replays it from a CUDA graph) and keeps the stale-head
+// compares off that chain.
 // ---------------------------------------------------------------------------
 
-__global__ void wa_kernel(const uint8_t* __restrict__ live,
-                          const float* __restrict__ size,
-                          const float* __restrict__ used,
-                          const float* __restrict__ limit, int64_t R, int C,
-                          int fifo, uint8_t* __restrict__ adm,
-                          float* __restrict__ extra_out) {
+__global__ void wa_fused_kernel(
+    const uint8_t* __restrict__ absent, const float* __restrict__ size_k,
+    const int64_t* __restrict__ fid_k, const uint8_t* __restrict__ valid_w,
+    const uint8_t* __restrict__ present_w, const float* __restrict__ size_w,
+    const int64_t* __restrict__ idx_w, const float* __restrict__ used,
+    const float* __restrict__ limit, int64_t R, int K, int W,
+    uint8_t* __restrict__ started, uint8_t* __restrict__ admitted,
+    uint8_t* __restrict__ stale, float* __restrict__ used_out) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const float u = used[r];
   const float lim = limit[r];
+  const float u = used[r];
+  const int64_t* idx = idx_w + r * W;
   float extra = 0.0f;
-  bool blocked = false;
-  for (int k = 0; k < C; ++k) {
-    const float s = size[r * C + k];
-    const bool lv = live[r * C + k] != 0;
-    const bool fit = __fadd_rn(__fadd_rn(u, extra), s) <= lim;
-    bool a;
-    if (fifo) {
-      a = lv && fit && !blocked;
-      blocked = blocked || (lv && !fit);
-    } else {
-      a = lv && fit;
-    }
-    adm[r * C + k] = a ? 1 : 0;
+  uint32_t jumped = 0u;  // bit w: a started K slot holds head w's file
+  for (int k = 0; k < K; ++k) {
+    const int64_t i = r * K + k;
+    const float s = size_k[i];
+    const bool a = absent[i] != 0 && __fadd_rn(__fadd_rn(u, extra), s) <= lim;
+    started[i] = a ? 1 : 0;
     extra = __fadd_rn(extra, a ? s : 0.0f);
+    // the fid compares read inputs only, off the float chain
+    const int64_t f = fid_k[i];
+    for (int w = 0; w < W; ++w)
+      if (a && idx[w] == f) jumped |= 1u << w;
   }
-  extra_out[r] = extra;
+  const float u2 = __fadd_rn(u, extra);
+  float extra_w = 0.0f;
+  bool blocked = false;
+  for (int w = 0; w < W; ++w) {
+    const int64_t i = r * W + w;
+    const bool valid = valid_w[i] != 0;
+    const bool st = valid && (present_w[i] != 0 || ((jumped >> w) & 1u));
+    const bool live = valid && !st;
+    const float s = size_w[i];
+    const bool fit = __fadd_rn(__fadd_rn(u2, extra_w), s) <= lim;
+    const bool a = live && fit && !blocked;
+    blocked = blocked || (live && !fit);
+    stale[i] = st ? 1 : 0;
+    admitted[i] = a ? 1 : 0;
+    extra_w = __fadd_rn(extra_w, a ? s : 0.0f);
+  }
+  used_out[r] = __fadd_rn(u2, extra_w);
 }
 
 inline int tiles(int64_t n, int tile) {
@@ -1032,18 +1061,30 @@ int lt_gcs_admit(const void* want, const void* sizes, const void* used_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-// R = L*S rows of C candidates each.
-int lt_window_admit(const void* live, const void* size, const void* used,
-                    const void* limit, long long R, int C, int fifo, void* adm,
-                    void* extra, void* stream) {
+// R = L*S rows, each with K job-window slots (absent, size_k, fid_k) and
+// W wait-queue heads (valid_w, present_w, size_w, idx_w); masks are bytes,
+// fids int64; W <= 32. Outputs: started [R, K], admitted and stale [R, W]
+// (bytes), used_out [R]. One launch.
+int lt_windows_admit(const void* absent, const void* size_k, const void* fid_k,
+                     const void* valid_w, const void* present_w,
+                     const void* size_w, const void* idx_w, const void* used,
+                     const void* limit, long long R, int K, int W,
+                     void* started, void* admitted, void* stale,
+                     void* used_out, void* stream) {
+  if (R < 0 || K < 0 || W < 0 || W > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 128;
   const int blocks = tiles(R, threads);
   if (blocks > 0)
-    wa_kernel<<<blocks, threads, 0, st>>>(
-        static_cast<const uint8_t*>(live), static_cast<const float*>(size),
-        static_cast<const float*>(used), static_cast<const float*>(limit), R, C,
-        fifo, static_cast<uint8_t*>(adm), static_cast<float*>(extra));
+    wa_fused_kernel<<<blocks, threads, 0, st>>>(
+        static_cast<const uint8_t*>(absent), static_cast<const float*>(size_k),
+        static_cast<const int64_t*>(fid_k), static_cast<const uint8_t*>(valid_w),
+        static_cast<const uint8_t*>(present_w),
+        static_cast<const float*>(size_w), static_cast<const int64_t*>(idx_w),
+        static_cast<const float*>(used), static_cast<const float*>(limit), R, K,
+        W, static_cast<uint8_t*>(started), static_cast<uint8_t*>(admitted),
+        static_cast<uint8_t*>(stale), static_cast<float*>(used_out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,15 +31,15 @@ _SIGNATURES = {
     "lt_error_string": ([_I], ctypes.c_char_p),
     "lt_transfer_tick": ([_P] * 9 + [_I, _I, _LL, _I] + [_P] * 10, _I),
     "lt_gcs_admit": ([_P] * 6 + [_I, _LL, _LL, _I, _I] + [_P] * 6, _I),
-    "lt_window_admit": ([_P] * 4 + [_LL, _I, _I] + [_P] * 3, _I),
+    "lt_windows_admit": ([_P] * 9 + [_LL, _I, _I] + [_P] * 5, _I),
 }
 
 _LIB = _build.KernelLib("lane_tick", _SIGNATURES, "lt_error_string",
                         KERNELS)
 launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
+add_launch_counts = _LIB.add_launch_counts
 _check = _build.check_tensor
-
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -117,19 +117,35 @@ def gcs_admit(want, sizes, used, limit, dt, month, n_months: int,
     return adm, used_out, gbsec, rank
 
 
-def window_admit(live, size, disk_used, disk_limit, fifo: bool):
-    """See ``ref.window_admit``."""
-    if live.device.type == "cpu":
-        return ref.window_admit(live, size, disk_used, disk_limit, fifo)
-    dev = live.device
-    L, S, C = live.shape
-    _check("live", live, torch.bool, (L, S, C), dev)
-    _check("size", size, torch.float32, (L, S, C), dev)
+def windows_admit(absent, size_k, fid_k, valid_w, present_w, size_w, idx_w,
+                  disk_used, disk_limit):
+    """See ``ref.windows_admit``. Launches one kernel for both windows
+    (counted as ``window_admit``)."""
+    if absent.device.type == "cpu":
+        return ref.windows_admit(absent, size_k, fid_k, valid_w, present_w,
+                                 size_w, idx_w, disk_used, disk_limit)
+    dev = absent.device
+    L, S, K = absent.shape
+    W = valid_w.shape[-1]
+    if W > 32:
+        raise ValueError(f"windows_admit: W = {W} heads; the kernel keeps "
+                         f"the stale heads of a row in 32 bits")
+    _check("absent", absent, torch.bool, (L, S, K), dev)
+    _check("size_k", size_k, torch.float32, (L, S, K), dev)
+    _check("fid_k", fid_k, torch.int64, (L, S, K), dev)
+    _check("valid_w", valid_w, torch.bool, (L, S, W), dev)
+    _check("present_w", present_w, torch.bool, (L, S, W), dev)
+    _check("size_w", size_w, torch.float32, (L, S, W), dev)
+    _check("idx_w", idx_w, torch.int64, (L, S, W), dev)
     _check("disk_used", disk_used, torch.float32, (L, S), dev)
     _check("disk_limit", disk_limit, torch.float32, (L, S), dev)
-    adm = torch.empty((L, S, C), dtype=torch.bool, device=dev)
-    extra = torch.empty((L, S), dtype=torch.float32, device=dev)
-    _LIB.launch("window_admit", "lt_window_admit", dev,
-                *map(_ptr, (live, size, disk_used, disk_limit)),
-                L * S, C, int(bool(fifo)), _ptr(adm), _ptr(extra))
-    return adm, extra
+    started = torch.empty((L, S, K), dtype=torch.bool, device=dev)
+    admitted, stale = (torch.empty((L, S, W), dtype=torch.bool, device=dev)
+                       for _ in range(2))
+    used_out = torch.empty((L, S), dtype=torch.float32, device=dev)
+    _LIB.launch("window_admit", "lt_windows_admit", dev,
+                *map(_ptr, (absent, size_k, fid_k, valid_w, present_w, size_w,
+                            idx_w, disk_used, disk_limit)),
+                L * S, K, W,
+                *map(_ptr, (started, admitted, stale, used_out)))
+    return started, admitted, stale, used_out

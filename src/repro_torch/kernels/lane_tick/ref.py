@@ -11,7 +11,9 @@ order of the jnp branch of ``repro.sim.batched._lane_step_fns``:
 - :func:`gcs_admit` — ``batched.py:318-329`` plus the end-of-tick GB-second
   integration (``:582``) and the per-site migration rank (``:337``);
 - :func:`window_admit` — ``batched.py:438-446`` (``fifo=False``) and
-  ``:490-500`` (``fifo=True``).
+  ``:490-500`` (``fifo=True``);
+- :func:`windows_admit` — both windows of the tick with the glue between
+  them (``batched.py:433-447`` and ``:474-501``).
 
 Masks are ``torch.bool``; the month is a 0-d integer tensor and the month
 deltas come back as ``[L, n_months]`` rows that are zero outside it.
@@ -164,6 +166,8 @@ def window_admit(live, size, disk_used, disk_limit, fifo: bool):
     """
     C = live.shape[-1]
     extra = torch.zeros_like(disk_used)
+    if C == 0:
+        return torch.zeros_like(live), extra
     blocked = torch.zeros_like(live[..., 0])
     cols = []
     for k in range(C):
@@ -178,3 +182,29 @@ def window_admit(live, size, disk_used, disk_limit, fifo: bool):
         cols.append(adm)
         extra = extra + torch.where(adm, size_k, 0.0)
     return torch.stack(cols, dim=-1), extra
+
+
+def windows_admit(absent, size_k, fid_k, valid_w, present_w, size_w, idx_w,
+                  disk_used, disk_limit):
+    """The tick's two candidate windows against one disk headroom: the K
+    window of job arrivals (:func:`window_admit`, ``fifo=False``), then the
+    W window of wait-queue heads (``fifo=True``) from the occupancy the
+    first one left. A head is stale, and skipped, when its file is no
+    longer absent (``present_w``) or a started K slot holds its file.
+
+    absent: ``[L,S,K]`` bool; size_k: ``[L,S,K]`` f32; fid_k: ``[L,S,K]``
+    int64; valid_w/present_w: ``[L,S,W]`` bool; size_w: ``[L,S,W]`` f32;
+    idx_w: ``[L,S,W]`` int64; disk_used/disk_limit: ``[L,S]`` f32.
+
+    Returns ``(started [L,S,K], admitted [L,S,W], stale [L,S,W],
+    disk_used' [L,S] f32)``.
+    """
+    started, extra = window_admit(absent, size_k, disk_used, disk_limit,
+                                  False)
+    used = disk_used + extra
+    started_fid = torch.where(started, fid_k, -1)
+    jumped = (idx_w[..., :, None] == started_fid[..., None, :]).any(-1)
+    stale = valid_w & (present_w | jumped)
+    admitted, extra_w = window_admit(valid_w & ~stale, size_w, used,
+                                     disk_limit, True)
+    return started, admitted, stale, used + extra_w

@@ -5,7 +5,8 @@ The port of ``repro.sim.batched``: a packed spec grid
 in which lane ``l`` is one dynamics lane of the grid and every lane steps
 a shared clock. Lanes are an explicit leading tensor axis (``[L, S, F]``
 planes, ``[L, S]`` per-site and ``[L]`` per-lane vectors) instead of
-``vmap``, and a Python loop over ticks takes the place of ``scan``.
+``vmap``, and a loop over ticks (graph replays on the ``cuda`` path)
+takes the place of ``scan``.
 
 The tick body's three dense pieces — the transfer advance with its
 completion billing, the shared-GCS admission passes with the GB-second
@@ -23,8 +24,10 @@ module for the fidelity contract against the event engine (Table-2 5%).
 Device rule: :func:`simulate_packed` and :func:`run_sweep_torch` run on
 ``cuda`` unless the caller passes ``device="cpu"``; without CUDA and
 without that argument they raise. The tick loop makes no host sync: the
-clock values are 0-d device tensors and no decision reads a device value
-on the host.
+tick index is a device counter, the clock values are read at it on the
+device, and no decision reads a device value on the host. On the ``cuda``
+path the tick is captured once as a CUDA graph and replayed
+(:class:`TickLoop`); the plain path stays eager.
 """
 
 from __future__ import annotations
@@ -73,22 +76,29 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
     """The tick body and the post-loop reduction (closures over the static
     dimensions and the resolved tick implementation).
 
-    The state planes are updated in place by the duplicate-safe scatters
-    at the end of the tick (``scatter_add_``/``scatter_reduce_``); every
-    value those scatters combine with (``cur_link``, ``cur_lqt``,
-    ``cur_wqt``) is gathered before the first of them, and every other
-    update builds a new tensor, so the read order is that of the JAX
-    package's functional tick body.
+    The tick reads its index from the state's device counter
+    (``st["tick"]``, stepped at its end) and its clock values with
+    ``index_select`` on it, and updates every state tensor in place
+    (``masked_fill_``, ``add_``, ``copy_``, ``torch.where(..., out=)`` and
+    the duplicate-safe scatters at the end), so each keeps its address from
+    tick to tick: what a CUDA graph of the tick needs. Every value the end
+    scatters combine with (``cur_link``, ``cur_lqt``, ``cur_wqt``) is
+    gathered before the first of them, and every read sees what the JAX
+    package's functional tick body would bind at that point.
     """
     lt = ops if impl.use_kernel else ref
     W = WAIT_ADMITS_PER_TICK
 
-    def tick_fn(st: Dict[str, torch.Tensor], now, dt, month, t: int,
-                jobs_now, c: Dict[str, torch.Tensor]) -> None:
+    def tick_fn(st: Dict[str, torch.Tensor], c: Dict[str, torch.Tensor]):
         sizes = c["sizes"]
         L, _, F = sizes.shape
         J = c["job_fid"].shape[-1]
         gcs_en = c["gcs_enabled"]
+        t = st["tick"]
+        now = c["times"].index_select(0, t).view(())
+        dt = c["dts"].index_select(0, t).view(())
+        month = c["month_idx"].index_select(0, t).view(())
+        jobs_now = c["jobs_per_tick"].index_select(1, t).view(L, S)
 
         # -- consumer snapshot (jobs submitted before this tick that have
         # not finished by ``now``)
@@ -104,30 +114,30 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
             c["bw"], c["mode"], dt, month, n_months)
         comp_mig = comp & is_t[2]
         inbound = comp & (is_t[0] | is_t[1])
-        st["disk_state"] = torch.where(inbound, PRESENT, st["disk_state"])
-        st["gcs_state"] = torch.where(comp_mig, PRESENT, st["gcs_state"])
-        st["tape_b"] = st["tape_b"] + tape_add
-        st["gcsdisk_b"] = st["gcsdisk_b"] + recall_add
-        st["diskgcs_b"] = st["diskgcs_b"] + mig_add
-        st["egress_mo"] = st["egress_mo"] + egress_add
-        st["cls_a_mo"] = st["cls_a_mo"] + cls_a_add
-        st["cls_b_mo"] = st["cls_b_mo"] + cls_b_add
+        st["disk_state"].masked_fill_(inbound, PRESENT)
+        st["gcs_state"].masked_fill_(comp_mig, PRESENT)
+        st["tape_b"].add_(tape_add)
+        st["gcsdisk_b"].add_(recall_add)
+        st["diskgcs_b"].add_(mig_add)
+        st["egress_mo"].add_(egress_add)
+        st["cls_a_mo"].add_(cls_a_add)
+        st["cls_b_mo"].add_(cls_b_add)
         # migrated with no remaining consumer: drop the hot copy now
         drop_hot = comp_mig & no_cons & (st["disk_state"] == PRESENT)
-        st["disk_used"] = st["disk_used"] - (sizes * drop_hot).sum(-1)
-        st["disk_state"] = torch.where(drop_hot, ABSENT, st["disk_state"])
-        st["tr_slot"] = st["tr_slot"] & ~comp
-        st["tr_done"] = torch.where(comp, 0.0, new_done)
-        st["tr_total"] = torch.where(comp, _INF, st["tr_total"])
-        st["tr_start"] = torch.where(comp, _INF, st["tr_start"])
+        st["disk_used"].sub_((sizes * drop_hot).sum(-1))
+        st["disk_state"].masked_fill_(drop_hot, ABSENT)
+        st["tr_slot"].logical_and_(~comp)
+        torch.where(comp, c["zero"], new_done, out=st["tr_done"])
+        st["tr_total"].masked_fill_(comp, _INF)
+        st["tr_start"].masked_fill_(comp, _INF)
 
         # arrived files resolve their pending jobs
         resolve = inbound & (st["pend_cnt"] > 0)
-        st["fin_max"] = torch.where(
-            resolve, torch.maximum(st["fin_max"], now + st["pend_tail"]),
-            st["fin_max"])
-        st["pend_cnt"] = torch.where(inbound, 0, st["pend_cnt"])
-        st["pend_tail"] = torch.where(inbound, 0.0, st["pend_tail"])
+        torch.where(resolve,
+                    torch.maximum(st["fin_max"], now + st["pend_tail"]),
+                    st["fin_max"], out=st["fin_max"])
+        st["pend_cnt"].masked_fill_(inbound, 0)
+        st["pend_tail"].masked_fill_(inbound, 0.0)
 
         # -- link-slot FIFO admission (tickets are contiguous per link)
         occ = torch.stack([(st["tr_slot"] & m).sum(-1) for m in is_t],
@@ -135,19 +145,17 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         free = torch.clamp_min(c["slots"] - occ, 0.0)
         n_q = (st["lq_next"] - st["lq_serve"]).to(torch.float32)
         admit = torch.minimum(free, n_q).to(torch.int32)
-        new_serve = st["lq_serve"] + admit
+        st["lq_serve"].add_(admit)
         adm_row = st["lq_queued"] & (
-            st["lq_ticket"] < by_type(new_serve.view(L, S, 3), is_t))
-        st["tr_slot"] = st["tr_slot"] | adm_row
-        st["tr_start"] = torch.where(
-            adm_row, now + by_type(c["latency"].view(L, S, 3), is_t),
-            st["tr_start"])
-        st["lq_queued"] = st["lq_queued"] & ~adm_row
-        st["lq_serve"] = new_serve
-        # working [L, S, 3] counters (fresh tensors, updated in place
-        # below; lq_next is written back after the windows)
+            st["lq_ticket"] < by_type(st["lq_serve"].view(L, S, 3), is_t))
+        st["tr_slot"].logical_or_(adm_row)
+        torch.where(adm_row, now + by_type(c["latency"].view(L, S, 3), is_t),
+                    st["tr_start"], out=st["tr_start"])
+        st["lq_queued"].logical_and_(~adm_row)
+        # working [L, S, 3] counters: occ3 a fresh tensor, lqn3 a view of
+        # lq_next; both are updated in place below
         occ3 = (occ + admit.to(torch.float32)).view(L, S, 3)
-        lqn3 = st["lq_next"].view(L, S, 3).clone()
+        lqn3 = st["lq_next"].view(L, S, 3)
         lqs3 = st["lq_serve"].view(L, S, 3)
         slots3 = c["slots"].view(L, S, 3)
         lat3 = c["latency"].view(L, S, 3)
@@ -163,10 +171,10 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         mig, gcs_used, gbsec_add, rank = lt.gcs_admit(
             want_mig, sizes, st["gcs_used"], c["gcs_limit"], dt, month,
             n_months, GCS_ADMIT_PASSES)
-        st["gcs_used"] = gcs_used
-        st["gcs_state"] = torch.where(mig, IN_FLIGHT, gs)
-        st["disk_used"] = st["disk_used"] - (sizes * delete).sum(-1)
-        st["disk_state"] = torch.where(delete, ABSENT, st["disk_state"])
+        st["gcs_used"].copy_(gcs_used)
+        gs.masked_fill_(mig, IN_FLIGHT)
+        st["disk_used"].sub_((sizes * delete).sum(-1))
+        st["disk_state"].masked_fill_(delete, ABSENT)
         # submit migrations on each site's disk->gcs link (FIFO: direct
         # slots only while the link queue is empty, overflow queues). rank
         # is each admission's place among its site's admissions; the direct
@@ -178,21 +186,21 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         queued = mig & ~direct
         n_direct = direct.sum(-1, keepdim=True, dtype=torch.int32)
         qrank = rank - n_direct
-        st["tr_slot"] = st["tr_slot"] | direct
-        st["tr_link"] = torch.where(mig, c["mig_link"], st["tr_link"])
-        st["tr_total"] = torch.where(mig, sizes, st["tr_total"])
-        st["tr_done"] = torch.where(mig, 0.0, st["tr_done"])
-        st["tr_start"] = torch.where(direct, now, st["tr_start"])
-        st["lq_ticket"] = torch.where(queued, lqn3[..., 2:3] + qrank,
-                                      st["lq_ticket"])
-        st["lq_queued"] = st["lq_queued"] | queued
+        st["tr_slot"].logical_or_(direct)
+        torch.where(mig, c["mig_link"], st["tr_link"], out=st["tr_link"])
+        torch.where(mig, sizes, st["tr_total"], out=st["tr_total"])
+        st["tr_done"].masked_fill_(mig, 0.0)
+        torch.where(direct, now, st["tr_start"], out=st["tr_start"])
+        torch.where(queued, lqn3[..., 2:3] + qrank, st["lq_ticket"],
+                    out=st["lq_ticket"])
+        st["lq_queued"].logical_or_(queued)
         lqn3[..., 2] += queued.sum(-1, dtype=torch.int32)
         occ3[..., 2] += n_direct[..., 0].to(torch.float32)
 
         # -- candidate windows: this tick's job arrivals (K per site) and
         # the waiting-queue heads (W per site) as prefix recurrences over
-        # [L, S, C]; their state changes land below as one
-        # duplicate-safe scatter per plane.
+        # [L, S, C], both in one call; their state changes land below as
+        # one duplicate-safe scatter per plane.
         plans = []
 
         def plan_links(fids, fire):
@@ -227,73 +235,64 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
                         m_vec=c["site3"] + link_local, direct=direct,
                         queued=queued, tstart=tstart, lq_val=lq_val)
 
-        # -- group 1: job submissions (only the first arrival of a file
-        # starts its transfer; later same-tick jobs attach)
-        started = fids = None
+        # group 1, job submissions: only the first arrival of a file
+        # starts its transfer; later same-tick jobs attach
+        ks = c["ks"]
+        jpos = st["ptr"][..., None] + ks  # [L, S, K] int64
+        jid = torch.clamp_max(jpos, J - 1)
+        valid = (jpos < J) & (
+            torch.gather(c["job_submit_tick"], -1, jid) == t)
+        fids = torch.gather(c["job_fid64"], -1, jid)
+        # same[l, s, k, j]: an earlier valid slot j < k has the same file
+        same = ((fids[..., None, :] == fids[..., :, None])
+                & valid[..., None, :] & c["earlier"])
+        first = valid & ~same.any(-1)
+        ds_k = torch.gather(st["disk_state"], -1, fids)
+        absent = first & (ds_k == ABSENT)
+        # group 2, waiting-queue admission: strict FIFO on the disk window
+        # (the head blocks until its file fits, §5.2). Ties in the lowest-W
+        # selection occur only among the _BIG_TICKET fill, whose scatters
+        # are no-ops, so their order does not matter.
+        tickets = torch.where(st["wq_wait"], st["wq_ticket"], _BIG_TICKET)
+        lowest, idx = torch.topk(tickets, W, dim=-1, largest=False,
+                                 sorted=True)
+        started, admitted, stale, disk_used = lt.windows_admit(
+            absent, torch.gather(sizes, -1, fids), fids,
+            lowest < _BIG_TICKET,
+            torch.gather(st["disk_state"], -1, idx) != ABSENT,
+            torch.gather(sizes, -1, idx), idx, st["disk_used"],
+            c["disk_limit"])
+        st["disk_used"].copy_(disk_used)
+
         if K > 0:
-            ks = c["ks"]
-            jpos = st["ptr"][..., None] + ks  # [L, S, K] int64
-            jid = torch.clamp_max(jpos, J - 1)
-            valid = (jpos < J) & (
-                torch.gather(c["job_submit_tick"], -1, jid) == t)
-            fids = torch.gather(c["job_fid64"], -1, jid)
-            # same[l, s, k, j]: an earlier valid slot j < k has the same file
-            same = ((fids[..., None, :] == fids[..., :, None])
-                    & valid[..., None, :] & c["earlier"])
-            first = valid & ~same.any(-1)
-            size = torch.gather(sizes, -1, fids)
-            ds = torch.gather(st["disk_state"], -1, fids)
             ww = torch.gather(st["wq_wait"], -1, fids)
             tailw = torch.gather(c["job_tail"], -1, jid)
-            absent = first & (ds == ABSENT)
-            started, extra = lt.window_admit(absent, size, st["disk_used"],
-                                             c["disk_limit"], False)
-            st["disk_used"] = st["disk_used"] + extra
             to_wait = absent & ~started & ~ww
             wrank = torch.cumsum(to_wait, dim=-1, dtype=torch.int32) - 1
             plan = plan_links(fids, started)
             plan["to_wait"] = to_wait
             plan["wq_val"] = torch.where(
                 to_wait, st["wq_next"][..., None] + wrank, 0)
-            st["wq_next"] = st["wq_next"] + to_wait.sum(-1, dtype=torch.int32)
+            st["wq_next"].add_(to_wait.sum(-1, dtype=torch.int32))
             plan["stale"] = torch.zeros_like(started)
             # incremental consumer deltas: jobs whose file is on disk are
             # ready now (finish now + tail); the rest join the pending pool
-            ready_now = valid & (ds == PRESENT)
+            ready_now = valid & (ds_k == PRESENT)
             plan["pend_add"] = valid & ~ready_now
             plan["fin_val"] = torch.where(ready_now, now + tailw, -_INF)
             plan["tail"] = tailw
             plans.append(plan)
-        st["ptr"] = st["ptr"] + jobs_now
+        st["ptr"].add_(jobs_now)
 
-        # -- group 2: waiting-queue admission, strict FIFO on the disk
-        # window (the head blocks until its file fits, §5.2). Ties in the
-        # lowest-W selection occur only among the _BIG_TICKET fill, whose
-        # scatters are no-ops, so their order does not matter.
-        tickets = torch.where(st["wq_wait"], st["wq_ticket"], _BIG_TICKET)
-        lowest, idx = torch.topk(tickets, W, dim=-1, largest=False,
-                                 sorted=True)
-        validw = lowest < _BIG_TICKET
-        jumped = torch.zeros_like(validw)
-        if K > 0:
-            started_fid = torch.where(started, fids, -1)
-            jumped = (idx[..., :, None] == started_fid[..., None, :]).any(-1)
-        ds = torch.gather(st["disk_state"], -1, idx)
-        stale = validw & ((ds != ABSENT) | jumped)
-        size = torch.gather(sizes, -1, idx)
-        admitted, extra = lt.window_admit(validw & ~stale, size,
-                                          st["disk_used"], c["disk_limit"],
-                                          True)
-        st["disk_used"] = st["disk_used"] + extra
         plan = plan_links(idx, admitted)
         plan["stale"] = stale
         plans.append(plan)
-        st["lq_next"] = lqn3.view(L, 3 * S)
 
         # -- pending jobs whose input is on disk enter queued -> running
         pending = (c["job_submit_tick"] <= t) & (st["job_ready"] >= _INF)
         on_disk = torch.gather(st["disk_state"], -1, c["job_fid64"]) == PRESENT
-        st["job_ready"] = torch.where(pending & on_disk, now, st["job_ready"])
+        torch.where(pending & on_disk, now, st["job_ready"],
+                    out=st["job_ready"])
 
         # -- apply the planned windows: one scatter per state plane
         def cat(key):
@@ -353,7 +352,8 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
                 include_self=True)
 
         # -- stored cloud volume (GB-seconds) per month, from gcs_admit
-        st["gbsec_mo"] = st["gbsec_mo"] + gbsec_add
+        st["gbsec_mo"].add_(gbsec_add)
+        t.add_(1)
 
     def post_fn(st, c, horizon) -> Dict[str, torch.Tensor]:
         ready = st["job_ready"] < _INF
@@ -403,6 +403,12 @@ def _build_lane_sim(grid: PackedGrid, device: torch.device):
         "job_submit_tick": dev(grid.job_submit_tick),
         "job_submit_time": dev(grid.job_submit_time),
         "job_tail": dev(grid.job_tail),
+        # the clock, read at the device tick counter st["tick"]
+        "times": dev(grid.times),
+        "dts": dev(grid.dts),
+        "month_idx": dev(grid.month_idx),
+        "jobs_per_tick": dev(grid.jobs_per_tick),
+        "zero": torch.zeros((), dtype=torch.float32, device=device),
     }
     site = torch.arange(S, device=device).view(1, S, 1)
     ks = torch.arange(K, device=device)
@@ -454,36 +460,124 @@ def _build_lane_sim(grid: PackedGrid, device: torch.device):
         cls_a_mo=zeros((L, n_months), f32),
         cls_b_mo=zeros((L, n_months), f32),
         gbsec_mo=zeros((L, n_months), f32),
+        tick=zeros((1,), torch.int64),
     )
     return c, state
 
 
+#: Eager ticks before the ``cuda`` tick is captured: real ticks of the run
+#: that load the kernel library and warm the allocator's blocks and the
+#: ``topk``/``cumsum`` workspaces, on a side stream as CUDA graph capture
+#: asks.
+GRAPH_WARMUP_TICKS = 3
+
+
+class TickLoop:
+    """The tick program of one packed grid on one device, advanced tick by
+    tick (:meth:`advance`) and read out once (:meth:`result`).
+
+    With ``graph=True`` (the ``cuda`` kernels on a CUDA device) the first
+    :data:`GRAPH_WARMUP_TICKS` ticks run eagerly on a side stream, the next
+    tick is captured once as a CUDA graph (capture runs nothing), and that
+    tick and every later one is a replay of it: the tick takes its index
+    from the device counter it steps, and updates its state in place, so a
+    replay does what a fresh launch of the tick would. A failed capture or
+    replay raises; nothing falls back to eager ticks. The kernel wrappers
+    count launches in Python, so each replay adds the captured tick's
+    launches to ``ops.launch_counts()``. ``capture_s`` is the capture's
+    host time, ``pool_bytes`` the device memory the graph's private pool
+    reserved (both 0 until the capture).
+    """
+
+    def __init__(self, grid: PackedGrid, impl: TickImpl, device: torch.device,
+                 graph: bool):
+        if graph and not (impl.use_kernel and device.type == "cuda"):
+            raise ValueError("a captured tick needs tick_impl='cuda'")
+        self.n_ticks = grid.n_ticks
+        self.device, self.use_graph = device, graph
+        self.tick_fn, self.post_fn = _lane_step_fns(
+            len(grid.site_names), grid.max_jobs_per_tick, grid.n_months, impl)
+        self.c, self.st = _build_lane_sim(grid, device)
+        self.horizon = torch.tensor(float(grid.horizon), dtype=torch.float32,
+                                    device=device)
+        self.t = 0
+        self._graph = None
+        self._per_tick: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def advance(self, n: int) -> None:
+        """Run the next ``n`` ticks (no host sync)."""
+        if not 0 <= n <= self.n_ticks - self.t:
+            raise ValueError(f"advance({n}) at tick {self.t} of "
+                             f"{self.n_ticks}")
+        if not self.use_graph:
+            for _ in range(n):
+                self.tick_fn(self.st, self.c)
+            self.t += n
+            return
+        warm = min(n, max(0, GRAPH_WARMUP_TICKS - self.t))
+        if warm:
+            self._warm_up(warm)
+        replays = n - warm
+        if replays:
+            if self._graph is None:
+                self._capture()
+            for _ in range(replays):
+                self._graph.replay()
+            ops.add_launch_counts(self._per_tick, replays)
+        self.t += n
+
+    def _warm_up(self, n: int) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(n):
+                self.tick_fn(self.st, self.c)
+        cur.wait_stream(side)
+
+    def _capture(self) -> None:
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.tick_fn(self.st, self.c)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self._per_tick = {k: v - before[k]
+                          for k, v in ops.launch_counts().items()}
+        ops.add_launch_counts(self._per_tick, -1)  # capture launched nothing
+        self._graph = graph
+
+    def result(self) -> Dict[str, np.ndarray]:
+        """The raw per-lane aggregates of the ticks run so far (numpy)."""
+        out = self.post_fn(self.st, self.c, self.horizon)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
-                    device=None) -> Dict[str, np.ndarray]:
+                    device=None, *, _eager: bool = False
+                    ) -> Dict[str, np.ndarray]:
     """Run a packed grid; returns the raw per-lane aggregate dict (numpy
     arrays, lane-leading), with the keys of ``repro``'s ``simulate_packed``.
 
     ``tick_impl``: ``"torch"`` | ``"cuda"`` | ``"auto"``
     (``repro_torch.kernels.registry``). ``device``: where the whole grid
     lives and runs — ``cuda`` when None (raising if CUDA is absent), the
-    CPU only when asked for.
+    CPU only when asked for. The ``cuda`` tick replays a CUDA graph
+    (:class:`TickLoop`); the plain ``torch`` tick runs eagerly, as the
+    oracle. ``_eager`` runs the ``cuda`` tick eagerly too, for the
+    comparison of the two.
     """
     dev = resolve_device(device)
     impl = resolve_tick_impl(tick_impl, dev)
-    S, K = len(grid.site_names), grid.max_jobs_per_tick
-    tick_fn, post_fn = _lane_step_fns(S, K, grid.n_months, impl)
-    c, st = _build_lane_sim(grid, dev)
-    times = torch.as_tensor(grid.times, device=dev)
-    dts = torch.as_tensor(grid.dts, device=dev)
-    month_idx = torch.as_tensor(grid.month_idx, device=dev)
-    jobs_per_tick = torch.as_tensor(grid.jobs_per_tick, device=dev)
-    horizon = torch.tensor(float(grid.horizon), dtype=torch.float32,
-                           device=dev)
-    for t in range(grid.n_ticks):
-        tick_fn(st, times[t], dts[t], month_idx[t], t, jobs_per_tick[:, t],
-                c)
-    out = post_fn(st, c, horizon)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    loop = TickLoop(grid, impl, dev, graph=impl.use_kernel and not _eager)
+    loop.advance(grid.n_ticks)
+    return loop.result()
 
 
 def _lane_result(grid: PackedGrid, out: dict, si: int,

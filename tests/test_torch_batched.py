@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.scenarios as jx
 from repro.sim.batched import simulate_packed as jx_simulate_packed
@@ -26,7 +27,8 @@ from repro_torch.core.scenarios import (
     pack_specs,
     with_seeds,
 )
-from repro_torch.sim.batched import run_sweep_torch, simulate_packed
+from repro_torch.kernels.registry import resolve_tick_impl
+from repro_torch.sim.batched import TickLoop, run_sweep_torch, simulate_packed
 from repro_torch.sim.sweep import run_sweep
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
@@ -171,3 +173,33 @@ def test_front_door_forwards_and_rejects_later_knobs(pricing_grid):
         run_sweep(few, device="cpu", tick_impl="jnp")
     with pytest.raises(ValueError, match="CUDA device"):
         run_sweep([ScenarioSpec(**QUICK)], device="cpu", tick_impl="cuda")
+
+
+def test_tick_keeps_every_state_tensor_at_its_address():
+    """What CUDA graph capture needs of the tick: run in pieces on the CPU,
+    it leaves every state tensor (the device tick counter included) at its
+    address, the counter counts the ticks, and the run ends where one
+    ``simulate_packed`` call does."""
+    grid = pack_specs([
+        ScenarioSpec(base="III", cache_tb=10.0, seed=1, **QUICK),
+        ScenarioSpec(base="III", cache_tb=15.0, gcs_limit_tb=5.0, seed=3,
+                     **QUICK),
+    ], tick=10.0)
+    cpu = torch.device("cpu")
+    loop = TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=False)
+    ptrs = {k: v.data_ptr() for k, v in loop.st.items()}
+    for n in (1, 2, 100, grid.n_ticks - 103):
+        loop.advance(n)
+        assert {k: v.data_ptr() for k, v in loop.st.items()} == ptrs
+        assert loop.st["tick"].tolist() == [loop.t]
+    assert loop.t == grid.n_ticks
+    # the ticks did the tick's work: jobs ran, files moved to the cold tier
+    assert int(loop.st["ptr"].sum()) > 0
+    assert bool((loop.st["gcs_state"] != 0).any())
+    once = simulate_packed(grid, tick_impl="torch", device="cpu")
+    for key, got in loop.result().items():
+        np.testing.assert_array_equal(got, once[key], err_msg=key)
+    with pytest.raises(ValueError, match="advance"):
+        loop.advance(1)
+    with pytest.raises(ValueError, match="cuda"):
+        TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=True)

@@ -8,8 +8,10 @@ package, so it runs where only PyTorch is installed::
 
 Bars: transfer ``new_done`` and completion bitwise (the kernel rounds like
 the plain version's separate ops), billing at rtol 1e-6 (reduction
-order), at active shares from 0 to 1, two calls bitwise equal; windows
-bitwise; GCS admission equal except at capacity-boundary ties within 16
+order), at active shares from 0 to 1, two calls bitwise equal; both
+candidate windows of a tick bitwise in one launch; the ``cuda`` sweep
+replayed from a CUDA graph bitwise to the same path run eagerly, with
+every replayed launch counted; GCS admission equal except at capacity-boundary ties within 16
 float32 ulps of the limit (both sides take the prefix in float64, in
 different orders), also at a candidate share of 0.3, occupancy at
 rtol 1e-5, the migration rank bitwise against the per-site rank of the
@@ -41,11 +43,12 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan import ref as ms_ref
 from torch_lane_inputs import (
     N_MONTHS,
+    WINDOW_CASES,
     gcs_inputs,
     scalars,
     stack_transfer,
     transfer_inputs,
-    window_inputs,
+    windows_inputs,
 )
 
 
@@ -323,28 +326,92 @@ def test_cuda_gcs_admit_two_calls_bitwise(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fifo", [False, True])
-def test_cuda_window_admit_bitwise(cuda_device, fifo):
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_cuda_window_admit_bitwise(cuda_device, case):
+    """Both candidate windows of a tick in one launch, bitwise the plain
+    ``ref.windows_admit``."""
     args = [torch.as_tensor(a, device=cuda_device)
-            for a in window_inputs(fifo)]
-    got = ops.window_admit(*args, fifo)
-    want = ref.window_admit(*args, fifo)
+            for a in windows_inputs(case)]
+    before = ops.launch_counts()["window_admit"]
+    got = ops.windows_admit(*args)
+    assert ops.launch_counts()["window_admit"] == before + 1
+    want = ref.windows_admit(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0])
-    assert torch.equal(got[1], want[1])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_check_their_inputs(cuda_device):
     args = [torch.as_tensor(a, device=cuda_device)
-            for a in window_inputs(False)]
+            for a in windows_inputs("random")]
+
+    def with_size_k(size_k):
+        return ops.windows_admit(args[0], size_k, *args[2:])
+
     with pytest.raises(ValueError, match="float32"):
-        ops.window_admit(args[0], args[1].double(), args[2], args[3], False)
+        with_size_k(args[1].double())
     with pytest.raises(ValueError, match="on cuda"):
-        ops.window_admit(args[0], args[1].cpu(), args[2], args[3], False)
+        with_size_k(args[1].cpu())
     with pytest.raises(ValueError, match="contiguous"):
-        ops.window_admit(args[0], args[1].transpose(0, 1).contiguous()
-                         .transpose(0, 1), args[2], args[3], False)
+        with_size_k(args[1].transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="int64"):
+        ops.windows_admit(*args[:2], args[2].int(), *args[3:])
+    wide = [a.repeat(1, 1, 9) for a in args[3:7]]  # W = 36 heads
+    with pytest.raises(ValueError, match="32 bits"):
+        ops.windows_admit(*args[:3], *wide, *args[7:])
+
+
+def _small_grid():
+    from repro_torch.core.scenarios import ScenarioSpec, pack_specs
+
+    return pack_specs([
+        ScenarioSpec(base="III", cache_tb=10.0, seed=1, days=0.05,
+                     n_files=1000),
+        ScenarioSpec(base="III", cache_tb=15.0, gcs_limit_tb=5.0, seed=3,
+                     days=0.05, n_files=1000),
+        ScenarioSpec(base="I", seed=2, days=0.05, n_files=1000),
+    ], tick=10.0)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_sweep_bitwise_to_eager(cuda_device):
+    """The ``cuda`` sweep replayed from a CUDA graph against the same path
+    run eagerly: every output bitwise, two captured runs bitwise, and a
+    run advanced in pieces across the warm-up and the capture ends the
+    same."""
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop, simulate_packed
+
+    grid = _small_grid()
+    eager = simulate_packed(grid, tick_impl="cuda", _eager=True)
+    captured = simulate_packed(grid, tick_impl="cuda")
+    again = simulate_packed(grid, tick_impl="cuda")
+    loop = TickLoop(grid, resolve_tick_impl("cuda", cuda_device),
+                    cuda_device, graph=True)
+    for n in (1, 1, 5, grid.n_ticks - 7):
+        loop.advance(n)
+    pieces = loop.result()
+    assert loop.capture_s > 0 and loop.pool_bytes > 0
+    assert set(captured) == set(eager)
+    for key, want in eager.items():
+        for got in (captured, again, pieces):
+            assert got[key].dtype == want.dtype
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+    assert eager["jobs_done_site"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_replays_count_their_launches(cuda_device):
+    """Launch counts after a captured sweep: every kernel once a tick,
+    the replayed ticks included, as on the eager path."""
+    from repro_torch.sim.batched import simulate_packed
+
+    grid = _small_grid()
+    for eager in (False, True):
+        ops.reset_launch_counts()
+        simulate_packed(grid, tick_impl="cuda", _eager=eager)
+        assert ops.launch_counts() == {k: grid.n_ticks for k in ops.KERNELS}
 
 
 def carousel_inputs(N, M, device, seed=0):

@@ -10,7 +10,9 @@ interpret mode on the inputs ``tests/test_kernels.py`` builds:
 - shared-GCS admission: the mask exact against the global-cumsum numpy
   oracle (and the interpret kernel), occupancy at rtol 1e-5, the
   migration rank exact (the per-site cumsum of that mask, ``-1`` off it);
-- candidate windows: bitwise.
+- candidate windows: bitwise, each window alone and both of a tick
+  (``ref.windows_admit``) against two calls of the Pallas kernel with the
+  jnp program's stale-head glue between them.
 
 The CUDA kernels themselves are held against the plain versions on a card
 by ``test_torch_kernels_cuda.py``.
@@ -30,11 +32,13 @@ from repro_torch.kernels.lane_tick import ops, ref
 from torch_lane_inputs import (
     MONTH,
     N_MONTHS,
+    WINDOW_CASES,
     gcs_inputs,
     scalars,
     stack_transfer,
     transfer_inputs,
     window_inputs,
+    windows_inputs,
 )
 
 
@@ -330,6 +334,57 @@ def test_window_admit_plain_bitwise_vs_pallas(fifo):
                                       np.asarray(want_extra))
 
 
+def _jx_windows(absent, size_k, fid_k, valid_w, present_w, size_w, idx_w,
+                used, limit):
+    """One lane of the jnp tick's two windows (``repro/sim/batched.py``
+    :433-447 and :474-501): the Pallas window kernel (interpret mode) on
+    the K job window, the occupancy it leaves, the stale heads, the Pallas
+    kernel on the W wait-queue window."""
+    S, K = absent.shape
+    started = np.zeros((S, K), bool)
+    if K > 0:
+        started_f, extra = jx_lane_tick.window_admit(
+            jnp.asarray(absent), jnp.asarray(size_k), jnp.asarray(used),
+            jnp.asarray(limit), fifo=False, interpret=True)
+        started = np.asarray(started_f) > 0.5
+        used = jnp.asarray(used) + extra
+    started_fid = np.where(started, fid_k, -1)
+    jumped = np.any(idx_w[:, :, None] == started_fid[:, None, :], axis=2)
+    stale = valid_w & (present_w | jumped)
+    adm_f, extra_w = jx_lane_tick.window_admit(
+        jnp.asarray(valid_w & ~stale), jnp.asarray(size_w),
+        jnp.asarray(used), jnp.asarray(limit), fifo=True, interpret=True)
+    return (started, np.asarray(adm_f) > 0.5, stale,
+            np.asarray(jnp.asarray(used) + extra_w))
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_windows_admit_plain_bitwise_vs_pallas_with_glue(case):
+    args = windows_inputs(case)
+    got = ref.windows_admit(*map(torch.as_tensor, args))
+    for li in range(args[0].shape[0]):
+        want = _jx_windows(*(a[li] for a in args))
+        for name, g, w in zip(("started", "admitted", "stale", "disk_used"),
+                              got, want):
+            np.testing.assert_array_equal(g[li].numpy(), w, err_msg=name)
+    started, admitted, stale, used = (g.numpy() for g in got)
+    # each case exercised what it names
+    if case == "duplicate_fids":
+        assert started[..., 0].all() and started[..., 1].all()
+        assert stale[..., 0].all()
+    elif case == "head_started":
+        assert stale[..., 0].all() and not stale[..., 1].any()
+    elif case == "head_blocking":
+        assert not admitted.any() and not stale.any()
+    elif case == "k0":
+        assert started.shape[-1] == 0 and admitted.any()
+    elif case == "nothing_fits":
+        assert not started.any() and not admitted.any()
+    elif case == "sum_at_limit":
+        assert (used == np.float32(2.0 ** 33)).all()
+        assert started[:, 1::2, 3].all() and admitted[:, ::2, 2].all()
+
+
 # ------------------------------------------------ wrapper/registry contract
 def test_cpu_tensors_go_to_the_plain_versions_without_launching():
     ops.reset_launch_counts()
@@ -345,9 +400,8 @@ def test_cpu_tensors_go_to_the_plain_versions_without_launching():
                     ref.gcs_admit(want, sizes, used0, limit, dt, month,
                                   N_MONTHS)):
         assert torch.equal(a, b)
-    win = [torch.as_tensor(a) for a in window_inputs(True)]
-    for a, b in zip(ops.window_admit(*win, True),
-                    ref.window_admit(*win, True)):
+    win = [torch.as_tensor(a) for a in windows_inputs("random")]
+    for a, b in zip(ops.windows_admit(*win), ref.windows_admit(*win)):
         assert torch.equal(a, b)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 

@@ -56,3 +56,74 @@ def scalars(device="cpu", dt=50.0):
     """The tick length and month index as 0-d device tensors."""
     return (torch.tensor(dt, dtype=torch.float32, device=device),
             torch.tensor(MONTH, dtype=torch.int32, device=device))
+
+
+#: Cases of the tick's two candidate windows (``windows_inputs``).
+WINDOW_CASES = ("random", "duplicate_fids", "head_started", "head_blocking",
+                "k0", "nothing_fits", "sum_at_limit")
+
+
+def windows_inputs(case, L=3, S=4, K=4, W=4):
+    """Both candidate windows of a tick, against disk headroom (one site
+    unlimited): ``absent``, ``size_k``, ``fid_k`` of the K job window,
+    ``valid_w``, ``present_w``, ``size_w``, ``idx_w`` of the W wait-queue
+    heads, ``used``, ``limit``. ``case`` (one of ``WINDOW_CASES``) shapes
+    them: duplicate fids in the K window; heads whose file a K slot holds,
+    started or not; a first head too big to fit, blocking the rest; K = 0;
+    no candidate fitting; sums that meet the limit exactly (powers of
+    two)."""
+    rng = np.random.default_rng(WINDOW_CASES.index(case) + 41)
+    if case == "k0":
+        K = 0
+    absent = rng.random((L, S, K)) < 0.7
+    size_k = rng.uniform(1e6, 5e9, (L, S, K)).astype(np.float32)
+    fid_k = rng.integers(0, 10, (L, S, K))
+    valid_w = rng.random((L, S, W)) < 0.8
+    present_w = rng.random((L, S, W)) < 0.2
+    size_w = rng.uniform(1e6, 5e9, (L, S, W)).astype(np.float32)
+    idx_w = rng.integers(0, 10, (L, S, W))
+    used = rng.uniform(0, 1e10, (L, S)).astype(np.float32)
+    limit = np.full((L, S), 1e10, np.float32)
+    limit[-1, 0] = np.inf
+    if case == "duplicate_fids":
+        fid_k[..., 1::2] = fid_k[..., 0::2]
+        absent[...] = True
+        size_k[...] = 1e6
+        used[...] = 1e9
+        idx_w[..., 0] = fid_k[..., 0]
+        valid_w[..., 0] = True
+    elif case == "head_started":
+        absent[..., :2] = [True, False]
+        size_k[..., 0] = 1e6
+        used[...] = 1e9
+        fid_k[..., :2] = [11, 12]
+        idx_w[..., :2] = [11, 12]  # the second's K slot did not start
+        valid_w[...] = True
+        present_w[...] = False
+    elif case == "head_blocking":
+        valid_w[...] = True
+        present_w[...] = False
+        idx_w = 20 + np.arange(W) + np.zeros((L, S, 1), np.int64)
+        size_w[..., 0] = 2e10
+        size_w[..., 1:] = 1e6
+        limit[-1, 0] = 1e10
+    elif case == "nothing_fits":
+        used = (limit * 0.999).astype(np.float32)
+        used[-1, 0] = 0.0
+        limit[-1, 0] = 1e6
+        size_k[...] = 2e7
+        size_w[...] = 2e7
+    elif case == "sum_at_limit":
+        used[...] = 2.0 ** 32
+        limit[...] = 2.0 ** 33
+        size_k[...] = np.float32(2.0 ** 30) * np.array(
+            [1, 2, 4, 1], np.float32)  # 2^32 + 2^30 + 2^31 (+ 2^32 skipped)
+        absent[...] = True                # + 2^30 = 2^33 exactly
+        absent[:, ::2] = False  # these rows leave the room to the W window
+        size_w[...] = np.float32(2.0 ** 30) * np.array(
+            [1, 2, 1, 1], np.float32)
+        valid_w[...] = True
+        present_w[...] = False
+        idx_w = 20 + np.arange(W) + np.zeros((L, S, 1), np.int64)
+    return (absent, size_k, fid_k, valid_w, present_w, size_w, idx_w, used,
+            limit)
