@@ -47,10 +47,14 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 7. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
-   then ``simulate_ticks`` for 1,000 ticks on 6 links through the kernel
-   and through the plain version: ``new_done``/``completed`` bitwise,
-   counts exact, the engine's final state bitwise and its completions
-   equal; ticks/s of both;
+   then ``simulate_ticks`` for 1,000 ticks on 6 links through the tick
+   engine (one count, then one kernel launch a tick on carried link
+   counts, replayed from CUDA graphs) and through the plain loop:
+   ``new_done``/``completed`` bitwise, counts exact, the engine's final
+   state bitwise and its completions equal; ticks/s of both, the engine's
+   with its capture and without, its launches a tick (replays counted),
+   and over 128 steady ticks its wall and device microseconds a tick
+   (``torch.profiler``), idle share and bound;
 8. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
    hd 128, T = S = 4096, bf16, causal), gemma3_27b's local layers (nh 32,
    nkv 16, published head_dim 128, T = S = 4096, bf16, causal, window
@@ -111,12 +115,14 @@ BF16_OPS_PER_S = 989e12
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
+_CAROUSEL = "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu"
 KERNEL_SOURCE = {
     "transfer_tick": _LANE_TICK,
     "gcs_admit": _LANE_TICK,
     "window_admit": _LANE_TICK,
-    "carousel_tick":
-        "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu",
+    "carousel_tick": _CAROUSEL,
+    "engine_count": _CAROUSEL,
+    "engine_tick": _CAROUSEL,
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
@@ -134,6 +140,10 @@ REPLACES = {
     "window_admit": "src/repro/kernels/lane_tick/lane_tick.py:292",
     "carousel_tick":
         "src/repro/kernels/carousel_update/carousel_update.py:42",
+    "engine_count":
+        "src/repro/kernels/carousel_update/carousel_update.py:42",
+    "engine_tick":
+        "src/repro/kernels/carousel_update/carousel_update.py:58",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:28",
     "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:29",
@@ -642,59 +652,154 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     return dict(wall_us=wall_us / n, busy_us=busy_us / n)
 
 
+def carousel_inputs(torch, gen, n: int, m: int):
+    """``n`` transfers on ``m`` links, every one in flight, half the links
+    shared and half per-transfer: a transfer's own rate is 10 kB/s to
+    1 MB/s (log-uniform), so that completions spread over the ticks, and a
+    shared link carries as much per transfer while it is full."""
+    dev = torch.device("cuda")
+    link_id = torch.randint(0, m, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    total = 1e6 + 1e9 * torch.rand(n, generator=gen, device=dev)
+    done = total * torch.rand(n, generator=gen, device=dev)
+    mode = (torch.arange(m, device=dev) % 2).to(torch.int32)
+    bw = 10.0 ** (4.0 + 2.0 * torch.rand(m, generator=gen, device=dev))
+    bw = torch.where(mode == 0, bw * (n / m), bw)
+    return link_id, active, done, total, bw, mode
+
+
+def engine_bound(torch, n_active0: int, n: int, m: int, completions):
+    """Least time of the engine's ticks at this run's data, per tick:
+    each tick reads every active flag, the link id, done and total of the
+    active transfers, writes their done and the flags of the completed
+    ones (the rates per link: bw, mode and count, 12 B a link); about five
+    float operations an active transfer. Returns (ms per tick,
+    bound_by)."""
+    c = completions.to(torch.int64)
+    active = n_active0 - torch.cumsum(c, 0) + c  # at the start of each tick
+    n_ticks = int(c.numel())
+    nb = (n * n_ticks + 16 * int(active.sum()) + int(c.sum())
+          + 12 * m * n_ticks)
+    ms, kind = bound_ms(nb, 5 * int(active.sum()))
+    return ms / max(n_ticks, 1), kind
+
+
+def engine_steady(torch, ops, args, dt: float, n_ticks: int,
+                  want=None) -> dict:
+    """A tick engine (``ops.CarouselEngine``, chunks of
+    ``ops.ENGINE_CHUNK`` ticks) over ``n_ticks`` ticks of ``args``,
+    measured in its steady state: after its warm-up and capture, a window
+    of whole chunks, at least 100 ticks, on the host clock, the next
+    window under ``torch.profiler`` (device time per tick, the idle share
+    of the unprofiled wall), then the replays that remain timed with CUDA
+    events and the host clock; the engine's final state is held bitwise
+    to ``want`` (a plain engine's ``(active, done, completions)``) when
+    given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = ops.CarouselEngine(*args, dt, n_ticks)
+    chunk = engine.chunk
+    window = -(-100 // chunk) * chunk
+    lead = ops.ENGINE_WARMUP_TICKS + chunk
+    engine.advance(lead)  # warm-up, capture and the first replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.advance(window)
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0) / window
+    n_active = int(engine.active.sum())  # at the profiled window's start
+    t_win = engine.t
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.advance(window)
+        torch.cuda.synchronize()
+    win_bound = engine_bound(torch, n_active, engine.active.numel(),
+                             engine.bw.numel(),
+                             engine.completions[t_win:engine.t])[0]
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows) / window
+    tick_us = sum(e.self_device_time_total for e in rows
+                  if "engine_tick" in e.key) / window
+    n_rep = (n_ticks - lead - 2 * window) // chunk * chunk
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    engine.advance(n_rep)
+    stop.record()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    engine.advance(n_ticks - engine.t)
+    if want is not None:
+        got = (engine.active, engine.done, engine.completions)
+        for g, w, name in zip(got, want, ("active", "done", "completions")):
+            check(torch.equal(g, w), f"engine (chunk {chunk}): {name} not "
+                                     f"bitwise to the plain engine")
+    return dict(chunk=chunk, window=window, wall_us=wall_us,
+                busy_us=busy_us, tick_us=tick_us,
+                idle=1 - busy_us / wall_us, n_rep=n_rep,
+                active_share=n_active / engine.active.numel(),
+                window_bound_us=1e3 * win_bound,
+                ticks_per_s=n_rep / steady_s,
+                ms=start.elapsed_time(stop) / n_rep,
+                capture_ms=1e3 * engine.capture_s,
+                kernels=len(rows))
+
+
 def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
-    """The carousel tick engine's path: ``carousel_tick`` over ``n``
+    """The carousel's two paths. The one-tick ``carousel_tick`` over ``n``
     transfers, every file of one site's catalogue in flight, on 6 links
     (Config III's 2 sites x 3 link types) and on 512 (the Pallas design's
-    ceiling), half of them shared and half per-transfer, dt = 10 s; then
-    ``simulate_ticks`` for ``n_ticks`` ticks on 6 links through the kernel.
-    Bars: ``new_done``/``completed`` bitwise and counts exact against the
-    plain version; the tick engine's final state bitwise and its per-tick
-    completions equal to the plain engine's. Returns one (case, launches,
-    result) per link count; the 6-link case's launches include the
-    engine's ticks."""
+    ceiling), half of them shared and half per-transfer, dt = 10 s: bars
+    ``new_done``/``completed`` bitwise and counts exact against the plain
+    version. The tick engine ``simulate_ticks`` for ``n_ticks`` ticks on
+    6 links (``ops.CarouselEngine``: one count, then one kernel launch a
+    tick, replayed from CUDA graphs): its final state bitwise and its
+    per-tick completions equal to the plain engine's, and a second engine
+    over the same ticks measured in its steady state
+    (:func:`engine_steady`). Each path runs with the launch counts reset
+    just before and read just after. Returns one (kernel, case, launches,
+    result) per case."""
     from repro_torch.kernels.carousel_update import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4101)
-
-    def inputs(m):
-        link_id = torch.randint(0, m, (n,), generator=gen, device=dev,
-                                dtype=torch.int32)
-        active = torch.ones(n, dtype=torch.bool, device=dev)
-        total = 1e6 + 1e9 * torch.rand(n, generator=gen, device=dev)
-        done = total * torch.rand(n, generator=gen, device=dev)
-        mode = (torch.arange(m, device=dev) % 2).to(torch.int32)
-        # a transfer's own rate, 10 kB/s to 1 MB/s (log-uniform), so that
-        # completions spread over the ticks; a shared link carries as much
-        # per transfer while it is full
-        bw = 10.0 ** (4.0 + 2.0 * torch.rand(m, generator=gen, device=dev))
-        bw = torch.where(mode == 0, bw * (n / m), bw)
-        return link_id, active, done, total, bw, mode
-
-    cases = {m: inputs(m) for m in (6, 512)}
+    cases = {m: carousel_inputs(torch, gen, n, m) for m in (6, 512)}
     dt = 10.0
-    ops.reset_launch_counts()
+    none = dict.fromkeys(ops.KERNELS, 0)
     got, launches = {}, {}
     for m, a in cases.items():
-        before = ops.launch_counts()["carousel_tick"]
+        ops.reset_launch_counts()
         got[m] = ops.carousel_tick(*a, dt)
-        launches[m] = ops.launch_counts()["carousel_tick"] - before
-    before = ops.launch_counts()["carousel_tick"]
+        launches[m] = ops.launch_counts()
+        check(launches[m] == {**none, "carousel_tick": 1},
+              f"carousel_tick M={m}: launches {launches[m]}")
+
+    # the engine's path, as a caller runs it
+    args = cases[6]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    sim_k = ops.simulate_ticks(*cases[6], dt, n_ticks, tick_impl="cuda",
+    sim_k = ops.simulate_ticks(*args, dt, n_ticks, tick_impl="cuda",
                                device=dev)
     torch.cuda.synchronize()
     wall_k = time.perf_counter() - t0
-    n_sim = ops.launch_counts()["carousel_tick"] - before
-    check(n_sim == n_ticks and set(launches.values()) == {1},
-          f"carousel_tick: {launches} launches per case and {n_sim} in "
-          f"{n_ticks} ticks")
-    launches[6] += n_sim
-
+    eng_launches = ops.launch_counts()
+    check(eng_launches == {**none, "engine_count": 1,
+                           "engine_tick": n_ticks},
+          f"simulate_ticks: launches {eng_launches} in {n_ticks} ticks")
     t0 = time.perf_counter()
-    sim_p = ops.simulate_ticks(*cases[6], dt, n_ticks, tick_impl="torch",
+    again = ops.simulate_ticks(*args, dt, n_ticks, tick_impl="cuda",
+                               device=dev)
+    torch.cuda.synchronize()
+    wall_k2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim_p = ops.simulate_ticks(*args, dt, n_ticks, tick_impl="torch",
                                device=dev)
     torch.cuda.synchronize()
     wall_p = time.perf_counter() - t0
@@ -702,18 +807,56 @@ def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
     check(torch.equal(sim_k[1], sim_p[1]), "simulate_ticks: done differs")
     check(torch.equal(sim_k[2], sim_p[2]),
           "simulate_ticks: completions differ")
+    check(all(torch.equal(x, y) for x, y in zip(again, sim_k)),
+          "simulate_ticks: two calls differ")
     n_done = int(sim_k[2].sum())
     check(0 < n_done < n, f"simulate_ticks: {n_done} completions")
     log(f"carousel simulate_ticks: {n_ticks} ticks of {n} transfers on 6 "
         f"links, final state bitwise, {n_done} completions equal per tick; "
-        f"kernel {n_ticks / wall_k:.1f} ticks/s, plain "
-        f"{n_ticks / wall_p:.1f} ticks/s")
+        f"engine {n_ticks / wall_k:.1f} ticks/s (the whole call: count, "
+        f"warm-up, capture, replays; the engine's first call in this "
+        f"process), {n_ticks / wall_k2:.1f} ticks/s a second call, plain "
+        f"{n_ticks / wall_p:.1f} ticks/s; "
+        f"launches {eng_launches} (replays counted): "
+        f"{eng_launches['engine_tick'] / n_ticks:.3f} a tick after the "
+        f"count")
+    st = engine_steady(torch, ops, args, dt, n_ticks, want=sim_p)
+    tick_bound, tick_kind = engine_bound(torch, n, n, 6, sim_p[2])
+    log(f"carousel engine steady state (chunk {st['chunk']}): {st['n_rep']} "
+        f"replayed ticks at {st['ticks_per_s']:.1f} ticks/s without the "
+        f"capture ({st['ms']:.5f} ms a tick by events); capture "
+        f"{st['capture_ms']:.2f} ms once; over {st['window']} ticks: wall "
+        f"{st['wall_us']:.2f} us/tick unprofiled, device busy "
+        f"{st['busy_us']:.2f} us/tick ({st['tick_us']:.2f} in the engine "
+        f"kernel, {st['kernels']} device kernels by name), idle share "
+        f"{st['idle']:.3f}, active share {st['active_share']:.4f} at its "
+        f"start, bound {st['window_bound_us']:.2f} us/tick over it; bound "
+        f"over all {n_ticks} ticks {1e3 * tick_bound:.2f} us/tick "
+        f"({tick_kind}, this run's active transfers)")
 
+    # plain versions of the engine's two kernels, on the same inputs
+    link, act0 = args[0], args[1]
+    cnt = torch.empty(6, dtype=torch.int32, device=dev)
+    ops.engine_count(link, act0, cnt)
+    plain_cnt = torch.bincount(link[act0].long(), minlength=6)
+    check(torch.equal(cnt, plain_cnt.to(torch.int32)),
+          "engine_count: counts differ from bincount")
+    pa = [args[1].clone(), args[2].clone()]
+    pc = torch.zeros((2, 6), dtype=torch.int32, device=dev)
+    pc[1] = cnt
+    ph = torch.zeros((3, 6), dtype=torch.int32, device=dev)
+    pcomp = torch.zeros(n_ticks, dtype=torch.int32, device=dev)
+    pt = [0]
+
+    def plain_tick():
+        ref.engine_tick(link, pa[0], pa[1], args[3], args[4], args[5], dt,
+                        pt[0], pc, ph, pcomp)
+        pt[0] += 1
+
+    cnt_bound = bound_ms(n + 4 * int(act0.sum()) + 4 * 6, n)
     per_case = []
-    for m, args in cases.items():
-        label = f"N=1M M={m}" + (f" + simulate_ticks {n_ticks} ticks"
-                                 if m == 6 else "")
-        want = ref.carousel_tick(*args, dt)
+    for m, a in cases.items():
+        want = ref.carousel_tick(*a, dt)
         torch.cuda.synchronize()
         for g, w, name in zip(got[m], want, ("new_done", "completed",
                                              "counts")):
@@ -726,17 +869,42 @@ def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
         nb, kind = bound_ms(18 * n + 12 * m, 5 * n)
         r = dict(max_abs_err=float((got[m][0] - want[0]).abs().max()),
                  ms=time_ms(torch, lambda: ops.carousel_tick(
-                     *args, dt, tick_impl="cuda")),
-                 plain_ms=time_ms(torch, lambda: ref.carousel_tick(*args,
-                                                                   dt)),
+                     *a, dt, tick_impl="cuda")),
+                 plain_ms=time_ms(torch, lambda: ref.carousel_tick(*a, dt)),
                  bound_ms=nb, bound_by=kind, library_ms=None)
-        per_case.append((label, launches[m], r))
         dev_us = device_us(torch, lambda: ops.carousel_tick(
-            *args, dt, tick_impl="cuda"))
+            *a, dt, tick_impl="cuda"))
+        r["device_us"] = dev_us
+        per_case.append(("carousel_tick", f"N=1M M={m}",
+                         launches[m]["carousel_tick"], r))
         log(f"carousel_tick M={m}: new_done/completed bitwise, counts exact, "
             f"{n_comp} completions; ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} bound_ms {nb:.4f} ({kind}); device time "
             f"{dev_us:.1f} us per call (profiler: memset and both kernels)")
+    r = dict(max_abs_err=float((sim_k[1] - sim_p[1]).abs().max()),
+             ms=st["ms"], plain_ms=time_ms(torch, plain_tick),
+             bound_ms=tick_bound, bound_by=tick_kind, library_ms=None,
+             device_us=st["tick_us"], wall_us=st["wall_us"],
+             idle_share=st["idle"], ticks_per_s=st["ticks_per_s"],
+             ticks_per_s_with_capture=n_ticks / wall_k,
+             ticks_per_s_second_call=n_ticks / wall_k2,
+             capture_ms=st["capture_ms"], chunk=st["chunk"])
+    per_case.append(("engine_tick", f"N=1M M=6, simulate_ticks {n_ticks} "
+                     f"ticks, ms per tick", eng_launches["engine_tick"], r))
+    r = dict(max_abs_err=0.0,
+             ms=time_ms(torch, lambda: ops.engine_count(link, act0, cnt)),
+             plain_ms=time_ms(torch, lambda: torch.bincount(
+                 link[act0].long(), minlength=6)),
+             bound_ms=cnt_bound[0], bound_by=cnt_bound[1], library_ms=None,
+             device_us=device_us(torch, lambda: ops.engine_count(
+                 link, act0, cnt)))
+    per_case.append(("engine_count", f"N=1M M=6, simulate_ticks' first "
+                     f"tick", eng_launches["engine_count"], r))
+    log(f"carousel engine_tick: ms {per_case[-2][3]['ms']:.5f} a tick, "
+        f"plain_ms {per_case[-2][3]['plain_ms']:.4f} (ref.engine_tick); "
+        f"engine_count: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"bound_ms {r['bound_ms']:.4f}, device {r['device_us']:.1f} us, "
+        f"counts equal to bincount")
     return per_case
 
 
@@ -1037,8 +1205,8 @@ def main(argv=None) -> int:
     cases = [(name, shapes + (", the K and W=4 windows in one launch"
                               if name == "window_admit" else ""),
               counts[name], kern[name]) for name in ops.KERNELS]
-    for name, phase in (("carousel_tick", carousel_phase),
-                        ("flash_attention", attention_phase),
+    cases += carousel_phase(torch)
+    for name, phase in (("flash_attention", attention_phase),
                         ("mamba_scan", mamba_phase)):
         cases += [(name, *c) for c in phase(torch)]
 
@@ -1050,7 +1218,10 @@ def main(argv=None) -> int:
                         "bound_by", "library_ms")},
                     **{k: r[k] for k in (
                         "variant", "device_us", "graph_ms",
-                        "bound_ms_without_rank")
+                        "bound_ms_without_rank", "wall_us", "idle_share",
+                        "ticks_per_s", "ticks_per_s_with_capture",
+                        "ticks_per_s_second_call",
+                        "capture_ms", "chunk")
                        if k in r})
                for name, case, n, r in cases]
     for k in kernels:

@@ -68,3 +68,18 @@ def test_parser_reads_pointers_sizes_and_the_stream():
     assert ret is ctypes.c_int
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert params == [P] * 6 + [I, LL, LL, I, I] + [P] * 6
+
+
+def test_engine_entry_points_are_declared():
+    """The tick engine's two C entry points: the start's count and the
+    tick, whose tick count is a 64-bit int between the sizes and the
+    state pointers."""
+    entry = c_entry_points(_build.SOURCES["carousel_update"])
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert entry["cu_engine_count"] == ([P, P, LL, I, P, P], I)
+    assert entry["cu_engine_tick"] == (
+        [P] * 6 + [ctypes.c_float, LL, I, LL] + [P] * 5, I)
+    assert entry["cu_engine_blocks"] == ([LL], I)
+    for fn in ("cu_engine_count", "cu_engine_tick", "cu_engine_max_links",
+               "cu_engine_blocks"):
+        assert cu_ops._SIGNATURES[fn] == entry[fn]

@@ -18,7 +18,10 @@ rtol 1e-5, the migration rank bitwise against the per-site rank of the
 kernel's own mask (and of the plain version's, where the masks agree),
 two calls bitwise equal; carousel ``new_done``, completion and counts
 bitwise (the kernel rounds like the plain version, counts are integer
-atomics);
+atomics); the tick engine's final ``active``/``done`` and every tick's
+completions bitwise to the plain engine's, its carried counts equal to a
+recount, its inputs unchanged and one launch a tick counted through the
+graph replays;
 attention in float32 at 2e-5 atol/rtol, in bfloat16 at atol 4e-3 and
 rtol 8e-3 with at most 1% of the elements unequal (both sides compute in
 float32, the wgmma kernel carrying its probabilities as two bf16 halves,
@@ -449,6 +452,127 @@ def test_cuda_simulate_ticks_bitwise(cuda_device):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert int(a[2].sum()) > 0
+
+
+ENGINE_TICKS = sorted({0, 1, cu_ops.ENGINE_CHUNK - 1, cu_ops.ENGINE_CHUNK,
+                       cu_ops.ENGINE_CHUNK + 1, 3 * cu_ops.ENGINE_CHUNK + 5})
+
+
+def _engine_against_plain(args, n_ticks):
+    """Run the engine for ``n_ticks`` and hold it to the plain engine:
+    final state and every tick's completions bitwise, carried counts equal
+    to a recount, inputs unchanged, launches counted through the replays.
+    Returns the engine."""
+    kept = [a.clone() for a in args]
+    cu_ops.reset_launch_counts()
+    engine = cu_ops.CarouselEngine(*args, 10.0, n_ticks)
+    engine.advance(n_ticks)
+    counts = cu_ops.launch_counts()
+    want = cu_ops.simulate_ticks(*args, 10.0, n_ticks, tick_impl="torch")
+    torch.cuda.synchronize()
+    assert counts == {"carousel_tick": 0, "engine_count": 1,
+                      "engine_tick": n_ticks}
+    for got, w in zip((engine.active, engine.done, engine.completions),
+                      want):
+        assert torch.equal(got, w)
+    recount = torch.bincount(args[0][engine.active].long(),
+                             minlength=args[4].shape[0])
+    assert torch.equal(engine.carried_counts(), recount.to(torch.int32))
+    for a, k in zip(args, kept):
+        assert torch.equal(a, k)
+    return engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ticks", ENGINE_TICKS)
+@pytest.mark.parametrize("M", [6, 512, 20000])
+def test_cuda_engine_bitwise_to_plain_engine(cuda_device, M, n_ticks):
+    args = carousel_inputs(100_003, M, cuda_device, seed=M + n_ticks)
+    engine = _engine_against_plain(args, n_ticks)
+    if n_ticks > cu_ops.ENGINE_CHUNK:
+        assert engine.capture_s > 0 and int(engine.completions.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [6, 512, 20000])
+def test_cuda_engine_count_matches_bincount(cuda_device, M):
+    args = carousel_inputs(100_003, M, cuda_device)
+    out = torch.full((M,), -1, dtype=torch.int32, device=cuda_device)
+    before = cu_ops.launch_counts()["engine_count"]
+    cu_ops.engine_count(args[0], args[1], out)
+    assert cu_ops.launch_counts()["engine_count"] == before + 1
+    want = torch.bincount(args[0][args[1]].long(), minlength=M)
+    assert torch.equal(out, want.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_simulate_ticks_matches_the_engine(cuda_device):
+    """``simulate_ticks`` on the card runs the engine: the same state, one
+    count launch and one tick launch a tick, inputs unchanged."""
+    args = carousel_inputs(50_000, 6, cuda_device, seed=3)
+    kept = [a.clone() for a in args]
+    n = 2 * cu_ops.ENGINE_CHUNK + 3
+    cu_ops.reset_launch_counts()
+    got = cu_ops.simulate_ticks(*args, 10.0, n, tick_impl="cuda")
+    assert cu_ops.launch_counts() == {"carousel_tick": 0,
+                                      "engine_count": 1, "engine_tick": n}
+    engine = _engine_against_plain(args, n)
+    for g, w in zip(got, (engine.active, engine.done, engine.completions)):
+        assert torch.equal(g, w)
+    for a, k in zip(args, kept):
+        assert torch.equal(a, k)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_in_pieces_and_small_chunks(cuda_device, monkeypatch):
+    """An engine advanced in pieces across its warm-up, capture, replays
+    and remainders, with a chunk of 4, ends as the plain engine."""
+    args = carousel_inputs(70_001, 6, cuda_device, seed=5)
+    kept = [a.clone() for a in args]
+    monkeypatch.setattr(cu_ops, "ENGINE_CHUNK", 4)
+    engine = cu_ops.CarouselEngine(*args, 10.0, 40)
+    cu_ops.reset_launch_counts()
+    for n in (1, 2, 9, 0, 28):
+        engine.advance(n)
+    assert cu_ops.launch_counts()["engine_tick"] == 40
+    want = cu_ops.simulate_ticks(*args, 10.0, 40, tick_impl="torch")
+    torch.cuda.synchronize()
+    for got, w in zip((engine.active, engine.done, engine.completions),
+                      want):
+        assert torch.equal(got, w)
+    for a, k in zip(args, kept):
+        assert torch.equal(a, k)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_histogram_in_device_memory(cuda_device):
+    """At M = 40,000 the rate table and the histogram do not fit one
+    block's shared memory together: the histogram goes to device memory."""
+    args = carousel_inputs(100_003, 40_000, cuda_device, seed=7)
+    _engine_against_plain(args, 3 * cu_ops.ENGINE_CHUNK + 5)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_unaligned_inputs(cuda_device):
+    """Inputs that start off a 16-byte boundary: the engine copies what its
+    vector loads need aligned."""
+    args = carousel_inputs(100_004, 6, cuda_device, seed=9)
+    shifted = [a[1:] for a in args[:4]] + args[4:]
+    assert shifted[0].data_ptr() % 16 != 0
+    _engine_against_plain(shifted, cu_ops.ENGINE_CHUNK + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_checks_its_inputs(cuda_device):
+    args = carousel_inputs(1000, 6, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        cu_ops.CarouselEngine(*args[:2], args[2].double(), *args[3:], 1.0, 4)
+    too_many = carousel_inputs(1000, 60_000, cuda_device)
+    with pytest.raises(ValueError, match="links"):
+        cu_ops.CarouselEngine(*too_many, 1.0, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cu_ops.simulate_ticks(*(a.cpu() for a in args), 1.0, 2,
+                              tick_impl="cuda", device="cpu")
 
 
 @pytest.mark.cuda
