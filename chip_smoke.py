@@ -62,23 +62,33 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    derives as 5376/32 — not the published head_dim — kept as a width that
    is not a power of two) in bf16 and in float32 (T = S = 2048), and
    hymba_1_5b in float32 (nh 25, nkv 5, hd 64, T = S = 2048, causal,
-   window 1024); the bf16 cases through the tensor-core kernel
-   (``wgmma`` route), the float32 ones through the SIMT kernel (``simt``),
-   each case checked to launch its route's kernel exactly once; each
-   against the plain version at atol 4e-3 / rtol 8e-3
-   in bf16 (one bf16 ulp, and at most 1% of the elements unequal) or
-   2e-5 in float32, with PyTorch's
+   window 1024), and bf16 at hd 100 (nh 32, nkv 16, T = S = 2048,
+   causal, window 1024), a width that is not a multiple of 8; the bf16
+   cases at a multiple of 8 through the ``wgmma`` tensor-core kernel, hd
+   100 through the SIMT one, the float32 ones through the ``tf32x3`` one
+   (each product in three TF32 terms of split operands), each case
+   checked to launch its route's kernel exactly once; each against the
+   plain version at atol 4e-3 / rtol 8e-3 in bf16 (one bf16 ulp, and at
+   most 1% of the elements unequal) or 2e-5 in float32, with PyTorch's
    ``scaled_dot_product_attention`` timed beside it as the yardstick
    (never on the port's path), its elements outside the same bar and
-   each side's elements not equal to the plain version counted;
+   each side's elements not equal to the plain version counted; each
+   case's device time from 10 calls replayed in one CUDA graph
+   (``graph_ms``), and from ``torch.profiler`` (``device_us``; ``None``,
+   "not measured", where its reading is more than 5% off the graph's, as
+   when it records too few kernels or none); a float32 case's bound is
+   12*hd flops per unmasked pair at dense TF32's 495 TFLOP/s (the split
+   design's own least time), printed beside the SIMT ceiling, 4*hd flops
+   at 67 TFLOP/s (``bound_ms_simt``);
 9. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
    d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
    version at 1e-4 atol/rtol;
 10. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
     before the path runs, read just after each case); attention entries
-    also name their route (``variant``: ``wgmma`` or ``simt``) and that
-    kernel's source; then the ``ok`` line.
+    also name their route (``variant``: ``wgmma``, ``simt`` or
+    ``tf32x3``, each at least once) and that kernel's source; then the
+    ``ok`` line.
 
 Phases 3, 7, 8 and 9 print the kernel's and the plain version's
 milliseconds (CUDA events after warm-up) and the bound: the larger of the
@@ -107,11 +117,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM data sheet: device-memory bandwidth, float32 peak outside the
-#: tensor cores and dense bf16 tensor-core peak, the rates the bounds are
-#: computed against.
+#: tensor cores and dense bf16 and TF32 tensor-core peaks, the rates the
+#: bounds are computed against.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
@@ -128,8 +139,11 @@ KERNEL_SOURCE = {
     "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
 }
 #: The attention kernel each route launches (``flash_attention.ops._route``:
-#: bfloat16 at hd a multiple of 8 -> ``wgmma``, else ``simt``).
+#: float32 -> ``tf32x3``, bfloat16 at hd a multiple of 8 -> ``wgmma``, else
+#: ``simt``).
 ATTENTION_SOURCE = {
+    "tf32x3": "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_tf32x3.cu",
     "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention_wgmma.cu",
     "simt": KERNEL_SOURCE["flash_attention"],
@@ -911,13 +925,15 @@ def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
 #: Attention cases: (label, B, nh, nkv, hd, T = S, dtype, causal, window).
 #: Published widths, and hd 168: what ``repro``'s gemma3_27b config derives
 #: (5376/32; the published head_dim is 128), kept as a width that is not a
-#: power of two, with two query heads per kv head.
+#: power of two, with two query heads per kv head; hd 100 in bf16, a width
+#: that is not a multiple of 8, is the SIMT kernel's route.
 ATTENTION_CASES = (
     ("qwen3_4b", 1, 32, 8, 128, 4096, "bfloat16", True, 0),
     ("gemma3_27b local", 1, 32, 16, 128, 4096, "bfloat16", True, 1024),
     ("hd168 bf16", 1, 32, 16, 168, 4096, "bfloat16", True, 1024),
     ("hd168 f32", 1, 32, 16, 168, 2048, "float32", True, 1024),
     ("hymba_1_5b f32", 1, 25, 5, 64, 2048, "float32", True, 1024),
+    ("hd100 bf16", 1, 32, 16, 100, 2048, "bfloat16", True, 1024),
 )
 
 #: (atol, rtol) against the plain version. Both sides compute in float32
@@ -940,6 +956,27 @@ def unmasked_pairs(T: int, S: int, causal: bool, window: int) -> int:
     return total
 
 
+def sdpa(torch, q, k, v, causal: bool, window: int):
+    """One call of PyTorch's ``scaled_dot_product_attention`` computing what
+    ``flash_attention`` computes on these inputs (``is_causal`` or a
+    boolean mask, ``enable_gqa``): the yardstick, never on the port's
+    path."""
+    import torch.nn.functional as F
+
+    T, S = q.shape[2], k.shape[2]
+    rel = (torch.arange(T, device=q.device)[:, None]
+           - torch.arange(S, device=q.device)[None, :])
+    mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
+    if window > 0:
+        mask &= rel < window
+    gqa = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
+    if causal and window == 0:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      **gqa)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  **gqa)
+
+
 def attention_phase(torch):
     """The attention path: ``flash_attention`` once per case of
     ``ATTENTION_CASES`` through the kernel, then each result against the
@@ -947,8 +984,6 @@ def attention_phase(torch):
     of the kernel, the plain version and PyTorch's
     ``scaled_dot_product_attention`` (the yardstick; the port never calls
     it). Returns one (case, launches, result) per case."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import ops, ref
 
     # the plain version's products in full float32, as the kernel's
@@ -993,18 +1028,7 @@ def attention_phase(torch):
         bad = n_outside(out, want, atol, rtol)
         check(bad == 0, f"attention {label}: {bad} elements outside atol "
                         f"{atol} rtol {rtol}, max abs err {float(err.max())}")
-        rel = (torch.arange(T, device=dev)[:, None]
-               - torch.arange(T, device=dev)[None, :])
-        mask = rel >= 0 if causal else torch.ones_like(rel, dtype=bool)
-        if window > 0:
-            mask &= rel < window
-        gqa = {"enable_gqa": True} if nkv != nh else {}
-        if causal and window == 0:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, **gqa)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, **gqa)
+        lib = sdpa(torch, q, k, v, causal, window)
         lib_out = lib()
         lib_err = float((lib_out.float() - want.float()).abs().max())
         lib_bad = n_outside(lib_out, want, atol, rtol)
@@ -1018,18 +1042,39 @@ def attention_phase(torch):
               f"from the plain version")
         pairs = B * nh * unmasked_pairs(T, T, causal, window)
         n_bytes = out.element_size() * (2 * q.numel() + 2 * k.numel())
-        rate = BF16_OPS_PER_S if dt_name == "bfloat16" else F32_OPS_PER_S
-        nb, kind = bound_ms(n_bytes, 4 * hd * pairs, rate)
-        r = dict(max_abs_err=float(err.max()),
-                 ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
-                            n=10),
+        fa = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        g_ms = graph_ms(torch, fa, n=10)
+        # the profiler loses some or all of a session's kernels (late in
+        # this run every one, in a process of its own at times): a reading
+        # more than 5% off the graph replay's device time is not a
+        # measurement, None
+        prof_us = device_us(torch, fa, n=10)
+        dev_us = prof_us if abs(prof_us - 1e3 * g_ms) <= 50 * g_ms else None
+        r = dict(max_abs_err=float(err.max()), ms=time_ms(torch, fa, n=10),
+                 graph_ms=g_ms, device_us=dev_us,
                  plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw),
                                   n=5),
-                 bound_ms=nb, bound_by=kind,
                  library_ms=time_ms(torch, lib, n=10),
                  variant=route, source=ATTENTION_SOURCE[route])
+        if dt_name == "bfloat16":
+            flops = 4 * hd * pairs
+            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
+                                                    BF16_OPS_PER_S)
+            bounds = f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
+        else:
+            # three TF32 products per multiply on the tensor cores, beside
+            # the one float32 product any SIMT design is held to
+            flops = 12 * hd * pairs
+            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
+                                                    TF32_OPS_PER_S)
+            r["bound_ms_simt"] = bound_ms(n_bytes, 4 * hd * pairs)[0]
+            bounds = (f"bound_ms {r['bound_ms']:.4f} (3xTF32 at 495 "
+                      f"TFLOP/s, {r['bound_by']}), SIMT bound_ms "
+                      f"{r['bound_ms_simt']:.4f} (67 TFLOP/s")
         per_case.append((f"{label} (nh {nh} nkv {nkv} hd {hd} T=S {T} "
                          f"{dt_name} window {window})", n_launch, r))
+        dev_txt = (f"{dev_us:.1f}" if dev_us is not None else
+                   f"not measured (profiler read {prof_us:.1f})")
         log(f"attention {label} (B={B} nh={nh} nkv={nkv} hd={hd} T=S={T} "
             f"{dt_name} causal={causal} window={window}, {route} kernel): "
             f"max abs err "
@@ -1037,9 +1082,9 @@ def attention_phase(torch):
             f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
             f"the bar); elements not equal to the plain version: kernel "
             f"{ne}, SDPA {lib_ne}; ms "
-            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-            f"{r['library_ms']:.4f} bound_ms {nb:.4f} ({kind}, "
-            f"{4 * hd * pairs / 1e9:.2f} GFLOP)")
+            f"{r['ms']:.4f} graph_ms {g_ms:.4f} device_us {dev_txt} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"{bounds}, {flops / 1e9:.2f} GFLOP)")
         del want
     return per_case
 
@@ -1218,7 +1263,8 @@ def main(argv=None) -> int:
                         "bound_by", "library_ms")},
                     **{k: r[k] for k in (
                         "variant", "device_us", "graph_ms",
-                        "bound_ms_without_rank", "wall_us", "idle_share",
+                        "bound_ms_without_rank", "bound_ms_simt",
+                        "wall_us", "idle_share",
                         "ticks_per_s", "ticks_per_s_with_capture",
                         "ticks_per_s_second_call",
                         "capture_ms", "chunk")
@@ -1229,6 +1275,9 @@ def main(argv=None) -> int:
                                  f"launched on its path")
     check({k["name"] for k in kernels} == set(KERNEL_SOURCE),
           "the kernels line misses a kernel")
+    check({k["variant"] for k in kernels if k["name"] == "flash_attention"}
+          == set(ATTENTION_SOURCE), "the kernels line misses an attention "
+                                    "route")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,7 @@ Each kernel library is one ``.cu`` source under ``repro_torch/kernels``,
 compiled by ``nvcc`` for Hopper on first use::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
+         -Xcompiler -fPIC -Xptxas -v [<extra flags>] -o <lib>.so <source>.cu
 
 into ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``), under a name keyed by a hash of the source and the flags,
@@ -34,11 +34,25 @@ SOURCES: Dict[str, str] = {
     "carousel_update": "carousel_update/csrc/carousel_update.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
+    "flash_attention_tf32x3":
+        "flash_attention/csrc/flash_attention_tf32x3.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Flags of one library beside ``NVCC_FLAGS``: ``-split-compile=0`` runs
+#: the optimiser on all the host's cores, for the source with one kernel
+#: instance per head width.
+EXTRA_FLAGS: Dict[str, tuple] = {
+    "flash_attention_tf32x3": ("-split-compile=0",),
+}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The compiler flags of library ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
 
 #: Build outputs: ``build/repro_torch`` at the root of the checkout
 #: (``src/repro_torch/kernels`` is three levels below it).
@@ -68,7 +82,7 @@ def library_path(name: str) -> Path:
     the compiler flags."""
     src = _KERNELS_DIR / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -87,7 +101,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
                str(_KERNELS_DIR / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

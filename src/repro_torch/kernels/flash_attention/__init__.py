@@ -3,10 +3,11 @@ masks, grouped-query heads), with a hand-written CUDA kernel for Hopper.
 
 Counterpart of ``repro.kernels.flash_attention``: :func:`flash_attention`
 is ``repro``'s ``ops.py:21`` (Pallas ``_attn_kernel``,
-``flash_attention.py:28``). ``ops`` holds the entry point and the kernel's
-launch count, ``ref`` the plain version (``attention_ref``), and
-``csrc/flash_attention.cu`` the kernel, built by ``nvcc`` at its first
-launch.
+``flash_attention.py:28``). ``ops`` holds the entry point, its choice of
+kernel and the kernels' launch counts, ``ref`` the plain version
+(``attention_ref``), and ``csrc/`` the three kernels (float32 on split
+TF32 tensor-core products, bfloat16 on ``wgmma``, bfloat16 at other
+widths on the SIMT cores), each built by ``nvcc`` at its first launch.
 """
 
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401

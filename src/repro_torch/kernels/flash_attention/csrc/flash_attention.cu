@@ -1,15 +1,17 @@
-// Hand-written Hopper (sm_90a) attention forward: blocked online softmax
-// with causal and sliding-window masks and grouped-query heads.
+// Hand-written Hopper (sm_90a) attention forward in bfloat16 on the SIMT
+// cores: blocked online softmax with causal and sliding-window masks and
+// grouped-query heads.
 //
 // Replaces the Pallas kernel _attn_kernel / flash_attention_pallas of
-// src/repro/kernels/flash_attention/flash_attention.py:28 (:66) and
-// computes what ../ref.py computes (the definition, attention_ref):
+// src/repro/kernels/flash_attention/flash_attention.py:28 (:66) for
+// bfloat16 inputs whose head width is not a multiple of 8, and computes
+// what ../ref.py computes (the definition, attention_ref):
 //
-//   fa_forward -> fa_kernel<float> or fa_kernel<__nv_bfloat16>
+//   fa_forward -> fa_kernel
 //
-// It takes float32 at any hd in 1..256 and bfloat16 at widths that are not
-// a multiple of 8; bfloat16 at multiples of 8 goes to the tensor-core
-// kernel of flash_attention_wgmma.cu (../ops.py routes by dtype and hd).
+// bfloat16 at multiples of 8 goes to the tensor-core kernel of
+// flash_attention_wgmma.cu, float32 to flash_attention_tf32x3.cu (../ops.py
+// routes by dtype and hd).
 //
 // Design (the simple, right kernel first): one block of 256 threads per
 // (query tile of kBQ = 64 rows, head, batch). The block holds its query
@@ -20,9 +22,9 @@
 // of the accumulator in registers (float32 throughout), and adds P.V.
 // The 16 threads that share a row sit in one half-warp, so the row max and
 // sum are shuffles. Kv head = h / (nh / nkv). hd is a runtime width up to
-// kMaxHd = 256 and need not be a power of two (168 is tested): the
-// accumulator patch is sized for 256 and masked. Shared rows are padded to
-// an odd stride so the score loop reads distinct banks.
+// kMaxHd = 256 and need not be a power of two: the accumulator patch is
+// sized for 256 and masked. Shared rows are padded to an odd stride so the
+// score loop reads distinct banks.
 //
 // Masks come from positions (rel = t - s). A masked pair scores -1e30, as
 // in the definition, so a row whose every key is masked averages them all;
@@ -32,13 +34,11 @@
 // skipped when each row of the tile keeps at least one key (always so when
 // T <= S): the skipped pairs would weigh exactly 0.
 //
-// Bound on this card: operations. 4*hd flops per unmasked (query, key)
-// pair; at bf16 that is the tensor cores' 989 TFLOP/s, at f32 the 67
-// TFLOP/s outside them. This kernel uses neither wgmma nor TMA and reads
-// its operands from shared memory one float at a time, so shared-memory
-// bandwidth, not the bound, limits it. In float32 it is faster than
-// PyTorch's SDPA at the widths measured (PERF.md); TF32 tensor cores would
-// break its 2e-5 bar.
+// Bound on this card: operations, 4*hd flops per unmasked (query, key)
+// pair at the tensor cores' 989 TFLOP/s in bf16. This kernel uses neither
+// tensor cores nor TMA and reads its operands from shared memory one float
+// at a time, so shared-memory bandwidth, not the bound, limits it. It
+// takes only the widths the TMA-fed wgmma kernel cannot (hd % 8 != 0).
 //
 // Plain C entry point, loaded with ctypes: launches on the caller's stream,
 // allocates nothing, returns cudaGetLastError().
@@ -59,19 +59,6 @@ constexpr int kRows = kBQ / 16;     // query rows per thread
 constexpr int kKeys = kBK / 16;     // score columns per thread
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as .to(bfloat16)
-}
-
 size_t smem_bytes(int hd) {
   const int ld = hd + 1;
   return sizeof(float) *
@@ -79,11 +66,12 @@ size_t smem_bytes(int hd) {
           static_cast<size_t>(kBK) * hd + static_cast<size_t>(kBQ) * (kBK + 1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int nh, int group,
-          int Tq, int S, int hd, int causal, int window, float scale) {
+fa_kernel(const __nv_bfloat16* __restrict__ q,
+          const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+          int nh, int group, int Tq, int S, int hd, int causal, int window,
+          float scale) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* sq = smem;              // [kBQ][ld], scaled queries
@@ -103,7 +91,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < kBQ * hd; i += kThreads) {
     const int r = i / hd, c = i - r * hd;
     const long long g = q_off + static_cast<long long>(t0 + r) * hd + c;
-    sq[r * ld + c] = (t0 + r < Tq) ? to_f32(q[g]) * scale : 0.0f;
+    sq[r * ld + c] = (t0 + r < Tq) ? __bfloat162float(q[g]) * scale : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -134,8 +122,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / hd, c = i - r * hd;
       const bool in = s0 + r < S;
       const long long g = kv_off + static_cast<long long>(s0 + r) * hd + c;
-      sk[r * ld + c] = in ? to_f32(k[g]) : 0.0f;
-      sv[r * hd + c] = in ? to_f32(v[g]) : 0.0f;
+      sk[r * ld + c] = in ? __bfloat162float(k[g]) : 0.0f;
+      sv[r * hd + c] = in ? __bfloat162float(v[g]) : 0.0f;
     }
     __syncthreads();
 
@@ -221,22 +209,22 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = tx + 16 * j;
       if (c < hd)
         o[q_off + static_cast<long long>(t) * hd + c] =
-            from_f32<T>(acc[i][j] * inv);
+            __float2bfloat16(acc[i][j] * inv);  // round to nearest even
     }
   }
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int nh, int nkv, int Tq, int S, int hd, int causal, int window,
            float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + kBQ - 1) / kBQ, nh, B);
-  fa_kernel<T><<<grid, kThreads, smem, st>>>(
+  using T = __nv_bfloat16;
+  fa_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), nh, nh / nkv, Tq, S, hd,
       causal, window, scale);
@@ -251,20 +239,16 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q/o: [B, nh, T, hd]; k/v: [B, nkv, S, hd], contiguous, all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1); nh % nkv == 0, 1 <= hd <= 256,
-// S >= 1, T >= 1; window <= 0 means no window; scale = hd^-0.5 as the
-// caller rounds it to float32.
+// q/o: [B, nh, T, hd]; k/v: [B, nkv, S, hd], contiguous bfloat16;
+// nh % nkv == 0, 1 <= hd <= 256, S >= 1, T >= 1; window <= 0 means no
+// window; scale = hd^-0.5 as the caller rounds it to float32.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
                int nh, int nkv, int Tq, int S, int hd, int causal, int window,
-               float scale, int bf16, void* stream) {
+               float scale, void* stream) {
   if (hd < 1 || hd > kMaxHd || S < 1 || Tq < 1 || nkv < 1 || nh % nkv)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, nh, nkv, Tq, S, hd,
-                                      causal, window, scale, st)
-              : launch<float>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
-                              window, scale, st);
+  return launch(q, k, v, o, B, nh, nkv, Tq, S, hd, causal, window, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,14 +8,16 @@ raises off a CUDA device, ``"auto"`` is ``"cuda"`` for CUDA tensors and
 ``"torch"`` for CPU ones. The function runs where its tensors live. No
 padding: the kernels mask the ragged edges of T and S themselves.
 
-Two kernels compute the same function, and :func:`_route` picks one from
+Three kernels compute the same function, and :func:`_route` picks one from
 the dtype and the head width alone, never from a failure:
 
+- ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``): float32 at any hd in
+  1..256 — tensor cores through ``mma.sync``, each product in three TF32
+  terms of split operands, fed by a ``cp.async`` ring;
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with hd a
   multiple of 8 in 8..256 (TMA needs 16-byte rows) — tensor cores fed by
   a TMA ring;
-- ``"simt"`` (``csrc/flash_attention.cu``): float32 at any hd in 1..256,
-  and bfloat16 at the other widths.
+- ``"simt"`` (``csrc/flash_attention.cu``): bfloat16 at the other widths.
 
 The wrapper checks device, dtype, shape, contiguity and (for ``wgmma``)
 16-byte alignment, launches on the current stream without synchronising,
@@ -43,6 +45,10 @@ MAX_HEAD_DIM = 256
 WGMMA_WIDTHS = (64, 128, 192, 256)
 WGMMA_KEYS = 64
 
+#: Keys and widest row of the tf32x3 kernel's bring-up probe.
+TF32X3_PROBE_KEYS = 16
+TF32X3_PROBE_MAX_WIDTH = 64
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FORWARD = [_P] * 4 + [_I] * 8 + [ctypes.c_float]
@@ -50,7 +56,13 @@ _FORWARD = [_P] * 4 + [_I] * 8 + [ctypes.c_float]
 #: argtypes of the C entry points (see ``_build.KernelLib``).
 _SIMT_SIGNATURES = {
     "fa_error_string": ([_I], ctypes.c_char_p),
-    "fa_forward": (_FORWARD + [_I, _P], _I),
+    "fa_forward": (_FORWARD + [_P], _I),
+}
+_TF32X3_SIGNATURES = {
+    "fa_tf32x3_error_string": ([_I], ctypes.c_char_p),
+    "fa_tf32x3_forward": (_FORWARD + [_P], _I),
+    "fa_tf32x3_tile_check": ([_P] * 5 + [_I, _P], _I),
+    "fa_tf32x3_tiles": ([_I], _I),
 }
 _WGMMA_SIGNATURES = {
     "fa_wgmma_error_string": ([_I], ctypes.c_char_p),
@@ -63,28 +75,39 @@ _SIMT = _build.KernelLib("flash_attention", _SIMT_SIGNATURES,
 _WGMMA = _build.KernelLib("flash_attention_wgmma", _WGMMA_SIGNATURES,
                           "fa_wgmma_error_string",
                           ("flash_attention_wgmma", "tile_check"))
+_TF32X3 = _build.KernelLib("flash_attention_tf32x3", _TF32X3_SIGNATURES,
+                           "fa_tf32x3_error_string",
+                           ("flash_attention_tf32x3", "tile_check"))
+#: route -> (library, launch-count key, C entry point)
+_KERNELS = {
+    "tf32x3": (_TF32X3, "flash_attention_tf32x3", "fa_tf32x3_forward"),
+    "wgmma": (_WGMMA, "flash_attention_wgmma", "fa_wgmma_forward"),
+    "simt": (_SIMT, "flash_attention_simt", "fa_forward"),
+}
 
 
 def launch_counts():
-    """Kernel launches since the last reset: ``flash_attention`` (both
-    kernels), ``flash_attention_wgmma`` and ``flash_attention_simt``. A
-    call that went to the plain version does not count."""
-    per_route = {"flash_attention_simt":
-                 _SIMT.launch_counts()["flash_attention_simt"],
-                 "flash_attention_wgmma":
-                 _WGMMA.launch_counts()["flash_attention_wgmma"]}
+    """Kernel launches since the last reset: ``flash_attention`` (all
+    three kernels), ``flash_attention_tf32x3``, ``flash_attention_wgmma``
+    and ``flash_attention_simt``. A call that went to the plain version
+    does not count."""
+    per_route = {key: lib.launch_counts()[key]
+                 for lib, key, _ in _KERNELS.values()}
     return {"flash_attention": sum(per_route.values()), **per_route}
 
 
 def reset_launch_counts() -> None:
-    _SIMT.reset_launch_counts()
-    _WGMMA.reset_launch_counts()
+    for lib, _, _ in _KERNELS.values():
+        lib.reset_launch_counts()
 
 
 def _route(dtype, hd: int) -> str:
     """The kernel that takes inputs of ``dtype`` and head width ``hd``:
-    ``"wgmma"`` for bfloat16 with hd a multiple of 8 in 8..256, else
-    ``"simt"``."""
+    ``"tf32x3"`` for float32, ``"wgmma"`` for bfloat16 with hd a multiple
+    of 8 in 8..256, else ``"simt"`` (the wrapper refuses hd outside
+    1..256)."""
+    if dtype == torch.float32:
+        return "tf32x3"
     if dtype == torch.bfloat16 and hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM:
         return "wgmma"
     return "simt"
@@ -112,10 +135,9 @@ def _attention_kernel(q, k, v, causal: bool, window: int):
                          f"heads")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(
-            f"head_dim {hd} outside 1..{MAX_HEAD_DIM}: bfloat16 at a "
-            f"multiple of 8 in 8..{MAX_HEAD_DIM} runs the wgmma kernel; "
-            f"float32 at 1..{MAX_HEAD_DIM}, and bfloat16 at other widths, "
-            f"the SIMT kernel")
+            f"head_dim {hd} outside 1..{MAX_HEAD_DIM}: float32 runs the "
+            f"tf32x3 kernel, bfloat16 at a multiple of 8 the wgmma kernel "
+            f"and at other widths the SIMT kernel")
     if S < 1:
         raise ValueError("no keys: S must be at least 1")
     out = torch.empty_like(q)
@@ -123,16 +145,14 @@ def _attention_kernel(q, k, v, causal: bool, window: int):
         return out
     args = (*(t.data_ptr() for t in (q, k, v, out)), B, nh, nkv, T, S, hd,
             int(bool(causal)), int(window), hd ** -0.5)
-    if _route(q.dtype, hd) == "wgmma":
+    route = _route(q.dtype, hd)
+    if route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name}: the wgmma kernel reads through "
                                  f"TMA and needs a 16-byte aligned start")
-        _WGMMA.launch("flash_attention_wgmma", "fa_wgmma_forward", dev,
-                      *args)
-    else:
-        _SIMT.launch("flash_attention_simt", "fa_forward", dev, *args,
-                     int(q.dtype == torch.bfloat16))
+    lib, key, fn = _KERNELS[route]
+    lib.launch(key, fn, dev, *args)
     return out
 
 
@@ -158,6 +178,36 @@ def _wgmma_tile_check(q, k, v):
     o = torch.empty((64, hdp), dtype=torch.float32, device=dev)
     _WGMMA.launch("tile_check", "fa_wgmma_tile_check", dev,
                   *(t.data_ptr() for t in (q, k, v, s, o)), hdp)
+    return s, o
+
+
+def _tf32x3_tile_check(q, k, v):
+    """Bring-up probe of the tf32x3 kernel's pieces (``cp.async`` loads,
+    the m16n8k8 fragment layouts, the split into TF32 halves, the three
+    products, P carried from the score accumulator into the second
+    product) on one warp, without scale, masks or softmax: ``q`` (16
+    rows), ``k`` and ``v`` (:data:`TF32X3_PROBE_KEYS` = 16 rows), each
+    ``[16, w]`` contiguous float32 on a CUDA device, 16-byte aligned, w a
+    multiple of 8 up to :data:`TF32X3_PROBE_MAX_WIDTH`. Returns float32
+    ``S = q k^T [16, 16]`` and ``O = S v [16, w]``, exact for integer
+    inputs whose sums are exact in float32 and where no two low halves
+    meet in a product."""
+    w, rows = q.shape[-1], TF32X3_PROBE_KEYS
+    if w % 8 or not 8 <= w <= TF32X3_PROBE_MAX_WIDTH:
+        raise ValueError(f"width {w}: the tf32x3 probe takes a multiple of "
+                         f"8 in 8..{TF32X3_PROBE_MAX_WIDTH}")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tf32x3 probe needs CUDA tensors, got {dev}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor(name, t, torch.float32, (rows, w), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tf32x3 probe copies 16 bytes at "
+                             f"a time and needs a 16-byte aligned start")
+    s = torch.empty((rows, rows), dtype=torch.float32, device=dev)
+    o = torch.empty((rows, w), dtype=torch.float32, device=dev)
+    _TF32X3.launch("tile_check", "fa_tf32x3_tile_check", dev,
+                   *(t.data_ptr() for t in (q, k, v, s, o)), w)
     return s, o
 
 

@@ -1,11 +1,11 @@
 """Plain PyTorch attention forward (masked full-score softmax), on any
 device.
 
-The definition the kernel in ``csrc/flash_attention.cu`` is held to: the
-CPU tests hold it against ``repro.kernels.flash_attention.ref:9``
-``attention_ref``, and ``chip_smoke.py`` holds the kernel against it on the
-card. Scores and softmax are float32 whatever the input type; the result
-is cast back to ``q.dtype``.
+The definition the kernels in ``csrc/`` are held to: the CPU tests hold
+it against ``repro.kernels.flash_attention.ref:9`` ``attention_ref``, and
+``chip_smoke.py`` holds each kernel against it on the card. Scores and
+softmax are float32 whatever the input type; the result is cast back to
+``q.dtype``.
 """
 
 from __future__ import annotations

@@ -93,4 +93,5 @@ def test_cuda_impl_on_cpu_tensors_raises():
         ops.flash_attention(*tt, impl="pallas")
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_simt": 0,
+                                   "flash_attention_tf32x3": 0,
                                    "flash_attention_wgmma": 0}

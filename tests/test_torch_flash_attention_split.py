@@ -93,9 +93,12 @@ def test_split_probabilities_hold_the_bar(hd, window):
     (torch.bfloat16, 8, "wgmma"),
     (torch.bfloat16, 100, "simt"),
     (torch.bfloat16, 4, "simt"),
-    (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"),
-    (torch.float32, 168, "simt"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
+    (torch.float32, 168, "tf32x3"),
+    (torch.float32, 3, "tf32x3"),
+    (torch.float32, 100, "tf32x3"),
+    (torch.float32, 256, "tf32x3"),
 ])
 def test_route_by_dtype_and_width(dtype, hd, route):
     assert ops._route(dtype, hd) == route

@@ -20,7 +20,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.lane_tick import ops as lt_ops
 from repro_torch.kernels.mamba_scan import ops as ms_ops
 
-LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._SIMT, fa_ops._WGMMA, ms_ops._LIB)
+LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._SIMT, fa_ops._WGMMA,
+        fa_ops._TF32X3, ms_ops._LIB)
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
             "float": ctypes.c_float, "const char*": ctypes.c_char_p}

@@ -22,13 +22,15 @@ atomics); the tick engine's final ``active``/``done`` and every tick's
 completions bitwise to the plain engine's, its carried counts equal to a
 recount, its inputs unchanged and one launch a tick counted through the
 graph replays;
-attention in float32 at 2e-5 atol/rtol, in bfloat16 at atol 4e-3 and
+attention in float32 at 2e-5 atol/rtol (the tf32x3 kernel: each product
+in three TF32 terms of split operands), in bfloat16 at atol 4e-3 and
 rtol 8e-3 with at most 1% of the elements unequal (both sides compute in
 float32, the wgmma kernel carrying its probabilities as two bf16 halves,
 and round once, so they differ by at most one ulp and only next to a
 rounding boundary; SDPA, which rounds its probabilities to bfloat16,
 differs on about 40%), each case through the kernel its dtype and width
-route to, and the wgmma kernel's pieces bitwise on integer inputs; the
+route to, and the wgmma and tf32x3 kernels' pieces bitwise on integer
+inputs; the
 Mamba scan at 1e-4 (the sum over
 the state runs in another order).
 """
@@ -598,6 +600,16 @@ ATTENTION_CASES = [
     (1, 2, 1, 100, 100, 32, torch.float32, False, 0),
     (1, 2, 2, 80, 40, 16, torch.float32, True, 8),
     (2, 2, 1, 70, 150, 256, torch.float32, False, 16),
+    # f32 on the tf32x3 kernel: widths not a multiple of 4 (4-byte copies)
+    # or of 8 (zero-filled columns), hd 256 with T != S both ways,
+    # hymba_1_5b's group of 5 at hd 64 with its window, rows whose every
+    # key is masked
+    (1, 4, 2, 150, 150, 100, torch.float32, True, 0),
+    (1, 2, 1, 90, 70, 3, torch.float32, True, 16),
+    (1, 2, 1, 200, 130, 256, torch.float32, True, 0),
+    (1, 4, 2, 130, 200, 256, torch.float32, True, 64),
+    (1, 10, 2, 300, 300, 64, torch.float32, True, 64),
+    (2, 4, 4, 100, 60, 168, torch.float32, True, 16),
     # bf16 on the wgmma kernel: both ends of its widths, ragged T and S,
     # rows whose every key is masked, batches with a GQA group of 4
     (1, 4, 2, 256, 256, 64, torch.bfloat16, True, 0),
@@ -619,7 +631,10 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
                for shape in ((B, nh, T, hd), (B, nkv, S, hd),
                              (B, nkv, S, hd)))
-    route = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "simt"
+    if dtype == torch.float32:
+        route = "tf32x3"
+    else:
+        route = "wgmma" if hd % 8 == 0 else "simt"
     assert fa_ops._route(dtype, hd) == route
     before = fa_ops.launch_counts()
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -652,6 +667,59 @@ def test_cuda_wgmma_tile_bitwise(cuda_device, hdp):
     s_ref = q.float() @ k.float().T
     assert torch.equal(s, s_ref)
     assert torch.equal(o, s_ref @ v.float())
+
+
+#: Largest magnitude of the tf32x3 probe's integer inputs: small (every
+#: value exact in TF32) or wide (up to 12 bits, so the low half is
+#: nonzero). At most one operand of each product is wide, so the missing
+#: lo.lo' term is 0, and at w <= 64 with 16 keys every sum stays below
+#: 2**24, exact in float32.
+TF32X3_PROBE_RANGES = {"small": 2, "wide": 4095}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 24, 64])
+@pytest.mark.parametrize("wide", [None, "q", "k", "v"])
+def test_cuda_tf32x3_tile_bitwise(cuda_device, w, wide):
+    """The tf32x3 kernel's cp.async loads, m16n8k8 fragment layouts, the
+    split into TF32 halves, the three products and P carried from the
+    score accumulator (its permuted k index) on one warp: with integer
+    inputs every product term is exact, so S = q k^T and O = S v equal
+    the plain products bitwise. A wide operand drives its low half through
+    the lo.hi' or hi.lo' product (a wide q or k makes S wide for O)."""
+    g = torch.Generator().manual_seed(w)
+    inputs = []
+    for name in ("q", "k", "v"):
+        top = TF32X3_PROBE_RANGES["wide" if name == wide else "small"]
+        inputs.append(torch.randint(-top, top + 1,
+                                    (fa_ops.TF32X3_PROBE_KEYS, w),
+                                    generator=g)
+                      .to(cuda_device, torch.float32))
+    q, k, v = inputs
+    s, o = fa_ops._tf32x3_tile_check(q, k, v)
+    s_ref = (q.double() @ k.double().T)
+    o_ref = s_ref @ v.double()
+    assert torch.equal(s.double(), s_ref)
+    assert torch.equal(o.double(), o_ref)
+
+
+#: The tf32x3 kernel's K/V ring (stages, keys) at head widths on both
+#: sides of each change, as the CPU model of its arithmetic assumes it
+#: (``test_torch_flash_attention_tf32x3.py``, the same table).
+TF32X3_TILES = [
+    (1, (2, 64)), (64, (2, 64)), (72, (2, 64)), (100, (2, 32)),
+    (128, (2, 32)), (144, (2, 32)), (168, (1, 32)), (200, (1, 32)),
+    (224, (1, 16)), (256, (1, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,tiles", TF32X3_TILES)
+def test_cuda_tf32x3_tiles(cuda_device, hd, tiles):
+    """The kernel's own K/V ring at ``hd`` (``fa_tf32x3_tiles``: stages *
+    1000 + keys), the key tiles the CPU model walks; -1 outside 1..256."""
+    lib = fa_ops._TF32X3.get()
+    assert divmod(lib.fa_tf32x3_tiles(hd), 1000) == tiles
+    assert lib.fa_tf32x3_tiles(0) == lib.fa_tf32x3_tiles(257) == -1
 
 
 @pytest.mark.cuda
