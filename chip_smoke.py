@@ -25,6 +25,18 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    sparse reads by the 32-byte sectors they touch) over the memory rate
    (for ``gcs_admit`` also the bound of the function without its rank
    plane);
+   then the tick-glue kernels (``kernels.tick_glue``: ``glue_begin``,
+   ``glue_complete``, ``glue_link_admit``, ``glue_migrate``): the sweep
+   grid's ``cuda`` tick with them, captured and replayed, against the
+   same tick with the plain glue (eager, the same lane-tick kernels),
+   every state tensor bitwise after 600 ticks and after 200 more (at
+   most half the horizon, and the rest of it); on the fused loop's state
+   at tick 600 and on a dense synthetic state (about
+   0.3 of the planes completing, queued and migrating) each glue kernel
+   against its plain version, every state tensor and output bitwise
+   after each step, with its milliseconds (CUDA events around each call,
+   its state restored before it), device microseconds (profiler), the
+   plain version's milliseconds and the bound of the bytes it needs;
 4. small reference: a 1,000-file grid on the CPU's plain path against the
    card's kernel path, at the Table-2 5% bar;
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
@@ -33,14 +45,16 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``run_sweep_torch`` once with ``tick_impl="cuda"`` (the tick replayed
    from a CUDA graph) and once with ``"torch"`` on the card; per-spec
    agreement at the Table-2 5% bar, equal jobs submitted, and each kernel
-   launched once a tick on the ``cuda`` run, replays counted; then
+   (the three lane-tick and the four glue kernels) launched once a tick
+   on the ``cuda`` run, replays counted; then
    ``simulate_packed`` on the packed grid with the ``cuda`` tick eager
    and replayed, every output bitwise equal;
 6. profile, for the eager and the replayed ``cuda`` tick
    (``sim.batched.TickLoop``): 40 ticks on the host clock, 40 more under
    ``torch.profiler`` — wall and device time per tick, the device's idle
-   share, the top kernels, ``torch.cumsum``'s calls and device time per
-   tick; for the replayed tick the capture's host time and the graph
+   share, the top kernels, the lane-tick and each glue kernel's device
+   time per tick, ``torch.cumsum``'s calls and device time per tick; for
+   the replayed tick the capture's host time and the graph
    pool's bytes; for the eager one the GCS candidates and admissions per
    lane per tick of the profiled ticks (counted after them) and of 40
    ticks half-way through the horizon;
@@ -85,7 +99,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    version at 1e-4 atol/rtol;
 10. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
-    before the path runs, read just after each case); attention entries
+    before the path runs, read just after each case); the glue kernels,
+    which replace no Pallas kernel, name the lines of ``repro``'s tick
+    that XLA fuses as what they replace; attention entries
     also name their route (``variant``: ``wgmma``, ``simt`` or
     ``tf32x3``, each at least once) and that kernel's source; then the
     ``ok`` line.
@@ -105,6 +121,7 @@ CUDA is not available or when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -127,10 +144,15 @@ TF32_OPS_PER_S = 495e12
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
 _CAROUSEL = "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu"
+_TICK_GLUE = "src/repro_torch/kernels/tick_glue/csrc/tick_glue.cu"
 KERNEL_SOURCE = {
     "transfer_tick": _LANE_TICK,
     "gcs_admit": _LANE_TICK,
     "window_admit": _LANE_TICK,
+    "glue_begin": _TICK_GLUE,
+    "glue_complete": _TICK_GLUE,
+    "glue_link_admit": _TICK_GLUE,
+    "glue_migrate": _TICK_GLUE,
     "carousel_tick": _CAROUSEL,
     "engine_count": _CAROUSEL,
     "engine_tick": _CAROUSEL,
@@ -152,6 +174,12 @@ REPLACES = {
     "transfer_tick": "src/repro/kernels/lane_tick/lane_tick.py:81",
     "gcs_admit": "src/repro/kernels/lane_tick/lane_tick.py:194",
     "window_admit": "src/repro/kernels/lane_tick/lane_tick.py:292",
+    # no Pallas kernel: XLA fuses these lines of the jitted tick
+    "glue_begin": "src/repro/sim/batched.py:205-206 (XLA-fused)",
+    "glue_complete": "src/repro/sim/batched.py:195,227-279,287,295-300,"
+                     "332-333 (XLA-fused)",
+    "glue_link_admit": "src/repro/sim/batched.py:280-286 (XLA-fused)",
+    "glue_migrate": "src/repro/sim/batched.py:331,336-353 (XLA-fused)",
     "carousel_tick":
         "src/repro/kernels/carousel_update/carousel_update.py:42",
     "engine_count":
@@ -554,6 +582,337 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     return results
 
 
+GLUE_STEPS = ("begin", "complete", "link_admit", "migrate")
+
+#: Ticks of the sweep grid before the glue kernels are checked on its
+#: state (the first ticks complete and migrate little), and the ticks
+#: compared after it; both cut to fit a shorter horizon.
+GLUE_STATE_TICK = 600
+GLUE_WINDOW_TICKS = 200
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """The ``cuda`` tick with the plain glue (``tick_glue.ref``) in place
+    of the glue kernels, the lane-tick kernels unchanged."""
+    from repro_torch.kernels.tick_glue import ops, ref
+
+    saved = {step: getattr(ops, step) for step in GLUE_STEPS}
+    try:
+        for step in GLUE_STEPS:
+            setattr(ops, step, getattr(ref, step))
+        yield
+    finally:
+        for step, fn in saved.items():
+            setattr(ops, step, fn)
+
+
+def same_state(torch, got, want, what: str) -> None:
+    """Every tensor of two state dicts bitwise equal (floats by their
+    bits)."""
+    for key, w in want.items():
+        g = got[key]
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"{what}: {key} not bitwise")
+
+
+def restored_ms(torch, fn, restore, n: int = 10, warm: int = 2,
+                key: str = None):
+    """``fn``'s milliseconds per call by CUDA events recorded around each
+    call, its state restored before each (``restore``, outside the
+    events); with ``key``, also the device microseconds per call of the
+    kernels whose name holds ``key`` (``torch.profiler`` over ``n`` more
+    calls). Returns (ms, device_us or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pairs = []
+    for i in range(warm + n):
+        restore()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        if i >= warm:
+            pairs.append((a, b))
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in pairs) / n
+    if key is None:
+        return ms, None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            restore()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key) / n
+    return ms, us
+
+
+def glue_bytes(torch, pre, post, x, work_ints: int) -> dict:
+    """Bytes each glue step needs at these inputs: the planes every
+    element needs once (dense), the others by the 32-byte sectors that
+    the step's masks touch, and the [L, 3S] vectors. ``pre`` and ``post``
+    map each step to the state before and after it; ``x`` holds the
+    tick's values (``now``, ``comp``, ``mig``)."""
+    from repro_torch.kernels.tick_glue.ref import ABSENT, PRESENT
+
+    def sec(mask, itemsize):
+        return sector_bytes(torch, mask, itemsize)
+
+    st0 = pre["begin"]
+    n = st0["tr_slot"].numel()
+    R = st0["disk_used"].numel()
+    out = {"begin": 2 * n + sec(st0["tr_slot"], 4) + 4 * work_ints}
+    s, comp = pre["complete"], x["comp"]
+    lt = torch.remainder(s["tr_link"], 3)
+    inb, cm = comp & (lt != 2), comp & (lt == 2)
+    no_cons = (s["pend_cnt"] == 0) & (s["fin_max"] <= x["now"])
+    d1 = torch.where(inb, PRESENT, s["disk_state"])
+    drop = cm & no_cons & (d1 == PRESENT)
+    d2 = torch.where(drop, ABSENT, d1)
+    cand = no_cons & (d2 == PRESENT) & x["limited"]
+    dele = cand & (post["complete"]["disk_state"] == ABSENT)
+    changed = post["complete"]["disk_state"] != s["disk_state"]
+    out["complete"] = (
+        23 * n + sec(s["tr_slot"] | comp, 4) + sec(comp, 1)
+        + 2 * sec(comp, 4) + sec(cand, 4) + sec(cm, 4) + sec(cand, 1)
+        + sec(drop | dele, 4) + sec(changed, 4) + 3 * sec(inb, 4)
+        + sec(inb & (s["pend_cnt"] > 0), 4) + 5 * 4 * 3 * R + 8 * R)
+    s, q = pre["link_admit"], pre["link_admit"]["lq_queued"]
+    adm = q & ~post["link_admit"]["lq_queued"]
+    out["link_admit"] = (n + 2 * sec(q, 4) + 2 * sec(adm, 1)
+                         + sec(adm, 4) + 2 * 4 * 3 * R)
+    s, m = pre["migrate"], x["mig"]
+    queued = m & post["migrate"]["lq_queued"] & ~s["lq_queued"]
+    direct = m & ~queued
+    out["migrate"] = (n + 6 * sec(m, 4) + sec(direct, 1) + sec(direct, 4)
+                      + sec(queued, 4) + sec(queued, 1) + 5 * 4 * 3 * R)
+    return out
+
+
+def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
+               tt=None, ga=None) -> dict:
+    """One tick's glue from state ``st0`` through the kernels
+    (``tick_glue.ops``) and the plain versions (``tick_glue.ref``) side by
+    side, each step from the same state and inputs, every state tensor
+    and output bitwise after each. The lane-tick kernels between the
+    steps run once on the kernel side's values and feed both sides
+    (``tt``: ``(new_done, comp)`` in place of ``transfer_tick``'s, ``ga``:
+    ``(mig, rank)`` in place of ``gcs_admit``'s). Then each step is timed
+    from its own state (restored before each call), the kernel and the
+    plain version, beside the bound of the bytes it needs. Returns a
+    result dict per step."""
+    from repro_torch.kernels.lane_tick import ops as lt_ops
+    from repro_torch.kernels.lane_tick.ref import GCS_ADMIT_PASSES
+    from repro_torch.kernels.tick_glue import ops, ref
+
+    def clone(s):
+        return {k: v.clone() for k, v in s.items()}
+
+    sizes = c["sizes"]
+    k, p = clone(st0), clone(st0)
+    pre, post, calls = {}, {}, {}
+    x = {"now": now, "limited": c["limited"]}
+    # begin
+    pre["begin"] = clone(k)
+    a_k, w_k = ops.begin(k, now, dt)
+    a_p, w_p = ref.begin(p, now, dt)
+    calls["begin"] = (lambda s, w: ops.begin(s, now, dt),
+                      lambda s, w: ref.begin(s, now, dt))
+    check(torch.equal(a_k, a_p), f"glue_begin ({label}): t_active")
+    same_state(torch, k, p, f"glue_begin ({label})")
+    post["begin"] = clone(k)
+    if tt is None:
+        tt = lt_ops.transfer_tick(k["tr_link"], a_k, k["tr_done"],
+                                  k["tr_total"], sizes, c["bw"], c["mode"],
+                                  dt, month, n_months)[:2]
+    new_done, comp = tt
+    x["comp"] = comp
+    # complete
+    pre["complete"] = clone(k)
+    want_k, occ_k = ops.complete(k, c, now, new_done, comp, w_k)
+    want_p, occ_p = ref.complete(p, c, now, new_done, comp, w_p)
+    calls["complete"] = (
+        lambda s, w: ops.complete(s, c, now, new_done, comp, w),
+        lambda s, w: ref.complete(s, c, now, new_done, comp, w))
+    check(torch.equal(want_k, want_p), f"glue_complete ({label}): want_mig")
+    check(torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32)),
+          f"glue_complete ({label}): occ3")
+    same_state(torch, k, p, f"glue_complete ({label})")
+    post["complete"] = clone(k)
+    # link_admit
+    pre["link_admit"] = clone(k)
+    ops.link_admit(k, c, now, w_k)
+    ref.link_admit(p, c, now, w_p)
+    calls["link_admit"] = (lambda s, w: ops.link_admit(s, c, now, w),
+                           lambda s, w: ref.link_admit(s, c, now, w))
+    same_state(torch, k, p, f"glue_link_admit ({label})")
+    post["link_admit"] = clone(k)
+    if ga is None:
+        ga = lt_ops.gcs_admit(want_k, sizes, k["gcs_used"], c["gcs_limit"],
+                              dt, month, n_months, GCS_ADMIT_PASSES)
+        ga = (ga[0], ga[3])
+    mig, rank = ga
+    x["mig"] = mig
+    # migrate (occ3 is updated in place: each side its own copy)
+    occ_k0 = occ_k.clone()
+    pre["migrate"] = clone(k)
+    ops.migrate(k, c, now, mig, rank, occ_k, w_k)
+    ref.migrate(p, c, now, mig, rank, occ_p, w_p)
+    occ_t = occ_k0.clone()
+    calls["migrate"] = (
+        lambda s, w: ops.migrate(s, c, now, mig, rank, occ_t, w),
+        lambda s, w: ref.migrate(s, c, now, mig, rank, occ_t, w))
+    check(torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32)),
+          f"glue_migrate ({label}): occ3")
+    same_state(torch, k, p, f"glue_migrate ({label})")
+    post["migrate"] = clone(k)
+    need = glue_bytes(torch, pre, post, x, int(w_k.numel()))
+    stats = dict(
+        completions=int(comp.sum()), want_mig=int(want_k.sum()),
+        admitted=int((pre["link_admit"]["lq_queued"]
+                      & ~post["link_admit"]["lq_queued"]).sum()),
+        migrations=int(mig.sum()),
+        queued=int((post["migrate"]["lq_queued"]
+                    & ~pre["migrate"]["lq_queued"]).sum()))
+
+    # timing: each step from its own state, restored before each call;
+    # the kernels' work buffer zeroed as begin leaves it
+    out = {}
+    for step in GLUE_STEPS:
+        s = clone(pre[step])
+        w_kt = torch.zeros_like(w_k)
+        w_pt = ref.begin(s, now, dt)[1]
+
+        def restore(step=step, s=s, w=w_kt):
+            for key, v in pre[step].items():
+                s[key].copy_(v)
+            w.zero_()
+            if step == "migrate":
+                occ_t.copy_(occ_k0)
+
+        kern, plain = calls[step]
+        ms, dev_us = restored_ms(torch, lambda: kern(s, w_kt), restore,
+                                 key=f"tg_{step}_kernel")
+        plain_ms, _ = restored_ms(torch, lambda: plain(s, w_pt), restore,
+                                  n=5)
+        nb, kind = bound_ms(need[step], 0.0)
+        out[step] = dict(max_abs_err=0.0, ms=ms, device_us=dev_us,
+                         plain_ms=plain_ms, bound_ms=nb, bound_by=kind,
+                         library_ms=None, bytes=need[step])
+    sums_us = device_us(torch, lambda: sizes.sum(-1), n=10)
+    out["complete"]["sums_device_us"] = 2 * sums_us
+    log(f"glue kernels ({label}): every state tensor and output bitwise "
+        f"after each step; {stats}; the two masked-size sums "
+        f"{2 * sums_us:.1f} us of device time in glue_complete's ms")
+    for step, r in out.items():
+        log(f"  glue_{step}: ms {r['ms']:.4f} device_us "
+            f"{r['device_us']:.1f} plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}, {r['bytes'] / 1e6:.1f} "
+            f"MB)")
+    return out
+
+
+def dense_glue_state(torch, st, c, now, share: float = 0.3):
+    """A synthetic state at the sweep's shapes on the sweep's constants:
+    about ``share`` of the planes completing, queued on a link and
+    migrating, file states drawn from all three, half the files with
+    pending jobs, busy link queues. Returns ``(state, (new_done, comp),
+    (mig, rank))``."""
+    from repro_torch.kernels.lane_tick.ref import admission_rank
+
+    dev = st["tr_slot"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2020)
+    L, S, F = st["tr_slot"].shape
+
+    def rand():
+        return torch.rand((L, S, F), generator=gen, device=dev)
+
+    def ints(hi):
+        return torch.randint(0, hi, (L, S, F), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    s = {k: v.clone() for k, v in st.items()}
+    site = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
+    slot = rand() < 2 * share
+    comp = slot & (rand() < 0.5)
+    s["tr_slot"].copy_(slot)
+    s["tr_link"].copy_(3 * site + ints(3))
+    s["tr_total"].copy_(torch.where(slot, c["sizes"], float("inf")))
+    s["tr_done"].copy_(torch.where(slot, c["sizes"] * rand(), 0.0))
+    s["tr_start"].copy_(torch.where(slot, now - 30.0 * rand(),
+                                    float("inf")))
+    new_done = torch.where(comp, s["tr_total"], s["tr_done"])
+    queued = ~slot & (rand() < share / (1 - 2 * share))
+    s["lq_queued"].copy_(queued)
+    busy = torch.rand(s["lq_next"].shape, generator=gen, device=dev) < 0.5
+    s["lq_next"].copy_(s["lq_serve"] + torch.where(busy, 1000, 0))
+    serve = torch.gather(s["lq_serve"].view(L, S, 3), -1,
+                         (s["tr_link"] % 3).long())
+    s["lq_ticket"].copy_(torch.where(queued, serve + ints(200) - 100, 0))
+    s["disk_state"].copy_(ints(3))
+    s["gcs_state"].copy_(ints(3))
+    s["pend_cnt"].copy_(torch.where(rand() < 0.5, 0, ints(3) + 1))
+    s["fin_max"].copy_(now + 100.0 * (rand() - 0.5))
+    s["pend_tail"].copy_(1e3 * rand())
+    mig = rand() < share
+    return s, (new_done, comp), (mig, admission_rank(mig))
+
+
+def glue_phase(torch, grid) -> dict:
+    """The tick-glue kernels on the sweep grid. The ``cuda`` tick with the
+    glue kernels, captured and replayed, and the same tick with the plain
+    glue (eager, the same lane-tick kernels) run side by side: every
+    state tensor bitwise after :data:`GLUE_STATE_TICK` ticks and after
+    :data:`GLUE_WINDOW_TICKS` more (at most half the horizon, and the
+    rest of it). On the fused loop's state at that tick, and on a dense
+    synthetic state (:func:`dense_glue_state`), each glue kernel against
+    its plain version (:func:`glue_check`). Returns the per-step results
+    on the sweep's state and the tick of that state."""
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop
+
+    dev = torch.device("cuda")
+    impl = resolve_tick_impl("cuda", dev)
+    fused = TickLoop(grid, impl, dev, graph=True)
+    plain = TickLoop(grid, impl, dev, graph=False)
+
+    def advance_both(n):
+        fused.advance(n)
+        with plain_glue():
+            plain.advance(n)
+        torch.cuda.synchronize()
+        same_state(torch, fused.st, plain.st,
+                   f"fused against plain glue at tick {fused.t}")
+        log(f"glue: the captured cuda tick with the glue kernels and the "
+            f"eager one with the plain glue bitwise on all "
+            f"{len(fused.st)} state tensors at tick {fused.t}")
+
+    state_tick = min(GLUE_STATE_TICK, grid.n_ticks // 2)
+    advance_both(state_tick)
+    t = fused.st["tick"]
+    c = fused.c
+    now = c["times"].index_select(0, t).view(())
+    dt = c["dts"].index_select(0, t).view(())
+    month = c["month_idx"].index_select(0, t).view(())
+    res = glue_check(torch, f"sweep state at tick {fused.t}", fused.st, c,
+                     now, dt, month, grid.n_months)
+    dense, tt, ga = dense_glue_state(torch, fused.st, c, now)
+    glue_check(torch, "dense synthetic state, shares 0.3", dense, c, now,
+               dt, month, grid.n_months, tt=tt, ga=ga)
+    del dense, tt, ga
+    advance_both(min(GLUE_WINDOW_TICKS, grid.n_ticks - state_tick))
+    del fused, plain
+    torch.cuda.empty_cache()
+    return res, state_tick
+
+
 def profile_phase(torch, grid, graph: bool, warm: int = 20,
                   n: int = 40) -> dict:
     """Where a tick's time goes on the ``cuda`` path, replayed from its
@@ -628,6 +987,8 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     busy_us = sum(r[1] for r in rows)
     ours_us = sum(r[1] for r in rows
                   if any(k in r[0] for k in ("tt_", "ga_", "wa_")))
+    glue_us = {step: sum(r[1] for r in rows if f"tg_{step}_kernel" in r[0])
+               for step in GLUE_STEPS}
     capture = (f"; capture {loop.capture_s * 1e3:.1f} ms, graph pool "
                f"{loop.pool_bytes} bytes" if graph else "")
     if not rows:
@@ -640,8 +1001,10 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
         f"{wall_us / n:.1f} us/tick unprofiled ({prof_wall_us / n:.1f} "
         f"profiled), device busy {busy_us / n:.1f} us/tick (idle share "
         f"{1 - busy_us / wall_us:.3f}), lane-tick kernels "
-        f"{ours_us / n:.1f} us/tick, {len(rows)} device kernels by name"
-        f"{capture}")
+        f"{ours_us / n:.1f} us/tick, glue kernels "
+        f"{sum(glue_us.values()) / n:.1f} us/tick ("
+        + ", ".join(f"{k} {v / n:.1f}" for k, v in glue_us.items())
+        + f"), {len(rows)} device kernels by name{capture}")
     for key, us, count in rows[:12]:
         log(f"  {us / n:9.1f} us/tick {count / n:6.1f}/tick  {key[:90]}")
     # torch.cumsum by its operator: calls and the device time under them
@@ -663,7 +1026,8 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
             run_keeping(n)
             log(f"  GCS candidates per lane per tick, ticks {mid}-"
                 f"{mid + n}: {counts(n)}")
-    return dict(wall_us=wall_us / n, busy_us=busy_us / n)
+    return dict(wall_us=wall_us / n, busy_us=busy_us / n,
+                glue_us={k: v / n for k, v in glue_us.items()})
 
 
 def carousel_inputs(torch, gen, n: int, m: int):
@@ -1147,6 +1511,7 @@ def main(argv=None) -> int:
         from repro_torch.core.scenarios import pack_specs
         from repro_torch.kernels import _build
         from repro_torch.kernels.lane_tick import ops
+        from repro_torch.kernels.tick_glue import ops as glue_ops
         from repro_torch.sim.batched import run_sweep_torch, simulate_packed
     except ImportError as e:
         raise SmokeFailure(f"the port is not importable beside this script "
@@ -1181,6 +1546,7 @@ def main(argv=None) -> int:
         f"{grid.n_lanes} lanes, {len(grid.site_names)} sites x {n_files} "
         f"files, K={grid.max_jobs_per_tick}, T={grid.n_ticks} ticks")
     kern = kernel_phase(torch, grid, grid.n_lanes)
+    glue, glue_tick = glue_phase(torch, grid)
 
     # -- small reference: CPU plain path against the card's kernels
     small = pricing_specs(0.1, 1000)
@@ -1199,19 +1565,21 @@ def main(argv=None) -> int:
     for impl in ("cuda", "torch"):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
+        glue_ops.reset_launch_counts()
         t0 = time.perf_counter()
         res = run_sweep_torch(specs, tick=10.0, tick_impl=impl,
                               device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launched = {**ops.launch_counts(), **glue_ops.launch_counts()}
         if impl == "cuda":
-            counts = ops.launch_counts()
+            counts = launched
         runs[impl] = res
         log(f"sweep {impl}{' (captured)' if impl == 'cuda' else ''}: "
             f"{wall:.2f} s wall, {grid.n_ticks / wall:.1f} ticks/s, "
-            f"{len(res) / wall:.2f} configs/s, launches "
-            f"{ops.launch_counts()}")
-    check(counts == {name: grid.n_ticks for name in ops.KERNELS},
+            f"{len(res) / wall:.2f} configs/s, launches {launched}")
+    check(counts == {name: grid.n_ticks
+                     for name in ops.KERNELS + glue_ops.KERNELS},
           f"main path launches {counts}, not one of each kernel in each of "
           f"{grid.n_ticks} ticks")
     n_ok = lane_parity(runs["torch"], runs["cuda"])
@@ -1250,6 +1618,9 @@ def main(argv=None) -> int:
     cases = [(name, shapes + (", the K and W=4 windows in one launch"
                               if name == "window_admit" else ""),
               counts[name], kern[name]) for name in ops.KERNELS]
+    cases += [(f"glue_{step}", f"{shapes}, the sweep's state at tick "
+               f"{glue_tick}", counts[f"glue_{step}"], glue[step])
+              for step in GLUE_STEPS]
     cases += carousel_phase(torch)
     for name, phase in (("flash_attention", attention_phase),
                         ("mamba_scan", mamba_phase)):
@@ -1264,6 +1635,7 @@ def main(argv=None) -> int:
                     **{k: r[k] for k in (
                         "variant", "device_us", "graph_ms",
                         "bound_ms_without_rank", "bound_ms_simt",
+                        "sums_device_us",
                         "wall_us", "idle_share",
                         "ticks_per_s", "ticks_per_s_with_capture",
                         "ticks_per_s_second_call",

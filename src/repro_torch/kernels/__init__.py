@@ -1,5 +1,5 @@
 """Kernels of the port: the ``tick_impl`` registry, the nvcc build and
-loader (``_build``), and four kernel packages, each with its plain PyTorch
+loader (``_build``), and five kernel packages, each with its plain PyTorch
 version (``ref``), its entry points and launch counts (``ops``) and its
 CUDA source (``csrc``), built at the first launch:
 
@@ -10,5 +10,7 @@ CUDA source (``csrc``), built at the first launch:
 - ``flash_attention`` — the attention forward
   (``repro.kernels.flash_attention``);
 - ``mamba_scan`` — the Mamba-1 selective scan
-  (``repro.kernels.mamba_scan``).
+  (``repro.kernels.mamba_scan``);
+- ``tick_glue`` — the sweep tick's state updates between the lane-tick
+  kernels (no Pallas counterpart: XLA fuses them in ``repro``).
 """

@@ -37,6 +37,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention_tf32x3":
         "flash_attention/csrc/flash_attention_tf32x3.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
+    "tick_glue": "tick_glue/csrc/tick_glue.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

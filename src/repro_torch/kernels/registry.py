@@ -1,11 +1,12 @@
 """Kernel-selection registry: the ``tick_impl`` axis and the device rule.
 
 One name selects how the batched tick program (``repro_torch.sim.batched``)
-runs its three hot pieces:
+runs its three hot pieces and the glue between them:
 
-- ``"torch"``: the plain PyTorch versions (``kernels/lane_tick/ref.py``) —
-  the oracle, on any device;
-- ``"cuda"``: the hand-written CUDA kernels (``kernels/lane_tick/csrc``);
+- ``"torch"``: the plain PyTorch versions (``kernels/lane_tick/ref.py``,
+  ``kernels/tick_glue/ref.py``) — the oracle, on any device;
+- ``"cuda"``: the hand-written CUDA kernels (``kernels/lane_tick/csrc``,
+  and the glue between them, ``kernels/tick_glue/csrc``);
   a CUDA device is required, and asking for them on the CPU raises;
 - ``"auto"``: ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU.
 

@@ -13,7 +13,11 @@ completion billing, the shared-GCS admission passes with the GB-second
 integration, the candidate-window recurrences — go through
 ``repro_torch.kernels.lane_tick``: the hand-written CUDA kernels for
 ``tick_impl="cuda"``, the plain PyTorch versions (``ref.py``) for
-``tick_impl="torch"``. The bookkeeping around them is shared.
+``tick_impl="torch"``. So does the glue between them, the state updates
+of the completions, the link-slot admission and the hot-tier deletions
+and migrations (``repro_torch.kernels.tick_glue``: one kernel a step, one
+pass over the planes each). The candidate-window bookkeeping after them
+is shared.
 
 Per-tick phase order mirrors the reference generator: transfer advance +
 completions -> link-slot FIFO admission -> hot-tier deletions & hot->cold
@@ -40,7 +44,9 @@ import torch
 
 from repro_torch.core.scenarios import PackedGrid, ScenarioSpec, pack_specs
 from repro_torch.kernels.lane_tick import ops, ref
-from repro_torch.kernels.lane_tick.ref import by_type
+from repro_torch.kernels.tick_glue import ops as glue_ops
+from repro_torch.kernels.tick_glue import ref as glue_ref
+from repro_torch.kernels.tick_glue.ref import ABSENT, PRESENT
 from repro_torch.kernels.registry import (
     TickImpl,
     resolve_device,
@@ -48,9 +54,6 @@ from repro_torch.kernels.registry import (
 )
 from repro_torch.sim.cloud import bills_from_monthly_totals
 from repro_torch.sim.sweep import ScenarioResult, SweepResult
-
-# File-location states; must match the event engine's.
-ABSENT, IN_FLIGHT, PRESENT = 0, 1, 2
 
 #: Disk-window (waiting queue) admissions attempted per site per tick
 #: (arrivals are ~0.64 jobs/tick/site, Table 3; a burst drains over the
@@ -87,6 +90,7 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
     package's functional tick body would bind at that point.
     """
     lt = ops if impl.use_kernel else ref
+    glue = glue_ops if impl.use_kernel else glue_ref
     W = WAIT_ADMITS_PER_TICK
 
     def tick_fn(st: Dict[str, torch.Tensor], c: Dict[str, torch.Tensor]):
@@ -100,102 +104,36 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         month = c["month_idx"].index_select(0, t).view(())
         jobs_now = c["jobs_per_tick"].index_select(1, t).view(L, S)
 
-        # -- consumer snapshot (jobs submitted before this tick that have
-        # not finished by ``now``)
-        no_cons = (st["pend_cnt"] == 0) & (st["fin_max"] <= now)
-
-        # -- advance transfers one tick + completion billing
-        t_active = st["tr_slot"] & (st["tr_start"] <= now - dt + 0.5)
-        ltype = torch.remainder(st["tr_link"], 3)
-        is_t = [ltype == k for k in range(3)]
+        # -- advance transfers one tick + completion billing; the glue
+        # around it (tick_glue) updates the state planes in place
+        t_active, work = glue.begin(st, now, dt)
         (new_done, comp, tape_add, recall_add, mig_add, egress_add,
          cls_a_add, cls_b_add) = lt.transfer_tick(
             st["tr_link"], t_active, st["tr_done"], st["tr_total"], sizes,
             c["bw"], c["mode"], dt, month, n_months)
-        comp_mig = comp & is_t[2]
-        inbound = comp & (is_t[0] | is_t[1])
-        st["disk_state"].masked_fill_(inbound, PRESENT)
-        st["gcs_state"].masked_fill_(comp_mig, PRESENT)
         st["tape_b"].add_(tape_add)
         st["gcsdisk_b"].add_(recall_add)
         st["diskgcs_b"].add_(mig_add)
         st["egress_mo"].add_(egress_add)
         st["cls_a_mo"].add_(cls_a_add)
         st["cls_b_mo"].add_(cls_b_add)
-        # migrated with no remaining consumer: drop the hot copy now
-        drop_hot = comp_mig & no_cons & (st["disk_state"] == PRESENT)
-        st["disk_used"].sub_((sizes * drop_hot).sum(-1))
-        st["disk_state"].masked_fill_(drop_hot, ABSENT)
-        st["tr_slot"].logical_and_(~comp)
-        torch.where(comp, c["zero"], new_done, out=st["tr_done"])
-        st["tr_total"].masked_fill_(comp, _INF)
-        st["tr_start"].masked_fill_(comp, _INF)
-
-        # arrived files resolve their pending jobs
-        resolve = inbound & (st["pend_cnt"] > 0)
-        torch.where(resolve,
-                    torch.maximum(st["fin_max"], now + st["pend_tail"]),
-                    st["fin_max"], out=st["fin_max"])
-        st["pend_cnt"].masked_fill_(inbound, 0)
-        st["pend_tail"].masked_fill_(inbound, 0.0)
-
-        # -- link-slot FIFO admission (tickets are contiguous per link)
-        occ = torch.stack([(st["tr_slot"] & m).sum(-1) for m in is_t],
-                          dim=-1).to(torch.float32).view(L, 3 * S)
-        free = torch.clamp_min(c["slots"] - occ, 0.0)
-        n_q = (st["lq_next"] - st["lq_serve"]).to(torch.float32)
-        admit = torch.minimum(free, n_q).to(torch.int32)
-        st["lq_serve"].add_(admit)
-        adm_row = st["lq_queued"] & (
-            st["lq_ticket"] < by_type(st["lq_serve"].view(L, S, 3), is_t))
-        st["tr_slot"].logical_or_(adm_row)
-        torch.where(adm_row, now + by_type(c["latency"].view(L, S, 3), is_t),
-                    st["tr_start"], out=st["tr_start"])
-        st["lq_queued"].logical_and_(~adm_row)
-        # working [L, S, 3] counters: occ3 a fresh tensor, lqn3 a view of
-        # lq_next; both are updated in place below
-        occ3 = (occ + admit.to(torch.float32)).view(L, S, 3)
-        lqn3 = st["lq_next"].view(L, S, 3)
-        lqs3 = st["lq_serve"].view(L, S, 3)
-        slots3 = c["slots"].view(L, S, 3)
-        lat3 = c["latency"].view(L, S, 3)
-
-        # -- hot-tier deletions + hot->cold migrations
-        cand = no_cons & (st["disk_state"] == PRESENT) & c["limited"]
-        gs = st["gcs_state"]
-        pop_ok = c["pop_ok"]
-        migratable = gcs_en & (gs == ABSENT) & pop_ok
-        delete = cand & (~gcs_en | (gs == PRESENT)
-                         | ((gs == ABSENT) & ~pop_ok))
-        want_mig = cand & migratable
+        # completions, pending-job resolution, the link-slot prologue and
+        # the hot-tier deletions; then the link-slot FIFO admission
+        want_mig, occ3 = glue.complete(st, c, now, new_done, comp, work)
+        glue.link_admit(st, c, now, work)
+        # -- hot->cold migrations: the shared-GCS admission, then each
+        # admitted file onto its site's disk->gcs link
         mig, gcs_used, gbsec_add, rank = lt.gcs_admit(
             want_mig, sizes, st["gcs_used"], c["gcs_limit"], dt, month,
             n_months, GCS_ADMIT_PASSES)
         st["gcs_used"].copy_(gcs_used)
-        gs.masked_fill_(mig, IN_FLIGHT)
-        st["disk_used"].sub_((sizes * delete).sum(-1))
-        st["disk_state"].masked_fill_(delete, ABSENT)
-        # submit migrations on each site's disk->gcs link (FIFO: direct
-        # slots only while the link queue is empty, overflow queues). rank
-        # is each admission's place among its site's admissions; the direct
-        # ones are the first n_direct of them (or none while the queue is
-        # busy), so a queued file's place in the queue is rank - n_direct.
-        q_empty = (lqn3[..., 2] == lqs3[..., 2])[..., None]
-        free_m = torch.clamp_min(slots3[..., 2] - occ3[..., 2], 0.0)[..., None]
-        direct = mig & q_empty & (rank < free_m)
-        queued = mig & ~direct
-        n_direct = direct.sum(-1, keepdim=True, dtype=torch.int32)
-        qrank = rank - n_direct
-        st["tr_slot"].logical_or_(direct)
-        torch.where(mig, c["mig_link"], st["tr_link"], out=st["tr_link"])
-        torch.where(mig, sizes, st["tr_total"], out=st["tr_total"])
-        st["tr_done"].masked_fill_(mig, 0.0)
-        torch.where(direct, now, st["tr_start"], out=st["tr_start"])
-        torch.where(queued, lqn3[..., 2:3] + qrank, st["lq_ticket"],
-                    out=st["lq_ticket"])
-        st["lq_queued"].logical_or_(queued)
-        lqn3[..., 2] += queued.sum(-1, dtype=torch.int32)
-        occ3[..., 2] += n_direct[..., 0].to(torch.float32)
+        glue.migrate(st, c, now, mig, rank, occ3, work)
+        # working [L, S, 3] counters: occ3 (from the glue) and lqn3, a view
+        # of lq_next; both are updated in place below
+        lqn3 = st["lq_next"].view(L, S, 3)
+        lqs3 = st["lq_serve"].view(L, S, 3)
+        slots3 = c["slots"].view(L, S, 3)
+        lat3 = c["latency"].view(L, S, 3)
 
         # -- candidate windows: this tick's job arrivals (K per site) and
         # the waiting-queue heads (W per site) as prefix recurrences over
@@ -465,6 +403,10 @@ def _build_lane_sim(grid: PackedGrid, device: torch.device):
     return c, state
 
 
+#: The kernel libraries the ``cuda`` tick launches, whose launch counts a
+#: replay adds to.
+_TICK_LIBS = (ops, glue_ops)
+
 #: Eager ticks before the ``cuda`` tick is captured: real ticks of the run
 #: that load the kernel library and warm the allocator's blocks and the
 #: ``topk``/``cumsum`` workspaces, on a side stream as CUDA graph capture
@@ -484,7 +426,8 @@ class TickLoop:
     replay does what a fresh launch of the tick would. A failed capture or
     replay raises; nothing falls back to eager ticks. The kernel wrappers
     count launches in Python, so each replay adds the captured tick's
-    launches to ``ops.launch_counts()``. ``capture_s`` is the capture's
+    launches to ``launch_counts()`` of both libraries it launches
+    (``lane_tick`` and ``tick_glue``). ``capture_s`` is the capture's
     host time, ``pool_bytes`` the device memory the graph's private pool
     reserved (both 0 until the capture).
     """
@@ -502,7 +445,7 @@ class TickLoop:
                                     device=device)
         self.t = 0
         self._graph = None
-        self._per_tick: Dict[str, int] = {}
+        self._per_tick: List[Dict[str, int]] = []
         self.capture_s = 0.0
         self.pool_bytes = 0
 
@@ -525,7 +468,8 @@ class TickLoop:
                 self._capture()
             for _ in range(replays):
                 self._graph.replay()
-            ops.add_launch_counts(self._per_tick, replays)
+            for lib, per_tick in zip(_TICK_LIBS, self._per_tick):
+                lib.add_launch_counts(per_tick, replays)
         self.t += n
 
     def _warm_up(self, n: int) -> None:
@@ -541,16 +485,18 @@ class TickLoop:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before = ops.launch_counts()
+        before = [lib.launch_counts() for lib in _TICK_LIBS]
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.tick_fn(self.st, self.c)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self._per_tick = {k: v - before[k]
-                          for k, v in ops.launch_counts().items()}
-        ops.add_launch_counts(self._per_tick, -1)  # capture launched nothing
+        self._per_tick = [{k: v - was[k]
+                           for k, v in lib.launch_counts().items()}
+                          for lib, was in zip(_TICK_LIBS, before)]
+        for lib, per_tick in zip(_TICK_LIBS, self._per_tick):
+            lib.add_launch_counts(per_tick, -1)  # capture launched nothing
         self._graph = graph
 
     def result(self) -> Dict[str, np.ndarray]:

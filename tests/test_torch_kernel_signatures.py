@@ -19,9 +19,10 @@ from repro_torch.kernels.carousel_update import ops as cu_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.lane_tick import ops as lt_ops
 from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.tick_glue import ops as tg_ops
 
 LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._SIMT, fa_ops._WGMMA,
-        fa_ops._TF32X3, ms_ops._LIB)
+        fa_ops._TF32X3, ms_ops._LIB, tg_ops._LIB)
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
             "float": ctypes.c_float, "const char*": ctypes.c_char_p}
@@ -69,6 +70,25 @@ def test_parser_reads_pointers_sizes_and_the_stream():
     assert ret is ctypes.c_int
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert params == [P] * 6 + [I, LL, LL, I, I] + [P] * 6
+
+
+def test_every_library_is_checked():
+    """Each source of ``_build.SOURCES`` has its signatures checked here,
+    and each of its C entry points is declared to ctypes."""
+    assert {lib.name for lib in LIBS} == set(_build.SOURCES)
+    for lib in LIBS:
+        assert set(c_entry_points(_build.SOURCES[lib.name])) == \
+            set(lib.signatures), lib.name
+
+
+def test_glue_entry_points_are_declared():
+    """The glue kernels' C entry points: the state pointers after the
+    sizes, the stream last."""
+    entry = c_entry_points(_build.SOURCES["tick_glue"])
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert entry["tg_begin"] == ([P] * 4 + [I, I, LL] + [P] * 3, I)
+    assert entry["tg_complete"] == ([P] * 10 + [I, I, LL] + [P] * 16, I)
+    assert entry["tg_work_ints"] == ([I, I], LL)
 
 
 def test_engine_entry_points_are_declared():

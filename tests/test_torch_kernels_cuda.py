@@ -46,6 +46,9 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lane_tick import ops, ref
 from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan import ref as ms_ref
+from repro_torch.kernels.tick_glue import ops as tg_ops
+from repro_torch.kernels.tick_glue import ref as tg_ref
+from torch_glue_inputs import assert_states_equal, bitwise_equal, glue_state
 from torch_lane_inputs import (
     N_MONTHS,
     WINDOW_CASES,
@@ -409,14 +412,178 @@ def test_cuda_captured_sweep_bitwise_to_eager(cuda_device):
 @pytest.mark.cuda
 def test_cuda_replays_count_their_launches(cuda_device):
     """Launch counts after a captured sweep: every kernel once a tick,
-    the replayed ticks included, as on the eager path."""
+    the lane-tick and the glue kernels, the replayed ticks included, as
+    on the eager path."""
     from repro_torch.sim.batched import simulate_packed
 
     grid = _small_grid()
     for eager in (False, True):
         ops.reset_launch_counts()
+        tg_ops.reset_launch_counts()
         simulate_packed(grid, tick_impl="cuda", _eager=eager)
         assert ops.launch_counts() == {k: grid.n_ticks for k in ops.KERNELS}
+        assert tg_ops.launch_counts() == {k: grid.n_ticks
+                                          for k in tg_ops.KERNELS}
+
+
+GLUE_STEPS = ("begin", "complete", "link_admit", "migrate")
+
+GLUE_CASES = {
+    # name: (L, S, F, glue_state keywords)
+    "random": (3, 2, 20_000, {}),
+    "dense shares": (2, 2, 50_000,
+                     dict(slot=0.9, comp=0.5, queued=0.5, mig=0.5)),
+    "the tick's sparse shares": (2, 2, 50_000, dict(slot=3e-3, comp=0.3,
+                                                    queued=3e-3, mig=2e-4)),
+    "nothing to do": (2, 2, 8192,
+                      dict(slot=0.0, comp=0.0, queued=0.0, mig=0.0)),
+    "everything": (2, 2, 8192, dict(slot=1.0, comp=1.0, queued=1.0,
+                                    mig=1.0)),
+    "cold tier off, no disk limits": (2, 2, 10_000,
+                                      dict(gcs="off", limits="inf")),
+    "F not a multiple of 4, byte loads": (3, 2, 4097, {}),
+    "F below a tile": (2, 3, 33, {}),
+    "many rows": (16, 4, 3000, {}),
+}
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts one element past its
+    buffer's start (so not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _glue_inputs(case, device, seed=0):
+    if case == "unaligned planes":
+        st, c, x = glue_state(seed, L=2, S=2, F=8192, device=device)
+        big = lambda d: {k: _unaligned(v) if v.dim() == 3 else v  # noqa: E731
+                         for k, v in d.items()}
+        return big(st), big(c), big(x)
+    L, S, F, kw = GLUE_CASES[case]
+    return glue_state(seed, L=L, S=S, F=F, device=device, **kw)
+
+
+def _glue_step(glue, step, st, c, x):
+    """Glue step ``step`` of ``glue`` (``tg_ops`` or ``tg_ref``) on ``st``,
+    with the work of its own ``begin``; returns its outputs, ``occ3``
+    updated in place for ``migrate``."""
+    t_active, work = glue.begin(st, x["now"], x["dt"])
+    if step == "begin":
+        return (t_active,)
+    if step == "complete":
+        return glue.complete(st, c, x["now"], x["new_done"], x["comp"],
+                             work)
+    if step == "link_admit":
+        return glue.link_admit(st, c, x["now"], work) or ()
+    occ3 = x["occ3"].clone()
+    glue.migrate(st, c, x["now"], x["mig"], x["rank"], occ3, work)
+    return (occ3,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GLUE_CASES) + ["unaligned planes"])
+@pytest.mark.parametrize("step", GLUE_STEPS)
+def test_cuda_glue_kernel_bitwise(cuda_device, step, case):
+    """Each glue kernel against its plain version on the same state: every
+    state tensor and output bitwise, one launch of the step's kernel."""
+    st, c, x = _glue_inputs(case, cuda_device)
+    st_k = {k: v.clone() for k, v in st.items()}
+    if case == "unaligned planes":
+        st_k = {k: _unaligned(v) if v.dim() == 3 else v.clone()
+                for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    name = f"glue_{step}"
+    before = tg_ops.launch_counts()[name]
+    got = _glue_step(tg_ops, step, st_k, c, x)
+    assert tg_ops.launch_counts()[name] == before + 1
+    want = _glue_step(tg_ref, step, st_p, c, x)
+    torch.cuda.synchronize()
+    assert_states_equal(st_k, st_p, f"{step}: ")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert bitwise_equal(g, w)
+
+
+def _glue_grid():
+    """Two disk->GCS slots a site on Config III grids with a limited disk
+    and a finite cold tier, so migrations queue (2,161 ticks)."""
+    import dataclasses
+
+    from repro_torch.core.scenarios import ScenarioSpec, pack_specs
+
+    grid = pack_specs([
+        ScenarioSpec(base="III", cache_tb=10.0, seed=1, days=0.25,
+                     n_files=1000),
+        ScenarioSpec(base="III", cache_tb=15.0, gcs_limit_tb=5.0, seed=3,
+                     days=0.25, n_files=1000),
+        ScenarioSpec(base="I", seed=2, days=0.25, n_files=1000),
+    ], tick=10.0)
+    slots = np.array(grid.link_slots, copy=True)
+    slots[:, 2::3] = 2.0
+    return dataclasses.replace(grid, link_slots=slots)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_glue_tick_bitwise_to_plain_glue(cuda_device,
+                                                    monkeypatch):
+    """The ``cuda`` tick with the glue kernels against the same tick with
+    the plain glue in their place (the same lane-tick kernels), eager and
+    replayed: every state tensor bitwise after 600 ticks and after the
+    200 that follow, in which files complete, migrate and queue."""
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop
+
+    grid = _glue_grid()
+    impl = resolve_tick_impl("cuda", cuda_device)
+    fused = TickLoop(grid, impl, cuda_device, graph=False)
+    captured = TickLoop(grid, impl, cuda_device, graph=True)
+    plain = TickLoop(grid, impl, cuda_device, graph=False)
+    queued = []
+    for n in (600, 200):
+        fused.advance(n)
+        captured.advance(n)
+        with monkeypatch.context() as mp:
+            for step in GLUE_STEPS:
+                mp.setattr(tg_ops, step, getattr(tg_ref, step))
+            plain.advance(n)
+        torch.cuda.synchronize()
+        assert_states_equal(fused.st, plain.st, f"tick {plain.t}: ")
+        assert_states_equal(captured.st, plain.st, f"tick {plain.t}: ")
+        queued.append(int(plain.st["lq_next"].view(-1, 3)[:, 2].sum()))
+    assert int(plain.st["diskgcs_b"].sum()) > 0
+    assert queued[1] > queued[0] > 0  # migrations queued in the window
+
+
+@pytest.mark.cuda
+def test_cuda_glue_wrappers_check_their_inputs(cuda_device):
+    """Wrong dtype, shape or device, or the plain version's work on the
+    card: the wrapper raises before it launches anything."""
+    st, c, x = glue_state(1, L=2, S=2, F=100, device=cuda_device)
+    now, dt = x["now"], x["dt"]
+    _, work = tg_ops.begin(st, now, dt)
+    tg_ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="int32"):
+        tg_ops.complete(dict(st, pend_cnt=st["pend_cnt"].float()), c, now,
+                        x["new_done"], x["comp"], work)
+    with pytest.raises(ValueError, match="shape"):
+        tg_ops.migrate(st, c, now, x["mig"][..., :50], x["rank"], x["occ3"],
+                       work)
+    with pytest.raises(ValueError, match="on cuda"):
+        tg_ops.link_admit(st, dict(c, latency=c["latency"].cpu()), now, work)
+    with pytest.raises(ValueError, match="on cuda"):
+        tg_ops.begin(st, now.cpu(), dt)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg_ops.complete(st, c, now, x["new_done"].transpose(0, 1)
+                        .contiguous().transpose(0, 1), x["comp"], work)
+    with pytest.raises(ValueError, match="shape"):
+        tg_ops.migrate(st, c, now, x["mig"], x["rank"], x["occ3"], work[1:])
+    with pytest.raises(TypeError, match="work"):
+        tg_ops.complete(st, c, now, x["new_done"], x["comp"],
+                        tg_ref.begin(st, now, dt)[1])
+    assert tg_ops.launch_counts() == {k: 0 for k in tg_ops.KERNELS}
 
 
 def carousel_inputs(N, M, device, seed=0):
