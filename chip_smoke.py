@@ -26,17 +26,22 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    (for ``gcs_admit`` also the bound of the function without its rank
    plane);
    then the tick-glue kernels (``kernels.tick_glue``: ``glue_begin``,
-   ``glue_complete``, ``glue_link_admit``, ``glue_migrate``): the sweep
+   ``glue_complete``, ``glue_link_admit``, ``glue_migrate``,
+   ``glue_wait_select``): the sweep
    grid's ``cuda`` tick with them, captured and replayed, against the
    same tick with the plain glue (eager, the same lane-tick kernels),
    every state tensor bitwise after 600 ticks and after 200 more (at
    most half the horizon, and the rest of it); on the fused loop's state
    at tick 600 and on a dense synthetic state (about
-   0.3 of the planes completing, queued and migrating) each glue kernel
-   against its plain version, every state tensor and output bitwise
-   after each step, with its milliseconds (CUDA events around each call,
+   0.3 of the planes completing, queued, migrating and waiting) each glue
+   kernel against its plain version, every state tensor and output
+   (``disk_used``, the wait-queue heads) bitwise after each step, with
+   its milliseconds (CUDA events around each call,
    its state restored before it), device microseconds (profiler), the
    plain version's milliseconds and the bound of the bytes it needs;
+   ``torch.topk`` of the wait tickets timed beside ``glue_wait_select``
+   (its library call), and a copy of ``glue_complete``'s bytes (what the
+   card streams at that size) beside ``glue_complete``;
 4. small reference: a 1,000-file grid on the CPU's plain path against the
    card's kernel path, at the Table-2 5% bar;
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
@@ -45,7 +50,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``run_sweep_torch`` once with ``tick_impl="cuda"`` (the tick replayed
    from a CUDA graph) and once with ``"torch"`` on the card; per-spec
    agreement at the Table-2 5% bar, equal jobs submitted, and each kernel
-   (the three lane-tick and the four glue kernels) launched once a tick
+   (the three lane-tick and the five glue kernels) launched once a tick
    on the ``cuda`` run, replays counted; then
    ``simulate_packed`` on the packed grid with the ``cuda`` tick eager
    and replayed, every output bitwise equal;
@@ -53,7 +58,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    (``sim.batched.TickLoop``): 40 ticks on the host clock, 40 more under
    ``torch.profiler`` — wall and device time per tick, the device's idle
    share, the top kernels, the lane-tick and each glue kernel's device
-   time per tick, ``torch.cumsum``'s calls and device time per tick; for
+   time per tick, ``torch.cumsum``'s calls and device time per tick,
+   ``torch.topk``'s kernels (none: the run fails on any) and PyTorch's
+   reductions per tick; for
    the replayed tick the capture's host time and the graph
    pool's bytes; for the eager one the GCS candidates and admissions per
    lane per tick of the profiled ticks (counted after them) and of 40
@@ -153,6 +160,7 @@ KERNEL_SOURCE = {
     "glue_complete": _TICK_GLUE,
     "glue_link_admit": _TICK_GLUE,
     "glue_migrate": _TICK_GLUE,
+    "glue_wait_select": _TICK_GLUE,
     "carousel_tick": _CAROUSEL,
     "engine_count": _CAROUSEL,
     "engine_tick": _CAROUSEL,
@@ -180,6 +188,7 @@ REPLACES = {
                      "332-333 (XLA-fused)",
     "glue_link_admit": "src/repro/sim/batched.py:280-286 (XLA-fused)",
     "glue_migrate": "src/repro/sim/batched.py:331,336-353 (XLA-fused)",
+    "glue_wait_select": "src/repro/sim/batched.py:473-475 (jax.lax.top_k)",
     "carousel_tick":
         "src/repro/kernels/carousel_update/carousel_update.py:42",
     "engine_count":
@@ -582,7 +591,7 @@ def kernel_phase(torch, grid, L_sweep: int) -> dict:
     return results
 
 
-GLUE_STEPS = ("begin", "complete", "link_admit", "migrate")
+GLUE_STEPS = ("begin", "complete", "link_admit", "migrate", "wait_select")
 
 #: Ticks of the sweep grid before the glue kernels are checked on its
 #: state (the first ticks complete and migrate little), and the ticks
@@ -658,7 +667,7 @@ def glue_bytes(torch, pre, post, x, work_ints: int) -> dict:
     element needs once (dense), the others by the 32-byte sectors that
     the step's masks touch, and the [L, 3S] vectors. ``pre`` and ``post``
     map each step to the state before and after it; ``x`` holds the
-    tick's values (``now``, ``comp``, ``mig``)."""
+    tick's values (``now``, ``comp``, ``mig``, ``W``)."""
     from repro_torch.kernels.tick_glue.ref import ABSENT, PRESENT
 
     def sec(mask, itemsize):
@@ -692,6 +701,11 @@ def glue_bytes(torch, pre, post, x, work_ints: int) -> dict:
     direct = m & ~queued
     out["migrate"] = (n + 6 * sec(m, 4) + sec(direct, 1) + sec(direct, 4)
                       + sec(queued, 4) + sec(queued, 1) + 5 * 4 * 3 * R)
+    # the wait flags dense, the ticket where a file waits; lowest and idx
+    # out
+    s = pre["wait_select"]
+    out["wait_select"] = (n + sec(s["wq_wait"], 4)
+                          + R * x["W"] * (4 + 8))
     return out
 
 
@@ -710,6 +724,8 @@ def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
     from repro_torch.kernels.lane_tick import ops as lt_ops
     from repro_torch.kernels.lane_tick.ref import GCS_ADMIT_PASSES
     from repro_torch.kernels.tick_glue import ops, ref
+    from repro_torch.kernels.tick_glue.ref import BIG_TICKET
+    from repro_torch.sim.batched import WAIT_ADMITS_PER_TICK as W
 
     def clone(s):
         return {k: v.clone() for k, v in s.items()}
@@ -717,7 +733,7 @@ def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
     sizes = c["sizes"]
     k, p = clone(st0), clone(st0)
     pre, post, calls = {}, {}, {}
-    x = {"now": now, "limited": c["limited"]}
+    x = {"now": now, "limited": c["limited"], "W": W}
     # begin
     pre["begin"] = clone(k)
     a_k, w_k = ops.begin(k, now, dt)
@@ -772,6 +788,17 @@ def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
           f"glue_migrate ({label}): occ3")
     same_state(torch, k, p, f"glue_migrate ({label})")
     post["migrate"] = clone(k)
+    # wait_select (reads the wait queue, which no glue step writes)
+    pre["wait_select"] = clone(k)
+    sel_k = ops.wait_select(k, W, w_k)
+    sel_p = ref.wait_select(p, W, w_p)
+    calls["wait_select"] = (lambda s, w: ops.wait_select(s, W, w),
+                            lambda s, w: ref.wait_select(s, W, w))
+    for name, g, w in zip(("lowest", "idx"), sel_k, sel_p):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"glue_wait_select ({label}): {name} not bitwise")
+    same_state(torch, k, p, f"glue_wait_select ({label})")
+    post["wait_select"] = clone(k)
     need = glue_bytes(torch, pre, post, x, int(w_k.numel()))
     stats = dict(
         completions=int(comp.sum()), want_mig=int(want_k.sum()),
@@ -779,7 +806,9 @@ def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
                       & ~post["link_admit"]["lq_queued"]).sum()),
         migrations=int(mig.sum()),
         queued=int((post["migrate"]["lq_queued"]
-                    & ~pre["migrate"]["lq_queued"]).sum()))
+                    & ~pre["migrate"]["lq_queued"]).sum()),
+        waiting=int(k["wq_wait"].sum()),
+        heads=int((sel_k[0] < BIG_TICKET).sum()))
 
     # timing: each step from its own state, restored before each call;
     # the kernels' work buffer zeroed as begin leaves it
@@ -805,11 +834,30 @@ def glue_check(torch, label: str, st0, c, now, dt, month, n_months,
         out[step] = dict(max_abs_err=0.0, ms=ms, device_us=dev_us,
                          plain_ms=plain_ms, bound_ms=nb, bound_by=kind,
                          library_ms=None, bytes=need[step])
-    sums_us = device_us(torch, lambda: sizes.sum(-1), n=10)
-    out["complete"]["sums_device_us"] = 2 * sums_us
+    # the library call of the selection: torch.topk of the tickets, as
+    # the tick took it before tg_wait_select (never on the port's path)
+    s = pre["wait_select"]
+
+    def topk():
+        tickets = torch.where(s["wq_wait"], s["wq_ticket"], BIG_TICKET)
+        return torch.topk(tickets, W, dim=-1, largest=False,
+                          sorted=True)
+
+    out["wait_select"]["library_ms"] = time_ms(torch, topk, n=10)
+    out["wait_select"]["library_device_us"] = device_us(torch, topk, n=10)
+    # what the card streams at tg_complete's bytes: a copy of half of
+    # them (read once, written once), the dense floor beside its bound
+    half = torch.empty(need["complete"] // 8, dtype=torch.float32,
+                       device=sizes.device)
+    dst = torch.empty_like(half)
+    out["complete"]["copy_device_us"] = device_us(
+        torch, lambda: dst.copy_(half), n=10)
+    del half, dst
     log(f"glue kernels ({label}): every state tensor and output bitwise "
-        f"after each step; {stats}; the two masked-size sums "
-        f"{2 * sums_us:.1f} us of device time in glue_complete's ms")
+        f"after each step; {stats}; a copy of glue_complete's bytes "
+        f"{out['complete']['copy_device_us']:.1f} us of device time; "
+        f"torch.topk of the wait tickets {out['wait_select']['library_ms']:.4f}"
+        f" ms, device {out['wait_select']['library_device_us']:.1f} us")
     for step, r in out.items():
         log(f"  glue_{step}: ms {r['ms']:.4f} device_us "
             f"{r['device_us']:.1f} plain_ms {r['plain_ms']:.4f} bound_ms "
@@ -822,8 +870,9 @@ def dense_glue_state(torch, st, c, now, share: float = 0.3):
     """A synthetic state at the sweep's shapes on the sweep's constants:
     about ``share`` of the planes completing, queued on a link and
     migrating, file states drawn from all three, half the files with
-    pending jobs, busy link queues. Returns ``(state, (new_done, comp),
-    (mig, rank))``."""
+    pending jobs, busy link queues, about ``share`` of the files waiting
+    in the wait queue. Returns ``(state, (new_done, comp), (mig,
+    rank))``."""
     from repro_torch.kernels.lane_tick.ref import admission_rank
 
     dev = st["tr_slot"].device
@@ -862,6 +911,8 @@ def dense_glue_state(torch, st, c, now, share: float = 0.3):
     s["fin_max"].copy_(now + 100.0 * (rand() - 0.5))
     s["pend_tail"].copy_(1e3 * rand())
     mig = rand() < share
+    s["wq_wait"].copy_(rand() < share)
+    s["wq_ticket"].copy_(ints(1000))  # tied tickets: the index breaks ties
     return s, (new_done, comp), (mig, admission_rank(mig))
 
 
@@ -1007,6 +1058,16 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
         + f"), {len(rows)} device kernels by name{capture}")
     for key, us, count in rows[:12]:
         log(f"  {us / n:9.1f} us/tick {count / n:6.1f}/tick  {key[:90]}")
+    # torch.topk's kernels (gatherTopK, computeBlockDigitCounts, radix
+    # select) and PyTorch's reductions (reduce_kernel), a tick
+    topk = [r for r in rows if any(k in r[0].lower() for k in (
+        "topk", "digitcount", "radix"))]
+    reduce = [r for r in rows if "reduce_kernel" in r[0]]
+    topk_us = sum(r[1] for r in topk) / n
+    log(f"  torch.topk kernels: {len(topk)} names, {topk_us:.1f} us/tick; "
+        f"PyTorch reductions (reduce_kernel): "
+        f"{sum(r[2] for r in reduce) / n:.1f} launches/tick, "
+        f"{sum(r[1] for r in reduce) / n:.1f} us/tick")
     # torch.cumsum by its operator: calls and the device time under them
     # (a replay runs no operator, so only the eager ticks show them)
     cumsum = [e for e in prof.key_averages() if e.key == "aten::cumsum"]
@@ -1026,7 +1087,7 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
             run_keeping(n)
             log(f"  GCS candidates per lane per tick, ticks {mid}-"
                 f"{mid + n}: {counts(n)}")
-    return dict(wall_us=wall_us / n, busy_us=busy_us / n,
+    return dict(wall_us=wall_us / n, busy_us=busy_us / n, topk_us=topk_us,
                 glue_us={k: v / n for k, v in glue_us.items()})
 
 
@@ -1603,6 +1664,10 @@ def main(argv=None) -> int:
         f"{len(outs[True])} outputs")
     prof = {graph: profile_phase(torch, grid, graph) for graph in (False,
                                                                    True)}
+    for graph, p in prof.items():
+        which = "captured" if graph else "eager"
+        check(p.get("topk_us", 0.0) == 0.0,
+              f"profile {which}: torch.topk kernels in the cuda tick")
     if prof[True]["busy_us"] is None:
         busy = prof[False]["busy_us"]
         log(f"profile captured: device busy taken from the eager profile, "
@@ -1635,7 +1700,7 @@ def main(argv=None) -> int:
                     **{k: r[k] for k in (
                         "variant", "device_us", "graph_ms",
                         "bound_ms_without_rank", "bound_ms_simt",
-                        "sums_device_us",
+                        "copy_device_us", "library_device_us",
                         "wall_us", "idle_share",
                         "ticks_per_s", "ticks_per_s_with_capture",
                         "ticks_per_s_second_call",

@@ -72,6 +72,7 @@ def main(argv=None) -> int:
                       "wall_us": prof["wall_us"], "busy_us": busy,
                       "idle_share": (None if busy is None
                                      else 1 - busy / prof["wall_us"]),
+                      "topk_us": prof.get("topk_us"),
                       "glue_us": prof.get("glue_us")}))
     return 0
 

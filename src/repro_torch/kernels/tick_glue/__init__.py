@@ -7,7 +7,9 @@ state updates between the three lane-tick kernels, one pass over the
   occupancy with the link-slot prologue, and the hot-tier deletions with
   the migration candidates;
 - :func:`link_admit` — the link-slot FIFO admission;
-- :func:`migrate` — the admitted migrations' submission.
+- :func:`migrate` — the admitted migrations' submission;
+- :func:`wait_select` — the wait-queue heads (the lowest tickets of the
+  waiting files), which the JAX package takes with ``jax.lax.top_k``.
 
 ``ops`` holds the wrappers (CPU state goes to the plain versions in
 ``ref``, CUDA state to ``csrc/tick_glue.cu``) and their launch counts.
@@ -23,4 +25,5 @@ from repro_torch.kernels.tick_glue.ops import (  # noqa: F401
     link_admit,
     migrate,
     reset_launch_counts,
+    wait_select,
 )

@@ -12,7 +12,8 @@ one to its launch count (:func:`launch_counts`).
 
 On the card ``work`` is the tick's int32 counter buffer: :func:`begin`
 allocates it and its kernel zeroes it; the later steps of the same tick
-count into it.
+count into it. The per-block partials of :func:`complete` and
+:func:`wait_select` go to scratch buffers the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.tick_glue import ref
 
-KERNELS = ("glue_begin", "glue_complete", "glue_link_admit", "glue_migrate")
+KERNELS = ("glue_begin", "glue_complete", "glue_link_admit", "glue_migrate",
+           "glue_wait_select")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,12 +35,18 @@ _LL = ctypes.c_longlong
 #: argtypes of the C entry points (see ``_build.KernelLib``).
 _SIGNATURES = {
     "tg_work_ints": ([_I, _I], _LL),
+    "tg_complete_scratch": ([_I, _I, _LL], _LL),
+    "tg_wait_scratch": ([_I, _I, _LL, _I], _LL),
     "tg_error_string": ([_I], ctypes.c_char_p),
     "tg_begin": ([_P] * 4 + [_I, _I, _LL] + [_P] * 3, _I),
     "tg_complete": ([_P] * 10 + [_I, _I, _LL] + [_P] * 16, _I),
     "tg_link_admit": ([_P] * 5 + [_I, _I, _LL] + [_P] * 4, _I),
     "tg_migrate": ([_P] * 7 + [_I, _I, _LL] + [_P] * 12, _I),
+    "tg_wait_select": ([_P] * 2 + [_I, _I, _LL, _I] + [_P] * 5, _I),
 }
+
+#: The largest ``W`` of :func:`wait_select` (the window kernel's limit).
+MAX_WAIT = 32
 
 _LIB = _build.KernelLib("tick_glue", _SIGNATURES, "tg_error_string",
                         KERNELS)
@@ -93,9 +101,9 @@ def begin(st, now, dt):
 
 
 def complete(st, c, now, new_done, comp, work):
-    """See ``ref.complete``. The kernel writes the dropped and the deleted
-    copies' masked size planes; their row sums (``torch.sum``, as the
-    plain version takes them) come off ``disk_used`` in the same order."""
+    """See ``ref.complete``. The kernel takes the dropped and the deleted
+    copies' bytes off ``disk_used`` itself, each row's sum in
+    ``ref.row_sum``'s order (per-block partials in a scratch buffer)."""
     if _on_cpu(st):
         return ref.complete(st, c, now, new_done, comp, work)
     dev = st["tr_slot"].device
@@ -123,8 +131,9 @@ def complete(st, c, now, new_done, comp, work):
         ("disk_used", st["disk_used"], f32, (L, S))))
     _check_work(work, dev, L, S)
     want = torch.empty(plane, dtype=b8, device=dev)
-    drop, dele = (torch.empty(plane, dtype=f32, device=dev) for _ in range(2))
     occ3 = torch.empty((L, S, 3), dtype=f32, device=dev)
+    partials = torch.empty((_LIB.get().tg_complete_scratch(L, S, F),),
+                           dtype=f32, device=dev)
     _LIB.launch("glue_complete", "tg_complete", dev,
                 *map(_ptr, (now, new_done, comp, c["sizes"], c["limited"],
                             c["gcs_enabled"], c["pop_ok"], c["slots"],
@@ -133,9 +142,8 @@ def complete(st, c, now, new_done, comp, work):
                 *map(_ptr, (st["disk_state"], st["gcs_state"], st["tr_slot"],
                             st["tr_done"], st["tr_total"], st["tr_start"],
                             st["pend_cnt"], st["pend_tail"], st["fin_max"],
-                            st["lq_serve"], want, drop, dele, occ3, work)))
-    st["disk_used"].sub_(drop.sum(-1))
-    st["disk_used"].sub_(dele.sum(-1))
+                            st["lq_serve"], st["disk_used"], want, occ3,
+                            partials, work)))
     return want, occ3
 
 
@@ -195,3 +203,25 @@ def migrate(st, c, now, mig, rank, occ3, work) -> None:
                             st["tr_total"], st["tr_done"], st["tr_start"],
                             st["lq_ticket"], st["lq_queued"], st["lq_next"],
                             occ3, work)))
+
+
+def wait_select(st, W: int, work):
+    """See ``ref.wait_select`` (1 <= ``W`` <= :data:`MAX_WAIT`, ``W`` <=
+    F); on the card ``work`` is the tick's counter buffer."""
+    if _on_cpu(st):
+        return ref.wait_select(st, W, work)
+    dev = st["tr_slot"].device
+    L, S, F = plane = _dims(st)
+    if not 1 <= W <= min(MAX_WAIT, F):
+        raise ValueError(f"wait_select: W={W} outside 1..{min(MAX_WAIT, F)}")
+    _check_all(dev, (("wq_wait", st["wq_wait"], torch.bool, plane),
+                     ("wq_ticket", st["wq_ticket"], torch.int32, plane)))
+    _check_work(work, dev, L, S)
+    keys = torch.empty((_LIB.get().tg_wait_scratch(L, S, F, W),),
+                       dtype=torch.int64, device=dev)
+    lowest = torch.empty((L, S, W), dtype=torch.int32, device=dev)
+    idx = torch.empty((L, S, W), dtype=torch.int64, device=dev)
+    _LIB.launch("glue_wait_select", "tg_wait_select", dev,
+                _ptr(st["wq_wait"]), _ptr(st["wq_ticket"]), L, S, F, W,
+                *map(_ptr, (keys, lowest, idx, work)))
+    return lowest, idx

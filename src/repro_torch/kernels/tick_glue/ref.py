@@ -6,7 +6,8 @@ tick runs; ``tests/test_torch_batched.py`` holds that tick exact to
 ``repro``'s jnp program. Each function updates the tick state ``st`` in
 place (``masked_fill_``, ``logical_and_``, ``torch.where(..., out=)``), as a
 captured tick needs, and keeps the operation order of the JAX package's
-tick body (``repro.sim.batched._lane_step_fns``), in four steps:
+tick body (``repro.sim.batched._lane_step_fns``), in four steps and the
+wait-queue selection:
 
 - :func:`begin` — which transfers advance this tick (``batched.py:205-206``);
 - :func:`complete` — the consumer snapshot (``:195``), the completions'
@@ -16,13 +17,16 @@ tick body (``repro.sim.batched._lane_step_fns``), in four steps:
   ``:332-333``);
 - :func:`link_admit` — the link-slot FIFO admission (``:280-286``);
 - :func:`migrate` — the admitted migrations' submission (``:331``,
-  ``:336-353``).
+  ``:336-353``);
+- :func:`wait_select` — the wait-queue heads, the ``W`` lowest tickets of
+  each row's waiting files (``:473-475``).
 
 The deletions run in :func:`complete`, ahead of the link-slot admission and
 the GCS admission where the JAX program applies them: neither of those
 reads ``disk_state``, ``disk_used``, ``pend_*`` or ``fin_max``, and
 ``disk_used`` still loses the dropped copies' bytes before the deleted
-ones'.
+ones'. Each of those two row sums is taken in one fixed order,
+:func:`row_sum`, which the kernel computes too.
 
 ``work`` is what an implementation carries from one step of a tick to
 the next: here the link-type masks of the tick's transfers, in the
@@ -41,6 +45,25 @@ from repro_torch.kernels.lane_tick.ref import by_type
 ABSENT, IN_FLIGHT, PRESENT = 0, 1, 2
 
 _INF = float("inf")
+
+#: The ticket of a file that does not wait: above every real ticket.
+BIG_TICKET = 2 ** 30
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in one fixed order: a pairwise tree in
+    ``x``'s dtype over each row in index order, the row zero-padded to a
+    power of two (``x[..., 0::2] + x[..., 1::2]`` until one element is
+    left). For values >= 0, ``a + 0.0 == a``, so every aligned
+    power-of-two tile of the row reduced alone, then the tiles' sums
+    reduced by the same tree, gives the same bits, whatever the tile."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
 
 
 def begin(st: Dict[str, torch.Tensor], now: torch.Tensor, dt: torch.Tensor):
@@ -75,7 +98,7 @@ def complete(st, c, now, new_done, comp, work):
     st["gcs_state"].masked_fill_(comp_mig, PRESENT)
     # migrated with no remaining consumer: drop the hot copy now
     drop_hot = comp_mig & no_cons & (st["disk_state"] == PRESENT)
-    st["disk_used"].sub_((sizes * drop_hot).sum(-1))
+    st["disk_used"].sub_(row_sum(torch.where(drop_hot, sizes, 0.0)))
     st["disk_state"].masked_fill_(drop_hot, ABSENT)
     st["tr_slot"].logical_and_(~comp)
     torch.where(comp, c["zero"], new_done, out=st["tr_done"])
@@ -108,7 +131,7 @@ def complete(st, c, now, new_done, comp, work):
     delete = cand & (~gcs_en | (gs == PRESENT)
                      | ((gs == ABSENT) & ~pop_ok))
     want_mig = cand & migratable
-    st["disk_used"].sub_((sizes * delete).sum(-1))
+    st["disk_used"].sub_(row_sum(torch.where(delete, sizes, 0.0)))
     st["disk_state"].masked_fill_(delete, ABSENT)
     return want_mig, occ3
 
@@ -157,3 +180,19 @@ def migrate(st, c, now, mig, rank, occ3, work) -> None:
     st["lq_queued"].logical_or_(queued)
     lqn3[..., 2] += queued.sum(-1, dtype=torch.int32)
     occ3[..., 2] += n_direct[..., 0].to(torch.float32)
+
+
+def wait_select(st, W: int, work=None):
+    """The wait-queue heads: the ``W`` lowest ``(ticket, index)`` pairs of
+    each ``[L, S]`` row, a file that does not wait (``wq_wait`` false)
+    counting as ticket :data:`BIG_TICKET`, so the fill past the waiting
+    files is the lowest indices of the others, as ``jax.lax.top_k(
+    -tickets, W)`` returns it. Returns ``(lowest [L, S, W] int32, idx
+    [L, S, W] int64)`` in ascending order; ``work`` is not read."""
+    F = st["wq_wait"].shape[-1]
+    index = torch.arange(F, dtype=torch.int64, device=st["wq_wait"].device)
+    tickets = torch.where(st["wq_wait"], st["wq_ticket"].to(torch.int64),
+                          BIG_TICKET)
+    key = torch.topk(tickets * F + index, W, dim=-1, largest=False,
+                     sorted=True).values
+    return (key // F).to(torch.int32), key % F

@@ -46,7 +46,7 @@ from repro_torch.core.scenarios import PackedGrid, ScenarioSpec, pack_specs
 from repro_torch.kernels.lane_tick import ops, ref
 from repro_torch.kernels.tick_glue import ops as glue_ops
 from repro_torch.kernels.tick_glue import ref as glue_ref
-from repro_torch.kernels.tick_glue.ref import ABSENT, PRESENT
+from repro_torch.kernels.tick_glue.ref import ABSENT, BIG_TICKET, PRESENT
 from repro_torch.kernels.registry import (
     TickImpl,
     resolve_device,
@@ -64,7 +64,6 @@ WAIT_ADMITS_PER_TICK = 4
 GCS_ADMIT_PASSES = ref.GCS_ADMIT_PASSES
 
 _INF = float("inf")
-_BIG_TICKET = 2 ** 30
 
 
 def _scatter_bool(plane: torch.Tensor, rows: torch.Tensor, src: torch.Tensor,
@@ -188,15 +187,14 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl):
         ds_k = torch.gather(st["disk_state"], -1, fids)
         absent = first & (ds_k == ABSENT)
         # group 2, waiting-queue admission: strict FIFO on the disk window
-        # (the head blocks until its file fits, §5.2). Ties in the lowest-W
-        # selection occur only among the _BIG_TICKET fill, whose scatters
-        # are no-ops, so their order does not matter.
-        tickets = torch.where(st["wq_wait"], st["wq_ticket"], _BIG_TICKET)
-        lowest, idx = torch.topk(tickets, W, dim=-1, largest=False,
-                                 sorted=True)
+        # (the head blocks until its file fits, §5.2). The W lowest
+        # (ticket, index) pairs, the fill past the waiting files in index
+        # order as jax.lax.top_k gives it (tick_glue); the previous tick's
+        # window scatters are the last writes of wq_wait and wq_ticket.
+        lowest, idx = glue.wait_select(st, W, work)
         started, admitted, stale, disk_used = lt.windows_admit(
             absent, torch.gather(sizes, -1, fids), fids,
-            lowest < _BIG_TICKET,
+            lowest < BIG_TICKET,
             torch.gather(st["disk_state"], -1, idx) != ABSENT,
             torch.gather(sizes, -1, idx), idx, st["disk_used"],
             c["disk_limit"])
@@ -409,7 +407,7 @@ _TICK_LIBS = (ops, glue_ops)
 
 #: Eager ticks before the ``cuda`` tick is captured: real ticks of the run
 #: that load the kernel library and warm the allocator's blocks and the
-#: ``topk``/``cumsum`` workspaces, on a side stream as CUDA graph capture
+#: ``cumsum`` workspaces, on a side stream as CUDA graph capture
 #: asks.
 GRAPH_WARMUP_TICKS = 3
 

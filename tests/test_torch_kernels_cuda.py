@@ -426,7 +426,7 @@ def test_cuda_replays_count_their_launches(cuda_device):
                                           for k in tg_ops.KERNELS}
 
 
-GLUE_STEPS = ("begin", "complete", "link_admit", "migrate")
+GLUE_STEPS = ("begin", "complete", "link_admit", "migrate", "wait_select")
 
 GLUE_CASES = {
     # name: (L, S, F, glue_state keywords)
@@ -444,6 +444,8 @@ GLUE_CASES = {
     "F not a multiple of 4, byte loads": (3, 2, 4097, {}),
     "F below a tile": (2, 3, 33, {}),
     "many rows": (16, 4, 3000, {}),
+    "every file waiting": (2, 2, 20_000, dict(wait=1.0)),
+    "a few waiting files over many tiles": (2, 2, 200_000, dict(wait=1e-5)),
 }
 
 
@@ -466,13 +468,15 @@ def _glue_inputs(case, device, seed=0):
     return glue_state(seed, L=L, S=S, F=F, device=device, **kw)
 
 
-def _glue_step(glue, step, st, c, x):
+def _glue_step(glue, step, st, c, x, W=4):
     """Glue step ``step`` of ``glue`` (``tg_ops`` or ``tg_ref``) on ``st``,
     with the work of its own ``begin``; returns its outputs, ``occ3``
     updated in place for ``migrate``."""
     t_active, work = glue.begin(st, x["now"], x["dt"])
     if step == "begin":
         return (t_active,)
+    if step == "wait_select":
+        return glue.wait_select(st, W, work)
     if step == "complete":
         return glue.complete(st, c, x["now"], x["new_done"], x["comp"],
                              work)
@@ -505,6 +509,51 @@ def test_cuda_glue_kernel_bitwise(cuda_device, step, case):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert bitwise_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "F not a multiple of 4, byte loads",
+                                  "F below a tile", "many rows",
+                                  "every file waiting",
+                                  "a few waiting files over many tiles",
+                                  "unaligned planes"])
+@pytest.mark.parametrize("W", [1, 4, 5, 32])
+def test_cuda_wait_select_bitwise(cuda_device, W, case):
+    """``tg_wait_select`` against the plain selection (``torch.topk`` of
+    the keys): ``lowest`` and ``idx`` bitwise, one launch, at W of the
+    specialised list (W <= 4) and of the general one."""
+    st, c, x = _glue_inputs(case, cuda_device, seed=W)
+    W = min(W, st["wq_wait"].shape[-1])
+    before = tg_ops.launch_counts()["glue_wait_select"]
+    got = _glue_step(tg_ops, "wait_select", st, c, x, W)
+    assert tg_ops.launch_counts()["glue_wait_select"] == before + 1
+    want = _glue_step(tg_ref, "wait_select", st, c, x, W)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bitwise_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_wait_select_on_the_sweep_planes(cuda_device):
+    """The sweep's shapes (8 lanes x 2 sites x 1,000,000 files) with a few
+    waiting files a row, none in one row and tickets tied: bitwise, twice
+    (the ticket of the launch before is reset by the next tick's begin)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    plane = (8, 2, 1_000_000)
+    st = {"tr_slot": torch.zeros(plane, dtype=torch.bool, device=cuda_device),
+          "tr_start": torch.zeros(plane, device=cuda_device),
+          "wq_wait": torch.rand(plane, generator=g, device=cuda_device) < 2e-5,
+          "wq_ticket": torch.randint(0, 50, plane, generator=g,
+                                     device=cuda_device, dtype=torch.int32)}
+    st["wq_wait"][0, 0] = False
+    for _ in range(2):
+        _, work = tg_ops.begin(st, torch.tensor(0.0, device=cuda_device),
+                               torch.tensor(10.0, device=cuda_device))
+        got = tg_ops.wait_select(st, 4, work)
+        want = tg_ref.wait_select(st, 4)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert bitwise_equal(a, b)
 
 
 def _glue_grid():
@@ -583,6 +632,12 @@ def test_cuda_glue_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(TypeError, match="work"):
         tg_ops.complete(st, c, now, x["new_done"], x["comp"],
                         tg_ref.begin(st, now, dt)[1])
+    for W in (0, 33, 101):
+        with pytest.raises(ValueError, match="W="):
+            tg_ops.wait_select(st, W, work)
+    with pytest.raises(ValueError, match="int32"):
+        tg_ops.wait_select(dict(st, wq_ticket=st["wq_ticket"].long()), 4,
+                           work)
     assert tg_ops.launch_counts() == {k: 0 for k in tg_ops.KERNELS}
 
 

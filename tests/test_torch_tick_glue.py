@@ -11,7 +11,10 @@ with the models in place of the plain glue bitwise to the plain tick on
 every state tensor over 200 ticks of two grids. The plain glue's own
 step order (deletions ahead of the link-slot and GCS admissions) and the
 migration queue's closed form are held bitwise to the order the tick had
-before the glue was split into steps.
+before the glue was split into steps. The fixed order of ``disk_used``'s
+row sums (``ref.row_sum``) is held bitwise to a numpy model of its tree,
+and the kernel's partition of it (tile trees, then the tree of the tile
+sums) to the whole padded tree.
 
 The kernels are held to the plain versions on a card by
 ``test_torch_kernels_cuda.py``.
@@ -51,14 +54,31 @@ def model_begin(st, now, dt):
     L, S, _ = st["tr_slot"].shape
     thr = (now - dt) + 0.5
     active = st["tr_slot"] & (st["tr_start"] <= thr)
-    return active, torch.zeros(5 * L * S + 2, dtype=torch.int32)
+    return active, torch.zeros(5 * L * S + 3, dtype=torch.int32)
+
+
+#: ``tg_complete``'s tile (256 threads x 4 elements x 4 steps) and
+#: ``tg_wait_select``'s (256 x 16 x 4).
+COMPLETE_TILE = 4096
+WAIT_TILE = 16384
+
+
+def tiled_row_sum(x, tile=COMPLETE_TILE):
+    """``tg_complete``'s partition of ``ref.row_sum``: each tile of the row
+    (zero-padded to whole tiles) reduced alone, then the tree of the tile
+    sums (as the last block's warps take it: padded to at least 32)."""
+    F = x.shape[-1]
+    nt = max(1, -(-F // tile))
+    x = torch.nn.functional.pad(x, (0, nt * tile - F))
+    part = ref.row_sum(x.reshape(*x.shape[:-1], nt, tile))
+    return ref.row_sum(torch.nn.functional.pad(part, (0, max(0, 32 - nt))))
 
 
 def model_complete(st, c, now, new_done, comp, work):
     """``tg_complete``: each element from its entry values, then the held
     slots counted by link type into ``work``, then the last block's
-    link-slot prologue on those counts; the wrapper's row sums of the two
-    masked size planes."""
+    link-slot prologue on those counts and the rows' trees of the tile
+    sums of the dropped and the deleted sizes."""
     sizes = c["sizes"]
     L, S, F = sizes.shape
     R = L * S
@@ -101,8 +121,8 @@ def model_complete(st, c, now, new_done, comp, work):
     admit = torch.minimum(free, n_q).to(torch.int32)
     st["lq_serve"].add_(admit)
     occ3 = (occ + admit.to(torch.float32)).view(L, S, 3)
-    st["disk_used"].sub_(drop_sz.sum(-1))
-    st["disk_used"].sub_(del_sz.sum(-1))
+    st["disk_used"].sub_(tiled_row_sum(drop_sz))
+    st["disk_used"].sub_(tiled_row_sum(del_sz))
     return want, occ3
 
 
@@ -156,8 +176,28 @@ def model_migrate(st, c, now, mig, rank, occ3, work):
     occ3[..., 2] += work[3 * R:4 * R].view(L, S).to(torch.float32)
 
 
+def model_wait_select(st, W, work):
+    """``tg_wait_select``: each file's key ``ticket * F + index`` (ticket
+    2^30 where it does not wait), the lowest C keys of each tile (C = 4 for
+    W <= 4, else 32; a short tile's list padded with the empty key), then
+    the W lowest of each row's tile lists, by sorting (keys are unique in
+    a row); floor division back to the ticket and the index."""
+    L, S, F = st["wq_wait"].shape
+    C = 4 if W <= 4 else 32
+    empty = torch.iinfo(torch.int64).max
+    key = (torch.where(st["wq_wait"], st["wq_ticket"].to(torch.int64),
+                       ref.BIG_TICKET) * F + torch.arange(F))
+    nt = max(1, -(-F // WAIT_TILE))
+    pad = torch.full((L, S, nt * WAIT_TILE - F), empty, dtype=torch.int64)
+    tiles = torch.cat([key, pad], dim=-1).view(L, S, nt, WAIT_TILE)
+    lists = torch.sort(tiles, dim=-1).values[..., :C]
+    best = torch.sort(lists.reshape(L, S, nt * C), dim=-1).values[..., :W]
+    return (best // F).to(torch.int32), best % F
+
+
 MODELS = {"begin": model_begin, "complete": model_complete,
-          "link_admit": model_link_admit, "migrate": model_migrate}
+          "link_admit": model_link_admit, "migrate": model_migrate,
+          "wait_select": model_wait_select}
 
 
 def _step(fns, name, st, c, x, work):
@@ -171,6 +211,8 @@ def _step(fns, name, st, c, x, work):
         return fn(st, c, now, x["new_done"], x["comp"], work)
     if name == "link_admit":
         return fn(st, c, now, work)
+    if name == "wait_select":
+        return fn(st, x.get("W", 4), work)
     occ3 = x["occ3"].clone()  # updated in place
     fn(st, c, now, x["mig"], x["rank"], occ3, work)
     return (occ3,)
@@ -186,16 +228,19 @@ _SHARES = hs.sampled_from([0.0, 0.02, 0.3, 0.7, 1.0])
                                                             257, 301]),
        slot=_SHARES, comp=_SHARES, queued=_SHARES, mig=_SHARES,
        gcs=hs.sampled_from(["on", "off", "mixed"]),
-       limits=hs.sampled_from(["finite", "inf", "mixed"]))
+       limits=hs.sampled_from(["finite", "inf", "mixed"]),
+       wait=_SHARES, W=hs.sampled_from([1, 4, 5, 32]))
 def test_kernel_model_bitwise_to_plain(step, seed, F, slot, comp, queued,
-                                       mig, gcs, limits):
+                                       mig, gcs, limits, wait, W):
     """Each kernel's one-pass model against the plain step on the same
     state: every state tensor and every output bitwise."""
     st, c, x = glue_state(seed, L=3, S=2, F=F, slot=slot, comp=comp,
-                          queued=queued, mig=mig, gcs=gcs, limits=limits)
+                          queued=queued, mig=mig, gcs=gcs, limits=limits,
+                          wait=wait)
+    x["W"] = min(W, F)
     st_ref, st_mod = clone_state(st), clone_state(st)
     ref_work = ref.begin(clone_state(st), x["now"], x["dt"])[1]
-    mod_work = torch.zeros(5 * 6 + 2, dtype=torch.int32)
+    mod_work = torch.zeros(5 * 6 + 3, dtype=torch.int32)
     want = _step(ref, step, st_ref, c, x, ref_work)
     got = _step(MODELS, step, st_mod, c, x, mod_work)
     assert_states_equal(st_mod, st_ref)
@@ -232,7 +277,8 @@ def test_states_cover_what_the_kernels_branch_on():
 def plain_order_glue(st, c, now, dt, month, n_months):
     """The tick's glue in the order the tick ran it before it was split
     into steps: deletions applied after the GCS admission, ``n_direct``
-    counted before the queued tickets."""
+    counted before the queued tickets (``disk_used``'s row sums in the
+    glue's fixed order, ``ref.row_sum``)."""
     sizes = c["sizes"]
     L, S, F = sizes.shape
     gcs_en = c["gcs_enabled"]
@@ -255,7 +301,7 @@ def plain_order_glue(st, c, now, dt, month, n_months):
     st["cls_a_mo"].add_(cls_a_add)
     st["cls_b_mo"].add_(cls_b_add)
     drop_hot = comp_mig & no_cons & (st["disk_state"] == PRESENT)
-    st["disk_used"].sub_((sizes * drop_hot).sum(-1))
+    st["disk_used"].sub_(ref.row_sum(sizes * drop_hot))
     st["disk_state"].masked_fill_(drop_hot, ABSENT)
     st["tr_slot"].logical_and_(~comp)
     torch.where(comp, c["zero"], new_done, out=st["tr_done"])
@@ -296,7 +342,7 @@ def plain_order_glue(st, c, now, dt, month, n_months):
         n_months, GCS_ADMIT_PASSES)
     st["gcs_used"].copy_(gcs_used)
     gs.masked_fill_(mig, IN_FLIGHT)
-    st["disk_used"].sub_((sizes * delete).sum(-1))
+    st["disk_used"].sub_(ref.row_sum(sizes * delete))
     st["disk_state"].masked_fill_(delete, ABSENT)
     q_empty = (lqn3[..., 2] == lqs3[..., 2])[..., None]
     free_m = torch.clamp_min(slots3[..., 2] - occ3[..., 2], 0.0)[..., None]
@@ -345,6 +391,7 @@ class _Models:
     complete = staticmethod(model_complete)
     link_admit = staticmethod(model_link_admit)
     migrate = staticmethod(model_migrate)
+    wait_select = staticmethod(model_wait_select)
 
 
 @pytest.mark.parametrize("glue", [ref, _Models], ids=["plain", "models"])
@@ -402,9 +449,10 @@ TINY = dict(days=0.25, n_files=1000)
 
 def _grid(name):
     """``tests/test_torch_batched.py``'s tiny grid (cfg I/II/III, limited
-    and unlimited disk, a finite cold tier, a scaled job rate) or its
-    busy-migration grid (two disk->GCS slots a site, so migrations queue),
-    packed by the port."""
+    and unlimited disk, a finite cold tier, a scaled job rate), its
+    busy-migration grid (two disk->GCS slots a site, so migrations queue)
+    or a waiting grid (1 and 2 TB hot disks, so jobs wait in the wait
+    queue), packed by the port."""
     specs = [
         ScenarioSpec(base="III", cache_tb=10.0, seed=1, **TINY),
         ScenarioSpec(base="I", seed=2, **TINY),
@@ -416,6 +464,11 @@ def _grid(name):
     ]
     if name == "tiny":
         return pack_specs(specs, tick=10.0)
+    if name == "waiting":
+        return pack_specs([
+            ScenarioSpec(base="III", cache_tb=1.0, seed=1, **TINY),
+            ScenarioSpec(base="III", cache_tb=2.0, gcs_limit_tb=5.0, seed=3,
+                         **TINY)], tick=10.0)
     grid = pack_specs([specs[0], specs[3]], tick=10.0)
     slots = np.array(grid.link_slots, copy=True)
     slots[:, 2::3] = 2.0  # link 3*site + 2: disk -> GCS
@@ -427,24 +480,33 @@ def _grid(name):
 WARM_TICKS = 600
 
 
-@pytest.mark.parametrize("name", ["tiny", "busy"])
+@pytest.mark.parametrize("name", ["tiny", "busy", "waiting"])
 def test_tick_with_kernel_models_bitwise_over_200_ticks(name, monkeypatch):
     """The plain tick with the kernel models in place of the plain glue
     against the plain tick, from the same state at tick 600, over 200
-    ticks: every state tensor bitwise, with completions, admissions and
-    migrations (queued ones on the busy grid) in the window."""
+    ticks: every state tensor bitwise, with completions, admissions,
+    migrations (queued ones on the busy grid) and disk_used's sums in the
+    window, and files waiting in the wait queue."""
     cpu = torch.device("cpu")
     grid = _grid(name)
     plain = TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=False)
     plain.advance(WARM_TICKS)
     models = copy.deepcopy(plain)
-    seen = {"comp": 0, "admitted": 0, "mig": 0, "queued": 0}
+    seen = {"comp": 0, "admitted": 0, "mig": 0, "queued": 0, "waiting": 0,
+            "dropped": 0}
     complete, link_admit, migrate = (model_complete, model_link_admit,
                                      model_migrate)
 
     def counting_complete(st, c, now, new_done, comp, work):
         seen["comp"] += int(comp.sum())
-        return complete(st, c, now, new_done, comp, work)
+        was = st["disk_used"].clone()
+        out = complete(st, c, now, new_done, comp, work)
+        seen["dropped"] += int((st["disk_used"] != was).sum())
+        return out
+
+    def counting_wait_select(st, W, work):
+        seen["waiting"] += int(st["wq_wait"].sum())
+        return model_wait_select(st, W, work)
 
     def counting_link_admit(st, c, now, work):
         before = int(st["lq_queued"].sum())
@@ -461,10 +523,13 @@ def test_tick_with_kernel_models_bitwise_over_200_ticks(name, monkeypatch):
         mp.setattr(ref, "complete", counting_complete)
         mp.setattr(ref, "link_admit", counting_link_admit)
         mp.setattr(ref, "migrate", counting_migrate)
+        mp.setattr(ref, "wait_select", counting_wait_select)
         models.advance(200)
     plain.advance(200)
     assert_states_equal(models.st, plain.st)
-    assert seen["comp"] > 0 and seen["mig"] > 0
+    assert seen["comp"] > 0 and seen["mig"] > 0 and seen["dropped"] > 0
+    if name == "waiting":
+        assert seen["waiting"] > 0
     if name == "busy":
         assert seen["queued"] > 0 and seen["admitted"] > 0
 
@@ -476,12 +541,61 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     st, c, x = glue_state(11, L=2, S=2, F=65)
     st_ops, st_ref = clone_state(st), clone_state(st)
     ops.reset_launch_counts()
-    for step in ("begin", "complete", "link_admit", "migrate"):
+    for step in ("begin", "complete", "link_admit", "migrate",
+                 "wait_select"):
         w_ops = ops.begin(clone_state(st_ops), x["now"], x["dt"])[1]
         w_ref = ref.begin(clone_state(st_ref), x["now"], x["dt"])[1]
         got = _step(ops, step, st_ops, c, x, w_ops)
         want = _step(ref, step, st_ref, c, x, w_ref)
         assert_states_equal(st_ops, st_ref, f"{step}: ")
-        if step != "link_admit":
-            assert bitwise_equal(got[0], want[0])
+        n_out = {"link_admit": 0, "wait_select": 2}.get(step, 1)
+        for g, w in zip((got or ())[:n_out], (want or ())[:n_out]):
+            assert bitwise_equal(g, w)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+# ------------------------------------------ disk_used's row-sum order
+def numpy_tree(x):
+    """``ref.row_sum``'s order in numpy float32: the row zero-padded to a
+    power of two, then adjacent pairs summed level by level."""
+    x = np.asarray(x, np.float32)
+    width = 1
+    while width < x.shape[-1]:
+        width *= 2
+    x = np.concatenate([x, np.zeros(x.shape[:-1] + (width - x.shape[-1],),
+                                    np.float32)], axis=-1)
+    while x.shape[-1] > 1:
+        x = (x[..., 0::2] + x[..., 1::2]).astype(np.float32)
+    return x[..., 0]
+
+
+def _sizes(F, seed=0, share=0.3):
+    """Rows of sizes drawn as the sweep's (1e6 to 1e10 bytes), about
+    ``share`` of them kept and the rest zero (a masked size plane)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(1e6, 1e10, (3, F)).astype(np.float32)
+    return np.where(rng.random((3, F)) < share, x, np.float32(0.0))
+
+
+@pytest.mark.parametrize("F", [1, 3, 4095, 4097, 10_000])
+def test_row_sum_is_the_padded_pairwise_tree(F):
+    """``ref.row_sum`` against a numpy model of its tree: bitwise."""
+    x = _sizes(F)
+    got = ref.row_sum(torch.as_tensor(x))
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    assert np.array_equal(got.numpy().view(np.int32),
+                          numpy_tree(x).view(np.int32))
+
+
+@pytest.mark.parametrize("F,share", [(1, 1.0), (33, 0.3), (4096, 1.0),
+                                     (4097, 0.3), (300_000, 0.3),
+                                     (300_000, 2e-5), (70_000, 0.0)])
+def test_kernel_partition_is_the_whole_tree(F, share):
+    """``tg_complete``'s partition (4096-element tile trees, then the tree
+    of the tile sums padded to 32 or more) and other power-of-two tiles
+    against the whole padded tree: bitwise, since sizes are >= 0 and
+    ``a + 0.0 == a``."""
+    x = torch.as_tensor(_sizes(F, seed=F, share=share))
+    whole = ref.row_sum(x)
+    for tile in (COMPLETE_TILE, 1, 128, 1 << 20):
+        assert bitwise_equal(tiled_row_sum(x, tile), whole), tile

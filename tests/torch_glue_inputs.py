@@ -11,7 +11,9 @@ held slots, completions, queued transfers and migrations given: every
 busy link queues, tickets on both sides of their link's serve counter,
 consumer horizons before, at and after ``now``, link slots from 0 to
 unlimited (fractional ones too), the cold tier on or off per lane and
-disk limits finite or infinite per site.
+disk limits finite or infinite per site; and the wait queue (``wq_wait``,
+``wq_ticket``) with the share of waiting files given, tickets tied within
+a row too (drawn last, so the other draws do not depend on them).
 """
 
 import numpy as np
@@ -25,7 +27,8 @@ SLOT_CHOICES = np.array([0.0, 1.0, 2.0, 2.5, 5.0, np.inf], np.float32)
 
 
 def glue_state(seed, L=3, S=2, F=257, slot=0.5, comp=0.3, queued=0.3,
-               mig=0.3, gcs="mixed", limits="mixed", device="cpu"):
+               mig=0.3, gcs="mixed", limits="mixed", wait=0.05,
+               device="cpu"):
     """``(st, c, x)``: dicts of tensors on ``device``. ``gcs`` and
     ``limits`` are ``"on"``/``"off"``/``"mixed"`` (the cold tier per lane)
     and ``"finite"``/``"inf"``/``"mixed"`` (disk limits per site)."""
@@ -116,6 +119,9 @@ def glue_state(seed, L=3, S=2, F=257, slot=0.5, comp=0.3, queued=0.3,
         new_done=t(new_done), comp=t(comp_m), mig=t(mig_m), rank=t(rank),
         occ3=t(rng.integers(0, 6, (L, S, 3)).astype(f32)),
     )
+    st["wq_wait"] = t(rng.random(plane) < wait)
+    st["wq_ticket"] = t(rng.integers(0, max(2, int(wait * F)),
+                                     plane).astype(i32))
     return st, c, x
 
 
