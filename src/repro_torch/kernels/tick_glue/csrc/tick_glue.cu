@@ -19,9 +19,13 @@
 // handful of compares, so every kernel is bound by device-memory
 // bandwidth (3.35 TB/s on an H100 SXM). The design reads densely only
 // what every element needs (flags, the consumer counters, disk_state) in
-// 16-byte loads (4-byte ones for the bool planes), four elements a thread,
-// and touches the other planes only where a mask is set: completions,
-// held slots, queued transfers, candidates, migrations. Floats round as
+// 16-byte loads (4-byte ones for tg_begin's and tg_complete's bool
+// planes), and touches the other planes only where a mask is set:
+// completions, held slots, queued transfers, candidates, migrations.
+// tg_link_admit and tg_migrate read nothing densely but one flag plane:
+// they stream it (see "flag streams" below) on a grid sized to the card
+// and walk its set flags a warp at a time over consecutive elements, so
+// their gathers and stores coalesce. Floats round as
 // the plain version's separate operations do (__fadd_rn, __fsub_rn, the
 // integer conversions of PyTorch's casts), so every output is bitwise the
 // plain version's.
@@ -76,6 +80,16 @@ constexpr int kWsSteps = 4;
 constexpr int64_t kWsTile = static_cast<int64_t>(kThreads) * kWsVec * kWsSteps;
 constexpr int64_t kBigTicket = int64_t(1) << 30;  // ref.BIG_TICKET
 constexpr int64_t kNoKey = 0x7fffffffffffffffLL;
+
+// tg_link_admit and tg_migrate ("flag streams" below): flags a load (one
+// uint4), loads a thread a step, a block's step of flags (a "run",
+// ops.FLAG_RUN), the resident blocks an SM their grid is sized for
+// (ops.FLAG_BLOCKS_PER_SM), rounds of set flags a warp gathers at once.
+constexpr int kFlagVec = 16;
+constexpr int kFlagLoads = 4;
+constexpr int64_t kFlagRun = static_cast<int64_t>(kThreads) * kFlagVec * kFlagLoads;
+constexpr int kFlagBlocksPerSm = 4;
+constexpr int kBatch = 8;
 
 // File-location states; must match ../ref.py.
 constexpr int32_t kAbsent = 0, kInFlight = 1, kPresent = 2;
@@ -437,11 +451,135 @@ tg_complete_kernel(const float* __restrict__ now,
   }
 }
 
+// ---------------------------------------------------------- flag streams
+// tg_link_admit and tg_migrate read one flag plane densely (lq_queued, mig)
+// and touch the other planes only where a flag is set. On the sweep's state
+// almost no flag is set, so each is a stream of 16 MB; 4-byte loads, each
+// waited on before the next, on 4,096-flag blocks streamed it at 0.7-1.25
+// TB/s. Here a thread starts kFlagLoads 16-byte loads (streaming hint: the
+// plane is read once a tick) before it uses any: a run of 16,384 flags a
+// block step, on a grid of kFlagBlocksPerSm blocks an SM (the wrapper's
+// flag_blocks; block b of a row's nb takes runs b, b + nb, ...,
+// ops.flag_ranges), so at least half of a plane is asked for at once; a word
+// of 16 flags with none set costs one compare, a step with none in its warp
+// one vote. The row's constants are read only by a warp that finds a set
+// flag, after its flags are in flight. Where a warp's 512 flags of a load
+// hold set ones, the warp takes them 32 consecutive elements a round (lane j
+// on element 32q + j, its flag by a shuffle of the loading lanes' bit
+// masks), so every gather and store of the sparse work is one instruction
+// over 32 consecutive elements; it starts the gathers of kBatch rounds
+// before it applies any, so a dense row waits on memory once a batch, not
+// once a round. Each element is loaded, and written, by one warp, and no
+// step gathers from a plane it writes, so a lane's stores never meet a load
+// of another lane's. On the sweep's state at tick 600, in its replayed tick
+// (scripts/bench_tick.py, H100 SXM at 700 W): tg_link_admit 7.9-8.0 us,
+// tg_migrate 9.4 us, against 4.8 us for 16 MB at 3.35 TB/s. The batch size
+// (4 to 16 rounds), 8 loads a step and 2 to 8 blocks an SM moved neither
+// kernel beyond the run-to-run spread on either of scripts/bench_glue.py's
+// states.
+
+// Bit k: byte k of w is nonzero (bytes made 0/1, then gathered by one
+// multiply: byte 3 of the product is b0 + 2 b1 + 4 b2 + 8 b3).
+__device__ __forceinline__ uint32_t nz_bits(uint32_t w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t flag_bits(uint4 x) {
+  return nz_bits(x.x) | nz_bits(x.y) << 4 | nz_bits(x.z) << 8 | nz_bits(x.w) << 12;
+}
+
+// The 16 flags of a row from f: one streaming 16-byte load when vec (F %
+// 16 == 0 and the plane 16-byte aligned, so a word lies in the row or past
+// it), else byte by byte; zero past F.
+__device__ __forceinline__ uint4 load_flags(const uint8_t* row, int64_t f,
+                                            int64_t F, bool vec) {
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (f >= F) return x;
+  if (vec) return __ldcs(reinterpret_cast<const uint4*>(row + f));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  const int n = static_cast<int>(F - f < kFlagVec ? F - f : kFlagVec);
+  for (int b = 0; b < n; ++b) w[b / 4] |= uint32_t(row[f + b] != 0) << (8 * (b % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// For row blockIdx.y in this block's runs (runs blockIdx.x, + gridDim.x,
+// ...): the step's kFlagLoads words a thread, loaded first; then, in a
+// warp with a set flag, prepare() once (the row's constants), and for its
+// set flags v = gather(e) over kBatch rounds, then apply(e, v) for each
+// (e the flat index). Every thread of the block calls it.
+template <typename Prepare, typename Gather, typename Apply>
+__device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
+                                              bool vec, Prepare prepare,
+                                              Gather gather, Apply apply) {
+  using Value = decltype(gather(int64_t(0)));
+  constexpr int64_t kLoadSpan = static_cast<int64_t>(kThreads) * kFlagVec;
+  static_assert(kFlagLoads * 16 <= 64, "a step's rounds fill one 64-bit mask");
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * F;
+  const uint8_t* row = flags + row0;
+  const int64_t mine = static_cast<int64_t>(threadIdx.x) * kFlagVec;
+  const int64_t warp0 = static_cast<int64_t>(threadIdx.x / 32) * 32 * kFlagVec;
+  bool prepared = false;  // the same in every lane of a warp
+  for (int64_t run = static_cast<int64_t>(blockIdx.x) * kFlagRun; run < F;
+       run += static_cast<int64_t>(gridDim.x) * kFlagRun) {
+    uint4 x[kFlagLoads];
+#pragma unroll
+    for (int u = 0; u < kFlagLoads; ++u)
+      x[u] = load_flags(row, run + u * kLoadSpan + mine, F, vec);
+    uint32_t any = 0u;
+#pragma unroll
+    for (int u = 0; u < kFlagLoads; ++u) any |= x[u].x | x[u].y | x[u].z | x[u].w;
+    if (!__any_sync(full, any != 0u)) continue;
+    if (!prepared) {
+      prepare();
+      prepared = true;
+    }
+    // lane q < 16 holds round q of each load: the bits of lanes 2q, 2q + 1;
+    // todo bit 16u + q: round q of load u has a set flag
+    uint32_t pair[kFlagLoads];
+    uint64_t todo = 0u;
+#pragma unroll
+    for (int u = 0; u < kFlagLoads; ++u) {
+      const uint32_t m16 = flag_bits(x[u]);
+      const uint32_t lo = __shfl_sync(full, m16, (2 * lane) & 31);
+      const uint32_t hi = __shfl_sync(full, m16, (2 * lane + 1) & 31);
+      pair[u] = lo | hi << 16;
+      const uint64_t b = __ballot_sync(full, lane < 16 && pair[u] != 0u);
+      todo |= b << (16 * u);
+    }
+    const int64_t base = row0 + run + warp0 + lane;
+    while (todo != 0u) {  // the same in every lane
+      int bit[kBatch];
+      Value v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        bit[k] = -1;
+        v[k] = Value{};
+        if (todo == 0u) continue;
+        const int b = __ffsll(static_cast<long long>(todo)) - 1;
+        todo &= todo - 1;
+        uint32_t p = pair[0];
+#pragma unroll
+        for (int u = 1; u < kFlagLoads; ++u) p = (b >> 4) == u ? pair[u] : p;
+        if ((__shfl_sync(full, p, b & 15) >> lane) & 1u) {
+          bit[k] = b;
+          v[k] = gather(base + (b >> 4) * kLoadSpan + 32 * (b & 15));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (bit[k] >= 0) apply(base + (bit[k] >> 4) * kLoadSpan + 32 * (bit[k] & 15), v[k]);
+    }
+  }
+}
+
 // ----------------------------------------------------------- link_admit
-// lq_queued dense; for each queued transfer its ticket against its link's
-// serve counter (advanced by tg_complete): admitted ones take the slot,
-// start at now + latency and leave the queue.
-__global__ void __launch_bounds__(kThreads)
+// lq_queued streamed; for each queued transfer its ticket against its
+// link's serve counter (advanced by tg_complete): admitted ones take the
+// slot, start at now + latency and leave the queue. The row's three serve
+// counters and starts are read once a warp that finds a queued transfer.
+__global__ void __launch_bounds__(kThreads, kFlagBlocksPerSm)
 tg_link_admit_kernel(const float* __restrict__ now,
                      const int32_t* __restrict__ tr_link,
                      const int32_t* __restrict__ lq_ticket,
@@ -451,34 +589,41 @@ tg_link_admit_kernel(const float* __restrict__ now,
                      float* __restrict__ tr_start,
                      uint8_t* __restrict__ lq_queued) {
   const int64_t r3 = 3 * static_cast<int64_t>(blockIdx.y);
-  const float t_now = *now;
-  for_each_group(F, [&](int64_t i, int n) {
-    uint8_t q[4];
-    ld4(lq_queued, i, n, vec, q);
+  int32_t serve[3];
+  float start[3];
+  for_each_flag(
+      lq_queued, F, vec,
+      [&] {
+        const float t_now = *now;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k >= n || !q[k]) continue;
-      const int64_t e = i + k;
-      const int64_t j = r3 + link_type(tr_link[e]);
-      if (lq_ticket[e] < lq_serve[j]) {
-        tr_slot[e] = 1;
-        tr_start[e] = __fadd_rn(t_now, latency[j]);
-        lq_queued[e] = 0;
-      }
-    }
-  });
+        for (int k = 0; k < 3; ++k) {
+          serve[k] = lq_serve[r3 + k];
+          start[k] = __fadd_rn(t_now, latency[r3 + k]);
+        }
+      },
+      [&](int64_t e) { return make_int2(tr_link[e], lq_ticket[e]); },
+      [&](int64_t e, int2 v) {  // v: the link id and the ticket
+        const int lt = link_type(v.x);
+        if (v.y < (lt == 0 ? serve[0] : lt == 1 ? serve[1] : serve[2])) {
+          tr_slot[e] = 1;
+          tr_start[e] = lt == 0 ? start[0] : lt == 1 ? start[1] : start[2];
+          lq_queued[e] = 0;
+        }
+      });
 }
 
 // -------------------------------------------------------------- migrate
-// mig dense; each admitted migration goes IN_FLIGHT on the cold tier and
-// onto its site's disk->gcs link: direct (slot held, start now) while the
-// link queue is empty and its rank is below the free slots, else queued
-// with ticket lq_next + rank - n_direct. For a queued file n_direct has a
-// closed form: 0 while the queue is busy; else every rank below free_m is
-// direct and the file's own rank is not, so n_direct = ceil(free_m). The
-// last block adds the row counts: lq_next[.., 2] += queued, occ3[.., 2] +=
-// direct.
-__global__ void __launch_bounds__(kThreads)
+// mig streamed; each admitted migration goes IN_FLIGHT on the cold tier
+// and onto its site's disk->gcs link: direct (slot held, start now) while
+// the link queue is empty and its rank is below the free slots, else
+// queued with ticket lq_next + rank - n_direct. For a queued file n_direct
+// has a closed form: 0 while the queue is busy; else every rank below
+// free_m is direct and the file's own rank is not, so n_direct =
+// ceil(free_m). The row's counters are read once a warp that finds a
+// migration; the block's direct and queued counts are summed in registers
+// over its runs and added once; the last block adds the row counts:
+// lq_next[.., 2] += queued, occ3[.., 2] += direct.
+__global__ void __launch_bounds__(kThreads, kFlagBlocksPerSm)
 tg_migrate_kernel(const float* __restrict__ now,
                   const uint8_t* __restrict__ mig,
                   const int32_t* __restrict__ rank,
@@ -498,37 +643,38 @@ tg_migrate_kernel(const float* __restrict__ now,
   const Work work = carve(work_base, R);
   const int r = blockIdx.y;
   const int64_t j2 = 3 * static_cast<int64_t>(r) + 2;
-  const float t_now = *now;
-  const int32_t lqn = lq_next[j2];
-  const bool q_empty = lqn == lq_serve[j2];
-  const float free_m = clamp0(__fsub_rn(slots[j2], occ3[j2]));
-  const int32_t link = mig_link[r % S];
+  float t_now = 0.f, free_m = 0.f;
+  int32_t lqn = 0, link = 0;
+  bool q_empty = false;
   int counts[2] = {0, 0};  // direct, queued
-  for_each_group(F, [&](int64_t i, int n) {
-    uint8_t m[4];
-    ld4(mig, i, n, vec, m);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k >= n || !m[k]) continue;
-      const int64_t e = i + k;
-      const int32_t rk = rank[e];
-      gcs_state[e] = kInFlight;
-      if (q_empty && __int2float_rn(rk) < free_m) {
-        tr_slot[e] = 1;
-        tr_start[e] = t_now;
-        counts[0] += 1;
-      } else {
-        // here rk >= free_m when the queue is empty, so ceil is in range
-        const int32_t n_direct = q_empty ? static_cast<int32_t>(ceilf(free_m)) : 0;
-        lq_ticket[e] = lqn + (rk - n_direct);
-        lq_queued[e] = 1;
-        counts[1] += 1;
-      }
-      tr_link[e] = link;
-      tr_total[e] = sizes[e];
-      tr_done[e] = 0.f;
-    }
-  });
+  for_each_flag(
+      mig, F, vec,
+      [&] {
+        t_now = *now;
+        lqn = lq_next[j2];
+        q_empty = lqn == lq_serve[j2];
+        free_m = clamp0(__fsub_rn(slots[j2], occ3[j2]));
+        link = mig_link[r % S];
+      },
+      [&](int64_t e) { return make_int2(rank[e], __float_as_int(sizes[e])); },
+      [&](int64_t e, int2 v) {  // v: the rank and the size's bits
+        const int32_t rk = v.x;
+        gcs_state[e] = kInFlight;
+        if (q_empty && __int2float_rn(rk) < free_m) {
+          tr_slot[e] = 1;
+          tr_start[e] = t_now;
+          counts[0] += 1;
+        } else {
+          // here rk >= free_m when the queue is empty, so ceil is in range
+          const int32_t n_direct = q_empty ? static_cast<int32_t>(ceilf(free_m)) : 0;
+          lq_ticket[e] = lqn + (rk - n_direct);
+          lq_queued[e] = 1;
+          counts[1] += 1;
+        }
+        tr_link[e] = link;
+        tr_total[e] = __int_as_float(v.y);
+        tr_done[e] = 0.f;
+      });
   int32_t* const dst[2] = {work.n_direct + r, work.n_queued + r};
   add_block_counts<2>(counts, dst);
   if (!last_block(work.ticket_migrate)) return;
@@ -696,6 +842,16 @@ inline bool plane_grid(int L, int S, long long F, dim3* grid,
   return true;
 }
 
+// tg_link_admit's and tg_migrate's grid: `blocks` blocks a row (from the
+// wrapper, ops.flag_blocks), 1 to the row's runs of kFlagRun flags (1 at
+// F = 0), by the R = L*S rows.
+inline bool flag_grid(int L, int S, long long F, int blocks, dim3* grid) {
+  if (!plane_grid(L, S, F, grid, kFlagRun)) return false;
+  if (blocks < 1 || static_cast<unsigned>(blocks) > grid->x) return false;
+  grid->x = static_cast<unsigned>(blocks);
+  return true;
+}
+
 // The keys a thread keeps in tg_wait_select: C = 4 for W <= 4 (the sweep's
 // W), else 32.
 inline int wait_list(int W) { return W <= 4 ? 4 : 32; }
@@ -781,16 +937,18 @@ int tg_complete(const void* now, const void* new_done, const void* comp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Planes [L, S, F]; lq_serve and latency [L, 3S]. Updates tr_slot,
-// tr_start and lq_queued in place. One launch.
+// Planes [L, S, F]; lq_serve and latency [L, 3S]; blocks a row from
+// ops.flag_blocks. Updates tr_slot, tr_start and lq_queued in place. One
+// launch.
 int tg_link_admit(const void* now, const void* tr_link, const void* lq_ticket,
                   const void* lq_serve, const void* latency, int L, int S,
-                  long long F, void* tr_slot, void* tr_start, void* lq_queued,
-                  void* stream) {
+                  long long F, int blocks, void* tr_slot, void* tr_start,
+                  void* lq_queued, void* stream) {
   dim3 grid;
-  if (!plane_grid(L, S, F, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!flag_grid(L, S, F, blocks, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (grid.y == 0) return static_cast<int>(cudaSuccess);
-  const int vec = F % 4 == 0 && aligned(lq_queued, 4);
+  const int vec = F % kFlagVec == 0 && aligned(lq_queued, 16);
   tg_link_admit_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(now), static_cast<const int32_t*>(tr_link),
@@ -802,18 +960,20 @@ int tg_link_admit(const void* now, const void* tr_link, const void* lq_ticket,
 }
 
 // Planes [L, S, F] (mig bool, rank int32 as gcs_admit returns them);
-// slots, lq_serve and lq_next [L, 3S]; mig_link [S]; occ3 [L, 3S] from
-// tg_complete; work from tg_begin of the same tick. One launch.
+// slots, lq_serve and lq_next [L, 3S]; mig_link [S]; blocks a row from
+// ops.flag_blocks; occ3 [L, 3S] from tg_complete; work from tg_begin of
+// the same tick. One launch.
 int tg_migrate(const void* now, const void* mig, const void* rank,
                const void* sizes, const void* slots, const void* mig_link,
-               const void* lq_serve, int L, int S, long long F,
+               const void* lq_serve, int L, int S, long long F, int blocks,
                void* gcs_state, void* tr_slot, void* tr_link, void* tr_total,
                void* tr_done, void* tr_start, void* lq_ticket, void* lq_queued,
                void* lq_next, void* occ3, void* work, void* stream) {
   dim3 grid;
-  if (!plane_grid(L, S, F, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!flag_grid(L, S, F, blocks, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (grid.y == 0) return static_cast<int>(cudaSuccess);
-  const int vec = F % 4 == 0 && aligned(mig, 4);
+  const int vec = F % kFlagVec == 0 && aligned(mig, 16);
   tg_migrate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(now), static_cast<const uint8_t*>(mig),
       static_cast<const int32_t*>(rank), static_cast<const float*>(sizes),

@@ -13,12 +13,16 @@ one to its launch count (:func:`launch_counts`).
 On the card ``work`` is the tick's int32 counter buffer: :func:`begin`
 allocates it and its kernel zeroes it; the later steps of the same tick
 count into it. The per-block partials of :func:`complete` and
-:func:`wait_select` go to scratch buffers the wrapper allocates.
+:func:`wait_select` go to scratch buffers the wrapper allocates. The grid
+of :func:`link_admit` and :func:`migrate` is sized to the card's SMs
+(:func:`flag_blocks`, :func:`flag_ranges`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -40,13 +44,42 @@ _SIGNATURES = {
     "tg_error_string": ([_I], ctypes.c_char_p),
     "tg_begin": ([_P] * 4 + [_I, _I, _LL] + [_P] * 3, _I),
     "tg_complete": ([_P] * 10 + [_I, _I, _LL] + [_P] * 16, _I),
-    "tg_link_admit": ([_P] * 5 + [_I, _I, _LL] + [_P] * 4, _I),
-    "tg_migrate": ([_P] * 7 + [_I, _I, _LL] + [_P] * 12, _I),
+    "tg_link_admit": ([_P] * 5 + [_I, _I, _LL, _I] + [_P] * 4, _I),
+    "tg_migrate": ([_P] * 7 + [_I, _I, _LL, _I] + [_P] * 12, _I),
     "tg_wait_select": ([_P] * 2 + [_I, _I, _LL, _I] + [_P] * 5, _I),
 }
 
 #: The largest ``W`` of :func:`wait_select` (the window kernel's limit).
 MAX_WAIT = 32
+
+#: Flags a block of ``tg_link_admit`` and ``tg_migrate`` takes a step (256
+#: threads x 4 loads x 16 flags, ``kFlagRun``): a row's runs.
+FLAG_RUN = 16384
+
+#: Resident blocks an SM that their grid is sized for
+#: (``kFlagBlocksPerSm``, the kernels' launch bounds).
+FLAG_BLOCKS_PER_SM = 4
+
+
+def flag_blocks(F: int, R: int, sm_count: int) -> int:
+    """Blocks a row of ``tg_link_admit`` and ``tg_migrate`` on a card of
+    ``sm_count`` SMs: ``FLAG_BLOCKS_PER_SM`` an SM over the ``R`` rows, at
+    least one, at most the row's runs of ``FLAG_RUN`` flags."""
+    runs = -(-F // FLAG_RUN)
+    return max(1, min(runs, sm_count * FLAG_BLOCKS_PER_SM // max(R, 1)))
+
+
+def flag_ranges(F: int, blocks: int, b: int) -> List[Tuple[int, int]]:
+    """The ``[lo, hi)`` element ranges of a row that block ``b`` of its
+    ``blocks`` takes: runs ``b``, ``b + blocks``, ... (the kernels'
+    ``for_each_flag``)."""
+    return [(lo, min(lo + FLAG_RUN, F))
+            for lo in range(b * FLAG_RUN, F, blocks * FLAG_RUN)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 _LIB = _build.KernelLib("tick_glue", _SIGNATURES, "tg_error_string",
                         KERNELS)
@@ -166,7 +199,7 @@ def link_admit(st, c, now, work) -> None:
     _LIB.launch("glue_link_admit", "tg_link_admit", dev,
                 *map(_ptr, (now, st["tr_link"], st["lq_ticket"],
                             st["lq_serve"], c["latency"])),
-                L, S, F,
+                L, S, F, flag_blocks(F, L * S, _sm_count(dev.index)),
                 *map(_ptr, (st["tr_slot"], st["tr_start"], st["lq_queued"])))
 
 
@@ -198,7 +231,7 @@ def migrate(st, c, now, mig, rank, occ3, work) -> None:
     _LIB.launch("glue_migrate", "tg_migrate", dev,
                 *map(_ptr, (now, mig, rank, c["sizes"], c["slots"],
                             c["mig_link"], st["lq_serve"])),
-                L, S, F,
+                L, S, F, flag_blocks(F, L * S, _sm_count(dev.index)),
                 *map(_ptr, (st["gcs_state"], st["tr_slot"], st["tr_link"],
                             st["tr_total"], st["tr_done"], st["tr_start"],
                             st["lq_ticket"], st["lq_queued"], st["lq_next"],

@@ -446,6 +446,12 @@ GLUE_CASES = {
     "many rows": (16, 4, 3000, {}),
     "every file waiting": (2, 2, 20_000, dict(wait=1.0)),
     "a few waiting files over many tiles": (2, 2, 200_000, dict(wait=1e-5)),
+    # rows that the flag kernels' runs (tg_ops.FLAG_RUN) split unevenly
+    "three runs and 17 flags, byte loads": (2, 2, 3 * tg_ops.FLAG_RUN + 17,
+                                            {}),
+    "64 rows, a few blocks each": (16, 4, 40_000, {}),
+    "the sweep's shape at the tick's sparse shares": (
+        8, 2, 1_000_000, dict(slot=3e-3, comp=0.3, queued=3e-3, mig=2e-4)),
 }
 
 
@@ -507,6 +513,33 @@ def test_cuda_glue_kernel_bitwise(cuda_device, step, case):
     torch.cuda.synchronize()
     assert_states_equal(st_k, st_p, f"{step}: ")
     assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert bitwise_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["three runs and 17 flags, byte loads",
+                                  "dense shares", "unaligned planes"])
+@pytest.mark.parametrize("sms", [1, 3, 1000])
+@pytest.mark.parametrize("step", ["link_admit", "migrate"])
+def test_cuda_flag_kernels_bitwise_on_any_grid(cuda_device, monkeypatch,
+                                               step, sms, case):
+    """``tg_link_admit`` and ``tg_migrate`` on grids sized for other SM
+    counts (one block a row taking every run, a few, one a run) against
+    the plain version: every state tensor and output bitwise, one
+    launch."""
+    monkeypatch.setattr(tg_ops, "_sm_count", lambda index: sms)
+    st, c, x = _glue_inputs(case, cuda_device, seed=sms)
+    copy = _unaligned if case == "unaligned planes" else torch.clone
+    st_k = {k: copy(v) if v.dim() == 3 else v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    name = f"glue_{step}"
+    before = tg_ops.launch_counts()[name]
+    got = _glue_step(tg_ops, step, st_k, c, x)
+    assert tg_ops.launch_counts()[name] == before + 1
+    want = _glue_step(tg_ref, step, st_p, c, x)
+    torch.cuda.synchronize()
+    assert_states_equal(st_k, st_p, f"{step}: ")
     for g, w in zip(got, want):
         assert bitwise_equal(g, w)
 

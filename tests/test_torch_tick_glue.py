@@ -22,6 +22,8 @@ The kernels are held to the plain versions on a card by
 
 import copy
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -126,18 +128,41 @@ def model_complete(st, c, now, new_done, comp, work):
     return want, occ3
 
 
+#: The SM count the models size ``tg_link_admit``'s and ``tg_migrate``'s
+#: grid for (an H100 SXM's).
+MODEL_SMS = 132
+
+
+def block_masks(L, S, F):
+    """One ``[F]`` mask per block of a row of ``tg_link_admit`` and
+    ``tg_migrate`` (``ops.flag_ranges`` on ``ops.flag_blocks``' grid):
+    the elements that block takes."""
+    blocks = ops.flag_blocks(F, L * S, MODEL_SMS)
+    masks = []
+    for b in range(blocks):
+        m = torch.zeros(F, dtype=torch.bool)
+        for lo, hi in ops.flag_ranges(F, blocks, b):
+            m[lo:hi] = True
+        masks.append(m)
+    return masks
+
+
 def model_link_admit(st, c, now, work):
-    """``tg_link_admit``: the queued flags, then per queued transfer its
+    """``tg_link_admit``: per block, the row's serve counters and starts
+    (``now + latency``) once, then per queued transfer in its ranges its
     ticket against its own link's serve counter."""
     L, S, F = st["tr_link"].shape
     q = st["lq_queued"].clone()
     j = torch.remainder(st["tr_link"], 3).to(torch.int64)
-    serve = torch.gather(st["lq_serve"].view(L, S, 3), -1, j)
-    lat = torch.gather(c["latency"].view(L, S, 3), -1, j)
-    adm = q & (st["lq_ticket"] < serve)
-    st["tr_slot"].copy_(st["tr_slot"] | adm)
-    st["tr_start"].copy_(torch.where(adm, now + lat, st["tr_start"]))
-    st["lq_queued"].copy_(q & ~adm)
+    start = now + c["latency"].view(L, S, 3)  # once a block
+    serve = st["lq_serve"].view(L, S, 3)
+    for mask in block_masks(L, S, F):
+        mine = q & mask
+        adm = mine & (st["lq_ticket"] < torch.gather(serve, -1, j))
+        st["tr_slot"].copy_(st["tr_slot"] | adm)
+        st["tr_start"].copy_(torch.where(adm, torch.gather(start, -1, j),
+                                         st["tr_start"]))
+        st["lq_queued"].copy_(st["lq_queued"] & ~adm)
 
 
 def closed_n_direct(q_empty, free_m):
@@ -151,7 +176,8 @@ def closed_n_direct(q_empty, free_m):
 def model_migrate(st, c, now, mig, rank, occ3, work):
     """``tg_migrate``: the row's queue head, free slots and closed-form
     ``n_direct`` from the launch's entry values; each migration alone;
-    integer row counts into ``work``; the last block's row updates."""
+    each block's integer counts over its ranges into ``work``; the last
+    block's row updates."""
     sizes = c["sizes"]
     L, S, F = sizes.shape
     R = L * S
@@ -170,8 +196,11 @@ def model_migrate(st, c, now, mig, rank, occ3, work):
     st["tr_link"].copy_(torch.where(mig, c["mig_link"], st["tr_link"]))
     st["tr_total"].copy_(torch.where(mig, sizes, st["tr_total"]))
     st["tr_done"].masked_fill_(mig, 0.0)
-    work[3 * R:4 * R] += direct.sum(-1).reshape(-1).to(torch.int32)
-    work[4 * R:5 * R] += queued.sum(-1).reshape(-1).to(torch.int32)
+    for mask in block_masks(L, S, F):  # a block's counts, added once
+        work[3 * R:4 * R] += (direct & mask).sum(-1).reshape(-1).to(
+            torch.int32)
+        work[4 * R:5 * R] += (queued & mask).sum(-1).reshape(-1).to(
+            torch.int32)
     st["lq_next"].view(L, S, 3)[..., 2] += work[4 * R:5 * R].view(L, S)
     occ3[..., 2] += work[3 * R:4 * R].view(L, S).to(torch.float32)
 
@@ -246,6 +275,25 @@ def test_kernel_model_bitwise_to_plain(step, seed, F, slot, comp, queued,
     assert_states_equal(st_mod, st_ref)
     if step == "begin":  # the work buffers differ by design
         want, got = want[:1], got[:1]
+    for w, g in zip(want or (), got or ()):
+        assert bitwise_equal(g, w)
+
+
+@pytest.mark.parametrize("step", ["link_admit", "migrate"])
+def test_flag_kernel_models_bitwise_over_several_runs(step):
+    """``tg_link_admit``'s and ``tg_migrate``'s models on rows of several
+    runs, the last one short (a few blocks a row, each with its own
+    counts), against the plain step: every state tensor and output
+    bitwise."""
+    F = 3 * ops.FLAG_RUN + 17
+    assert len(block_masks(1, 2, F)) == 4
+    st, c, x = glue_state(5, L=1, S=2, F=F, slot=0.3, queued=0.3, mig=0.3)
+    st_ref, st_mod = clone_state(st), clone_state(st)
+    ref_work = ref.begin(clone_state(st), x["now"], x["dt"])[1]
+    mod_work = torch.zeros(5 * 2 + 3, dtype=torch.int32)
+    want = _step(ref, step, st_ref, c, x, ref_work)
+    got = _step(MODELS, step, st_mod, c, x, mod_work)
+    assert_states_equal(st_mod, st_ref)
     for w, g in zip(want or (), got or ()):
         assert bitwise_equal(g, w)
 
@@ -532,6 +580,45 @@ def test_tick_with_kernel_models_bitwise_over_200_ticks(name, monkeypatch):
         assert seen["waiting"] > 0
     if name == "busy":
         assert seen["queued"] > 0 and seen["admitted"] > 0
+
+
+# ------------------------------------- the flag kernels' row partition
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("R", [1, 16, 64])
+@pytest.mark.parametrize("F", [1, 15, 16, 17, 4095, 1_000_000])
+def test_flag_partition_covers_each_element_once(F, R, sms):
+    """``ops.flag_blocks`` and ``ops.flag_ranges`` (the grid and the runs
+    of ``tg_link_admit`` and ``tg_migrate``): every element of a row in
+    exactly one block's ranges, every block with at least one run, and
+    the grid within its bounds (one to the row's runs, at most
+    ``FLAG_BLOCKS_PER_SM`` an SM over the rows unless one a row)."""
+    blocks = ops.flag_blocks(F, R, sms)
+    runs = -(-F // ops.FLAG_RUN)
+    assert 1 <= blocks <= runs
+    assert blocks == 1 or blocks * R <= sms * ops.FLAG_BLOCKS_PER_SM
+    seen = np.zeros(F, np.int64)
+    for b in range(blocks):
+        ranges = ops.flag_ranges(F, blocks, b)
+        assert ranges
+        for lo, hi in ranges:
+            assert lo % ops.FLAG_RUN == 0 and 0 <= lo < hi <= F
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+def test_flag_partition_mirrors_the_kernel_constants():
+    """``ops.FLAG_RUN`` is the kernels' ``kFlagRun`` (threads x loads a
+    thread x 16 flags a load), ``ops.FLAG_BLOCKS_PER_SM`` their
+    ``kFlagBlocksPerSm``."""
+    text = (Path(ops.__file__).parent / "csrc" / "tick_glue.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert const("kThreads") * const("kFlagLoads") * const("kFlagVec") \
+        == ops.FLAG_RUN
+    assert const("kFlagBlocksPerSm") == ops.FLAG_BLOCKS_PER_SM
+    assert ops.flag_blocks(0, 16, 132) == 1  # a last block at F = 0
 
 
 # ------------------------------------------------------ wrapper contract
