@@ -65,7 +65,27 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    pool's bytes; for the eager one the GCS candidates and admissions per
    lane per tick of the profiled ticks (counted after them) and of 40
    ticks half-way through the horizon;
-7. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
+7. decide phase, the §5.3 decision workflow through the port's front door
+   (``sim.decide.decide`` on ``sim.sweep.SweepDriver(backend="torch",
+   tick=10.0, tick_impl="cuda", device="cuda", cache=<dir>)``, the cache
+   in a fresh directory under ``build/``): the pricing grid's axes (2
+   seeds) at the sweep's horizon and catalogue, ``max_rounds=2``, cold
+   (each lane-tick and glue kernel launched, counts reset just before;
+   device memory back within half a graph pool of where it was, so each
+   sweep call's pool is released), then warm with a fresh driver on the
+   same cache (0 lanes simulated, the report equal outside its stats);
+   then a small grid (2 caches x 2 egress x 2 prices x 2 seeds, 20,000
+   files, 0.25 days, tick 60 s) on the kernels and on the plain
+   ``torch`` path with one cache directory (their keys differ): equal
+   decisions (the chosen
+   point, the frontier's labels, the trimmed cache TB, the break-even
+   bracket, the claim) and every point's jobs and cost, and the displaced
+   TB, within the Table-2 bar (both reports printed where not); prints
+   ``claim_holds``, ``refine.lane_fraction`` and
+   ``displaced_disk.displaced_tb``, per sweep call the specs, lanes, pack
+   s, ``TickLoop.capture_s``, graph pool bytes, sweep s and ticks/s (the
+   ``sweep.torch`` trace events), and the phase's wall s;
+8. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
    then ``simulate_ticks`` for 1,000 ticks on 6 links through the tick
@@ -76,7 +96,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    with its capture and without, its launches a tick (replays counted),
    and over 128 steady ticks its wall and device microseconds a tick
    (``torch.profiler``), idle share and bound;
-8. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
+9. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
    hd 128, T = S = 4096, bf16, causal), gemma3_27b's local layers (nh 32,
    nkv 16, published head_dim 128, T = S = 4096, bf16, causal, window
    1024), the same at hd 168 (the width ``repro``'s gemma3_27b config
@@ -101,19 +121,21 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    12*hd flops per unmasked pair at dense TF32's 495 TFLOP/s (the split
    design's own least time), printed beside the SIMT ceiling, 4*hd flops
    at 67 TFLOP/s (``bound_ms_simt``);
-9. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
-   d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
-   version at 1e-4 atol/rtol;
-10. the ``kernels`` JSON line: one entry per kernel and case (``case``
+10. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
+    d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
+    version at 1e-4 atol/rtol;
+11. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
-    before the path runs, read just after each case); the glue kernels,
+    before the path runs, read just after each case; the lane-tick and
+    glue entries also with ``launches_decide``, their launches in the
+    cold decide run); the glue kernels,
     which replace no Pallas kernel, name the lines of ``repro``'s tick
     that XLA fuses as what they replace; attention entries
     also name their route (``variant``: ``wgmma``, ``simt`` or
     ``tf32x3``, each at least once) and that kernel's source; then the
     ``ok`` line.
 
-Phases 3, 7, 8 and 9 print the kernel's and the plain version's
+Phases 3, 8, 9 and 10 print the kernel's and the plain version's
 milliseconds (CUDA events after warm-up) and the bound: the larger of the
 bytes the function needs over the memory rate and its operations over the
 card's peak for their type (float32 outside the tensor cores, bf16 on
@@ -347,16 +369,21 @@ def gcs_tie_check(torch, want, sizes, used, limit, got, plain, n_passes,
     return int(diff.sum()), (sz * diff).sum(1)
 
 
-def pricing_specs(days: float, n_files: int):
-    from repro_torch.core.scenarios import expand_grid, with_seeds
-
-    specs = with_seeds(expand_grid({
+def pricing_axes(days: float, n_files: int) -> dict:
+    """The 216-config pricing grid's axes, seeds left out (2 of them)."""
+    return {
         "base": "III",
         "cache_tb": [10.0, 20.0, 40.0, 80.0],
         "egress": ["internet", "direct", "interconnect"],
         "storage_price": [round(0.018 + 0.002 * i, 3) for i in range(9)],
         "days": days, "n_files": n_files,
-    }), 2)
+    }
+
+
+def pricing_specs(days: float, n_files: int):
+    from repro_torch.core.scenarios import expand_grid, with_seeds
+
+    specs = with_seeds(expand_grid(pricing_axes(days, n_files)), 2)
     check(len(specs) == 216, f"pricing grid has {len(specs)} specs")
     return specs
 
@@ -1091,6 +1118,189 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
                 glue_us={k: v / n for k, v in glue_us.items()})
 
 
+#: The decide phase's small grid, run on the kernels and on the plain path:
+#: 2 caches x 2 egress options x 2 storage prices (x 2 seeds), at a 60 s
+#: tick: the plain tick is host-bound here (61–152 ticks/s on an H100 80GB
+#: HBM3 at 700 W, by the host's speed), so the 10 s tick's 2,161 ticks a
+#: call cost 166–329 s a decide.
+SMALL_DECIDE_AXES = {
+    "base": "III", "cache_tb": [5.0, 20.0],
+    "egress": ["internet", "direct"], "storage_price": [0.02, 0.026],
+    "days": 0.25, "n_files": 20_000,
+}
+SMALL_DECIDE_TICK = 60.0
+
+
+def decisions(doc: dict) -> dict:
+    """What a decision report decides: the chosen point, the frontier's
+    labels, the displaced cache TB and the break-even bracket."""
+    b = doc["break_even"]
+    return {"chosen": doc["chosen"] and doc["chosen"]["label"],
+            "frontier": [p["label"] for p in doc["frontier"]],
+            "min_cache_tb": doc["displaced_disk"]["min_cache_tb"],
+            "break_even": b and b["bracket"],
+            "claim_holds": doc["claim_holds"]}
+
+
+def points_beyond_bar(a: dict, b: dict) -> list:
+    """What of two reports differs beyond the Table-2 bar: the points'
+    (baseline, chosen, frontier) jobs and cloud cost, and the displaced
+    on-prem TB."""
+    def close(x, y, floor=1.0):
+        if x is None or y is None:
+            return x is y
+        return abs(x - y) <= TOL * max(abs(x), abs(y), floor)
+
+    rows = [(a["baseline"], b["baseline"])]
+    if a["chosen"] and b["chosen"]:
+        rows.append((a["chosen"], b["chosen"]))
+    rows += list(zip(a["frontier"], b["frontier"]))
+    off = [p["label"] for p, q in rows
+           if not (close(p["jobs_mean"], q["jobs_mean"])
+                   and close(p["cost_usd_mean"], q["cost_usd_mean"]))]
+    if not close(a["displaced_disk"]["displaced_tb"],
+                 b["displaced_disk"]["displaced_tb"]):
+        off.append("displaced_disk.displaced_tb")
+    return off
+
+
+def run_decide(torch, axes: dict, tick_impl: str, cache, tick: float = 10.0,
+               **kw):
+    """``decide(axes, SweepDriver(backend="torch", ...))`` on the card
+    with the tracer on; returns the report, the driver, the per-call
+    ``sweep.torch`` records and the wall seconds."""
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.sim.decide import decide
+    from repro_torch.sim.sweep import SweepDriver
+
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv = SweepDriver(backend="torch", tick=tick, tick_impl=tick_impl,
+                          device="cuda", cache=cache)
+        report = decide(axes, drv, **kw)
+        wall = time.perf_counter() - t0
+        calls = [e["args"] for e in tracer.events
+                 if e["name"] == "sweep.torch"]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    return report, drv, calls, wall
+
+
+def log_calls(what: str, calls) -> None:
+    for i, c in enumerate(calls):
+        log(f"  {what} call {i}: {c['specs']} specs, {c['lanes']} lanes, "
+            f"pack {c['pack_s']:.2f} s, capture {c['capture_s']:.3f} s "
+            f"(pool {c['pool_bytes']} B), sweep {c['sweep_s']:.2f} s, "
+            f"{c['ticks'] / c['sweep_s']:.1f} ticks/s")
+
+
+def decide_phase(torch, days: float, n_files: int) -> dict:
+    """The §5.3 decision workflow on the card (see the module notes);
+    returns each lane-tick and glue kernel's launches in the cold run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.lane_tick import ops
+    from repro_torch.kernels.tick_glue import ops as glue_ops
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="decide_cache_", dir=ROOT / "build")
+    try:
+        axes = pricing_axes(days, n_files)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc0 = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        glue_ops.reset_launch_counts()
+        cold, drv, calls, wall = run_decide(torch, axes, "cuda", cache_dir,
+                                            max_rounds=2)
+        launched = {**ops.launch_counts(), **glue_ops.launch_counts()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc1 = torch.cuda.memory_allocated()
+        doc = cold.to_json_dict()
+        log(f"decide cold (216-config grid, {n_files} files/site, "
+            f"{days:g} days, max_rounds=2, cuda): {wall:.2f} s, "
+            f"{drv.sweep_calls} sweep calls, {drv.configs_run} configs, "
+            f"{drv.lanes_simulated} lanes simulated, launches {launched}")
+        log_calls("decide cold", calls)
+        check(len(calls) == drv.sweep_calls and calls,
+              f"decide cold: {len(calls)} sweep records for "
+              f"{drv.sweep_calls} calls")
+        check(all(n > 0 for n in launched.values())
+              and set(launched) == set(ops.KERNELS + glue_ops.KERNELS),
+              f"decide cold: a kernel was not launched ({launched})")
+        log(f"decide cold: claim_holds {doc['claim_holds']}, "
+            f"refine.lane_fraction {doc['refine']['lane_fraction']:.4f}, "
+            f"displaced_disk.displaced_tb "
+            f"{doc['displaced_disk']['displaced_tb']}, chosen "
+            f"{doc['chosen'] and doc['chosen']['label']}, break-even "
+            f"{doc['break_even'] and doc['break_even']['bracket']}")
+        log(f"decide cold: device memory allocated {alloc0} B before, "
+            f"{alloc1} B after (each sweep call's graph pool released)")
+        check(alloc1 - alloc0 < max(c["pool_bytes"] for c in calls) // 2
+              + (64 << 20), "decide cold: device memory held after the "
+                            "workflow")
+        for k in ("baseline", "chosen", "frontier"):
+            rows = doc[k] if k == "frontier" else [doc[k]]
+            check(all(r is None or all(
+                v == v and abs(v) != float("inf")
+                for v in r.values() if isinstance(v, float)) for r in rows),
+                f"decide cold: non-finite number in {k}")
+
+        warm, wdrv, wcalls, wwall = run_decide(torch, axes, "cuda",
+                                               cache_dir, max_rounds=2)
+        wdoc = warm.to_json_dict()
+        log(f"decide warm (fresh driver, same cache): {wwall:.2f} s, "
+            f"{wdrv.lanes_simulated} lanes simulated, {wdrv.configs_run} "
+            f"configs run, {wdrv.cache_hits} cache hits, cache "
+            f"{wdrv.cache.stats.as_dict()}")
+        check(wdrv.lanes_simulated == 0 and not wcalls
+              and wdrv.configs_run == 0, "decide warm: lanes simulated")
+        check(wdrv.cache.stats.corrupt == 0, "decide warm: corrupt entries")
+        cold_rest = {k: v for k, v in doc.items() if k != "stats"}
+        warm_rest = {k: v for k, v in wdoc.items() if k != "stats"}
+        check(json.dumps(cold_rest, sort_keys=True)
+              == json.dumps(warm_rest, sort_keys=True),
+              "decide warm: report differs from the cold run's")
+        log("decide warm: report equal to the cold run's outside stats")
+
+        small = {}
+        for impl in ("cuda", "torch"):
+            # one cache directory: the two engines' keys differ, so
+            # neither run is served the other's entries
+            rep, sdrv, scalls, swall = run_decide(
+                torch, SMALL_DECIDE_AXES, impl, cache_dir,
+                tick=SMALL_DECIDE_TICK, max_rounds=2)
+            small[impl] = rep
+            log(f"decide small ({impl}): {swall:.2f} s, "
+                f"{sdrv.sweep_calls} sweep calls, {sdrv.lanes_simulated} "
+                f"lanes simulated, cache {sdrv.cache.stats.as_dict()}")
+            log_calls(f"decide small {impl}", scalls)
+        a, b = (small[i].to_json_dict() for i in ("cuda", "torch"))
+        off = points_beyond_bar(a, b)
+        if decisions(a) != decisions(b) or off:
+            for impl, rep in small.items():
+                log(f"--- decide small report ({impl}) ---")
+                log(rep.to_markdown())
+        check(decisions(a) == decisions(b),
+              f"decide small: cuda and plain decisions differ: "
+              f"{decisions(a)} vs {decisions(b)}")
+        check(not off, f"decide small: points beyond the Table-2 bar: {off}")
+        log(f"decide small: cuda and plain decisions equal "
+            f"{decisions(a)}; every point within the Table-2 bar")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    log(f"decide phase: {time.perf_counter() - t_phase:.2f} s wall")
+    return launched
+
+
 def carousel_inputs(torch, gen, n: int, m: int):
     """``n`` transfers on ``m`` links, every one in flight, half the links
     shared and half per-transfer: a transfer's own rate is 10 kB/s to
@@ -1674,6 +1884,8 @@ def main(argv=None) -> int:
             f"{busy:.1f} us/tick: idle share "
             f"{1 - busy / prof[True]['wall_us']:.3f}")
 
+    decide_launches = decide_phase(torch, days, n_files)
+
     # one entry per kernel and case: the lane-tick kernels at the sweep's
     # shapes with their launches on the sweep, then the three further
     # kernel paths, each driven with its count reset just before and read
@@ -1682,9 +1894,13 @@ def main(argv=None) -> int:
               f"F {n_files})")
     cases = [(name, shapes + (", the K and W=4 windows in one launch"
                               if name == "window_admit" else ""),
-              counts[name], kern[name]) for name in ops.KERNELS]
+              counts[name], {**kern[name],
+                             "launches_decide": decide_launches[name]})
+             for name in ops.KERNELS]
     cases += [(f"glue_{step}", f"{shapes}, the sweep's state at tick "
-               f"{glue_tick}", counts[f"glue_{step}"], glue[step])
+               f"{glue_tick}", counts[f"glue_{step}"],
+               {**glue[step],
+                "launches_decide": decide_launches[f"glue_{step}"]})
               for step in GLUE_STEPS]
     cases += carousel_phase(torch)
     for name, phase in (("flash_attention", attention_phase),
@@ -1704,7 +1920,7 @@ def main(argv=None) -> int:
                         "wall_us", "idle_share",
                         "ticks_per_s", "ticks_per_s_with_capture",
                         "ticks_per_s_second_call",
-                        "capture_ms", "chunk")
+                        "capture_ms", "chunk", "launches_decide")
                        if k in r})
                for name, case, n, r in cases]
     for k in kernels:

@@ -17,7 +17,13 @@ Module names mirror ``repro``'s:
   the tick (transfer advance, shared-GCS admission, candidate windows) and
   their plain PyTorch versions;
 - ``repro_torch.kernels.registry``: the ``tick_impl`` axis (``"torch"`` |
-  ``"cuda"`` | ``"auto"``).
+  ``"cuda"`` | ``"auto"``);
+- ``repro_torch.sim.sweep``: the front door (``run_sweep``,
+  ``SweepDriver``) with the persistent result cache
+  (``repro_torch.sim.cache``) in front of the batched program;
+- ``repro_torch.sim.decide``: the §5.3 decision workflow (``decide``);
+- ``repro_torch.obs``: the metrics registry, the tracer and the logging
+  setup those layers report through.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA and without that argument they raise.

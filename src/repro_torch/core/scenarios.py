@@ -5,7 +5,10 @@ from ``repro.core.scenarios``.
 (cache size, egress option, storage price, job rate, workload, seed);
 ``build_config`` materialises it into an ``HCDCConfig``; ``expand_grid``
 produces the Cartesian product of spec axes; ``pack_specs`` packs a grid
-into the dense per-lane arrays the batched tick program consumes.
+into the dense per-lane arrays the batched tick program consumes;
+``cache_key`` content-addresses a spec's result for ``repro_torch.sim.
+cache``, and the continuous-axis helpers (``axis_value``, ``with_axis``,
+``refine_levels``) serve ``repro_torch.sim.decide``.
 
 The numpy RNG draw order is ``repro``'s exactly, so both packages pack
 bit-identical grids from the same specs (``tests/test_torch_pack.py``).
@@ -15,7 +18,9 @@ grid can feed both engines.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import json
 import math
 from dataclasses import asdict, dataclass, fields, replace
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
@@ -193,6 +198,128 @@ def dynamics_key(spec: ScenarioSpec) -> ScenarioSpec:
     """
     return replace(spec, egress="internet", storage_price=None,
                    egress_price=None)
+
+
+def strip_seed(spec: ScenarioSpec) -> ScenarioSpec:
+    """Canonical across-seed group identity (seed reset to 0)."""
+    return replace(spec, seed=0)
+
+
+#: Version of the persisted result-entry schema (``repro_torch.sim.cache``),
+#: the same number and entry format as the JAX package's. Part of every
+#: cache key and stored inside every entry: bump it whenever the meaning of
+#: a stored payload changes, and every stale entry becomes unreachable (new
+#: keys) and rejected on direct reads.
+RESULT_SCHEMA_VERSION = 1
+
+
+def engine_fingerprint(backend: str = "torch",
+                       tick: Optional[float] = None,
+                       tick_impl: Optional[str] = None) -> str:
+    """Canonical engine identity of the port for result caching.
+
+    The batched program's outputs depend on its clock step, so the tick
+    value is part of the fingerprint: ``"torch:60"`` is the plain PyTorch
+    tick (``tick_impl="torch"``, or ``None``), ``"torch:60:cuda"`` the
+    hand-written kernels. The kernels differ from the plain tick at
+    GCS-admission ties within 16 ulps of the limit, so the two are not
+    bitwise and their entries never serve each other; nor do they serve
+    the JAX package's ``jax:*`` or ``process`` entries (the engines agree
+    statistically, not bitwise). ``"auto"`` is rejected: resolve it
+    (``repro_torch.kernels.registry.resolve_tick_impl``) before keying, or
+    one key could name two programs on two machines.
+    """
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (the port's engine "
+                         "is backend='torch')")
+    t = 10.0 if tick is None else float(tick)
+    impl = "torch" if tick_impl is None else str(tick_impl)
+    if impl == "torch":
+        return f"torch:{t:g}"
+    if impl == "cuda":
+        return f"torch:{t:g}:cuda"
+    raise ValueError(
+        f"tick_impl {tick_impl!r} cannot be fingerprinted (expected a "
+        "resolved implementation, 'torch' or 'cuda'; resolve 'auto' first)")
+
+
+def cache_key(spec: ScenarioSpec, backend: str = "torch",
+              tick: Optional[float] = None,
+              tick_impl: Optional[str] = None) -> str:
+    """Content address of a spec's dynamics result (sha256 hex digest).
+
+    The key hashes the canonical JSON of ``(schema version, engine
+    fingerprint, dynamics_key(spec))``, as the JAX package's does:
+    pricing-only fields are reset first, so every pricing variant of one
+    simulated lane maps to the same entry and is re-billed at read time;
+    any dynamics-affecting field, seed included, lands on a different key.
+    """
+    doc = {
+        "schema": RESULT_SCHEMA_VERSION,
+        "engine": engine_fingerprint(backend, tick, tick_impl),
+        "spec": asdict(dynamics_key(spec)),
+    }
+    blob = json.dumps(doc, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode("utf-8")).hexdigest()
+
+
+# --------------------------------------------------------------------------
+# Continuous-axis refinement helpers (the ``repro_torch.sim.decide``
+# vocabulary).
+# --------------------------------------------------------------------------
+
+#: Spec axes that take ordered scalar values and can therefore be bisected
+#: by the adaptive refinement / break-even solvers. ``None`` entries (keep
+#: the base config) and ``inf`` (unlimited) are valid grid levels but are
+#: never interpolated against.
+CONTINUOUS_AXES = ("cache_tb", "gcs_limit_tb", "storage_price",
+                   "egress_price", "job_rate_scale")
+
+
+def axis_value(spec: ScenarioSpec, axis: str) -> Optional[float]:
+    """The spec's value on a continuous axis (``None`` = base default)."""
+    if axis not in CONTINUOUS_AXES:
+        raise ValueError(f"axis must be one of {CONTINUOUS_AXES}, "
+                         f"got {axis!r}")
+    return getattr(spec, axis)
+
+
+def with_axis(spec: ScenarioSpec, axis: str, value: float) -> ScenarioSpec:
+    """The spec moved to ``value`` on a continuous axis (re-validated)."""
+    if axis not in CONTINUOUS_AXES:
+        raise ValueError(f"axis must be one of {CONTINUOUS_AXES}, "
+                         f"got {axis!r}")
+    return replace(spec, **{axis: value})
+
+
+def refine_levels(values: Sequence[float], anchors: Sequence[float],
+                  rel_tol: float) -> List[float]:
+    """Midpoints to add around ``anchors`` in a sorted axis-level set.
+
+    For every anchor value (an axis coordinate of a frontier point) the
+    midpoint towards each finite neighbor in ``values`` is proposed, unless
+    the gap is already within ``rel_tol`` of the finite axis span. The
+    returned midpoints are deduplicated and sorted; non-finite levels and
+    ``None`` levels are never interpolated.
+    """
+    finite = sorted({float(v) for v in values
+                     if v is not None and math.isfinite(v)})
+    if len(finite) < 2:
+        return []
+    span = finite[-1] - finite[0]
+    if span <= 0:
+        return []
+    out = set()
+    for a in anchors:
+        if a is None or not math.isfinite(a) or a not in finite:
+            continue
+        i = finite.index(a)
+        for j in (i - 1, i + 1):
+            if 0 <= j < len(finite):
+                gap = abs(finite[j] - a)
+                if gap > rel_tol * span:
+                    out.add((a + finite[j]) / 2.0)
+    return sorted(out)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
 """Simulation layers of the port: the batched tick program (``batched``),
-its results and front door (``sweep``), and the numpy-only pieces it needs
-(``cloud``, ``distributions``, ``infrastructure``, ``transfer``,
-``workload``), copied from ``repro.sim``."""
+its results and front door (``sweep``), the persistent result cache
+(``cache``), the decision layer (``decide``), and the numpy-only pieces
+they need (``cloud``, ``distributions``, ``infrastructure``, ``output``,
+``transfer``, ``workload``), copied from ``repro.sim``."""

@@ -52,6 +52,8 @@ from repro_torch.kernels.registry import (
     resolve_device,
     resolve_tick_impl,
 )
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import get_tracer
 from repro_torch.sim.cloud import bills_from_monthly_totals
 from repro_torch.sim.sweep import ScenarioResult, SweepResult
 
@@ -502,6 +504,16 @@ class TickLoop:
         out = self.post_fn(self.st, self.c, self.horizon)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
+    def close(self) -> None:
+        """Release the captured graph, and with it its private memory pool,
+        and the grid's state, so a sweep that runs one loop after another
+        (a decision round each) holds one pool at a time. The loop cannot
+        advance or be read after it."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._graph = None
+        self.st = self.c = None
+
 
 def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
                     device=None, *, _eager: bool = False
@@ -519,9 +531,20 @@ def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
     """
     dev = resolve_device(device)
     impl = resolve_tick_impl(tick_impl, dev)
-    loop = TickLoop(grid, impl, dev, graph=impl.use_kernel and not _eager)
-    loop.advance(grid.n_ticks)
-    return loop.result()
+    return _run_loop(grid, impl, dev, graph=impl.use_kernel and not _eager)[0]
+
+
+def _run_loop(grid: PackedGrid, impl: TickImpl, device: torch.device,
+              graph: bool):
+    """Run every tick of ``grid``; returns the raw aggregates and the
+    closed :class:`TickLoop` (its ``capture_s`` and ``pool_bytes`` stay
+    readable)."""
+    loop = TickLoop(grid, impl, device, graph=graph)
+    try:
+        loop.advance(grid.n_ticks)
+        return loop.result(), loop
+    finally:
+        loop.close()
 
 
 def _lane_result(grid: PackedGrid, out: dict, si: int,
@@ -577,17 +600,43 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
                     tick_impl: str = "auto", device=None) -> SweepResult:
     """Run a spec grid as one batched program on ``device`` (``cuda`` when
     None). Returns a ``SweepResult`` whose per-config ``wall_s`` is the
-    batch wall time split evenly and whose ``events`` are ticks. Specs that
-    differ only in pricing share one simulated lane and are billed
+    batch wall time split evenly, whose ``events`` are ticks and whose
+    ``lanes_simulated`` counts the distinct dynamics lanes packed. Specs
+    that differ only in pricing share one simulated lane and are billed
     separately. ``tick`` is the clock step in seconds, ``tick_impl`` the
-    kernel implementation — independent axes."""
+    kernel implementation — independent axes.
+
+    Telemetry: spans ``pack_specs`` and ``simulate_packed``, then one
+    ``sweep.torch`` instant event with the call's specs, lanes, ticks and
+    seconds (``pack_s``, ``capture_s`` and ``pool_bytes`` of the graph
+    capture, ``sweep_s`` for the whole call); the registry counts
+    ``sweep.torch.runs`` and ``sweep.torch.lanes`` and observes
+    ``sweep.torch.pack_s`` and ``sweep.torch.wall_s``."""
     dev = resolve_device(device)
     impl = resolve_tick_impl(tick_impl, dev)
+    tracer = get_tracer()
     t0 = time.perf_counter()
-    grid = pack_specs(specs, tick=tick)
-    out = simulate_packed(grid, tick_impl=impl.name, device=dev)
+    with tracer.span("pack_specs", n_specs=len(specs)):
+        grid = pack_specs(specs, tick=tick)
+    pack_s = time.perf_counter() - t0
+    with tracer.span("simulate_packed", lanes=grid.n_lanes,
+                     ticks=grid.n_ticks, tick_impl=impl.name):
+        out, loop = _run_loop(grid, impl, dev, graph=impl.use_kernel)
     wall = time.perf_counter() - t0
+    reg = get_registry()
+    reg.inc("sweep.torch.runs", help="Batched torch sweep invocations")
+    reg.inc("sweep.torch.lanes", grid.n_lanes,
+            help="Dynamics lanes simulated by the batched torch program")
+    reg.observe("sweep.torch.pack_s", pack_s,
+                help="Spec packing wall time per sweep (s)")
+    reg.observe("sweep.torch.wall_s", wall,
+                help="Batched torch sweep wall time, packing included (s)")
+    tracer.instant("sweep.torch", specs=grid.n_specs, lanes=grid.n_lanes,
+                   ticks=grid.n_ticks, tick_impl=impl.name, pack_s=pack_s,
+                   capture_s=loop.capture_s, pool_bytes=loop.pool_bytes,
+                   sweep_s=wall)
     results: List[ScenarioResult] = [
         _lane_result(grid, out, si, wall / grid.n_specs)
         for si in range(grid.n_specs)]
-    return SweepResult(results=results, wall_s=wall)
+    return SweepResult(results=results, wall_s=wall,
+                       lanes_simulated=grid.n_lanes)

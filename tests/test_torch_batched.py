@@ -154,16 +154,23 @@ def test_runs_are_deterministic(pricing_grid):
         np.testing.assert_array_equal(once[key], again[key], err_msg=key)
 
 
-def test_front_door_forwards_and_rejects_later_knobs(pricing_grid):
+def test_front_door_forwards_and_rejects_later_knobs(pricing_grid,
+                                                     tmp_path):
     specs, _, got = pricing_grid
     few = specs[:3]
     res = run_sweep(few, backend="torch", tick=60.0, device="cpu")
     for a, b in zip(res.results, got.results[:3]):
         assert a.metrics == b.metrics
         assert a.cost_usd == b.cost_usd
+    assert res.lanes_simulated == 2  # seeds 0 and 1; two prices share 0
+    # the result cache is the one knob of repro's run_sweep now served
+    cached = run_sweep(few, tick=60.0, device="cpu", cache=tmp_path)
+    assert cached.lanes_simulated == 2 and cached.cache_hits == 0
+    for a, b in zip(cached.results, res.results):
+        assert a.metrics == b.metrics
     with pytest.raises(ValueError, match="backend"):
         run_sweep(few, backend="jax", device="cpu")
-    for knob in ("cache", "retry", "faults", "transport", "lane_chunk",
+    for knob in ("retry", "faults", "transport", "lane_chunk",
                  "record_series", "shard"):
         with pytest.raises(ValueError, match=knob):
             run_sweep(few, device="cpu", **{knob: 1})
