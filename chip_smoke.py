@@ -59,8 +59,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``torch.profiler`` — wall and device time per tick, the device's idle
    share, the top kernels, the lane-tick and each glue kernel's device
    time per tick, ``torch.cumsum``'s calls and device time per tick,
-   ``torch.topk``'s kernels (none: the run fails on any) and PyTorch's
-   reductions per tick; for
+   ``torch.topk``'s kernels (none: the run fails on any), PyTorch's
+   reductions per tick and the wait queue's files after the profiled
+   ticks (what ``glue_wait_select`` reads); for
    the replayed tick the capture's host time and the graph
    pool's bytes; for the eager one the GCS candidates and admissions per
    lane per tick of the profiled ticks (counted after them) and of 40
@@ -1085,6 +1086,18 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
         + f"), {len(rows)} device kernels by name{capture}")
     for key, us, count in rows[:12]:
         log(f"  {us / n:9.1f} us/tick {count / n:6.1f}/tick  {key[:90]}")
+    # the wait queue glue_wait_select reads, after the profiled ticks: its
+    # files, the most in a row, and the 512-flag groups (a warp's flags of
+    # one load) holding one or more, and 32 or more (keyed thread by thread)
+    wait = loop.st["wq_wait"].reshape(-1, loop.st["wq_wait"].shape[-1])
+    per_row = wait.sum(-1)
+    groups = torch.nn.functional.pad(
+        wait.to(torch.int32), (0, -wait.shape[-1] % 512)).reshape(
+            wait.shape[0], -1, 512).sum(-1)
+    wait_queue = dict(waiting=int(per_row.sum()), row_max=int(per_row.max()),
+                      groups=int((groups > 0).sum()),
+                      dense_groups=int((groups >= 32).sum()))
+    log(f"  wait queue after the profiled ticks: {wait_queue}")
     # torch.topk's kernels (gatherTopK, computeBlockDigitCounts, radix
     # select) and PyTorch's reductions (reduce_kernel), a tick
     topk = [r for r in rows if any(k in r[0].lower() for k in (
@@ -1115,7 +1128,8 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
             log(f"  GCS candidates per lane per tick, ticks {mid}-"
                 f"{mid + n}: {counts(n)}")
     return dict(wall_us=wall_us / n, busy_us=busy_us / n, topk_us=topk_us,
-                glue_us={k: v / n for k, v in glue_us.items()})
+                glue_us={k: v / n for k, v in glue_us.items()},
+                wait_queue=wait_queue)
 
 
 #: The decide phase's small grid, run on the kernels and on the plain path:

@@ -21,9 +21,11 @@ steps run in the tick's order, each from the state the one before left:
   ``(mig, rank)`` of ``gcs_admit`` on the state after ``link_admit`` (on
   the dense state, ``dense_glue_state``'s);
 - the wait-queue heads: ``tick_glue.ops.wait_select`` where the port has
-  it (device µs of ``tg_wait_select_kernel``), and ``torch.topk`` of the
-  tickets (its library call, and what a port without it runs) beside the
-  bound of the bytes the selection needs.
+  it (CUDA-event ms and device µs of ``tg_wait_select_kernel``, the
+  device µs also with the L2 cache flushed before each call, as the tick
+  reads the wait queue), and ``torch.topk`` of the tickets (its library
+  call, and what a port without it runs), beside the bound of the bytes
+  the selection needs and the device µs of a copy of those bytes.
 
 ``--root`` times the port of another checkout (a parent commit unpacked
 with ``git archive`` under ``build/``) with this script's helpers; its
@@ -94,6 +96,10 @@ def kernel_us(torch, fn, restore, keys, n: int = 10):
     return {k: sum(e.self_device_time_total for e in rows if k in e.key) / n
             for k in keys}
 
+
+#: Bytes written between calls to leave a plane out of the L2 cache
+#: (50 MB on an H100).
+L2_FLUSH_BYTES = 128 << 20
 
 #: The glue steps timed here, in the tick's order, and their kernels.
 STEPS = ("complete", "link_admit", "migrate")
@@ -189,18 +195,37 @@ def bench_state(torch, label, st0, c, now, dt, month, n_months, new_done,
         got = select()
         want = topk()
         check_low = torch.equal(got[0], want.values)
+        # cold: the L2 cache flushed before each call, as the tick leaves
+        # the wait queue's planes (written a tick before)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=comp.device)
+
+        def cold():
+            flush.zero_()
+            work.zero_()
+
         sel["kernel"] = dict(
             ms=[cs.restored_ms(torch, select, work.zero_)[0]
                 for _ in range(reps)],
             device_us=kernel_us(torch, select, work.zero_,
                                 ("tg_wait_select_kernel",))[
                 "tg_wait_select_kernel"],
+            cold_device_us=kernel_us(torch, select, cold,
+                                     ("tg_wait_select_kernel",))[
+                "tg_wait_select_kernel"],
             lowest_equal_to_topk=check_low)
+        del flush
     n = s["wq_wait"].numel()
     R = s["disk_used"].numel()
     sel_bytes = n + cs.sector_bytes(torch, s["wq_wait"], 4) + R * W * 12
     sel["bytes"] = sel_bytes
     sel["bound_ms"] = cs.bound_ms(sel_bytes, 0.0)[0]
+    half = torch.empty(sel_bytes // 8, dtype=torch.float32,
+                       device=comp.device)
+    dst = torch.empty_like(half)
+    sel["copy_device_us"] = cs.device_us(torch, lambda: dst.copy_(half),
+                                         n=10)
+    del half, dst
     sel["waiting"] = int(s["wq_wait"].sum())
     print(f"{label}: wait heads {json.dumps(sel)}", flush=True)
     out["wait_select"] = sel

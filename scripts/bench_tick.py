@@ -2,12 +2,13 @@
 """Time the port's sweep tick on one GPU: the main path's ``cuda`` tick,
 replayed from its CUDA graph, of this checkout or of another.
 
-    python3 scripts/bench_tick.py [--days 1] [--root DIR]
+    python3 scripts/bench_tick.py [--days 1] [--root DIR] [--warm N]
 
 Runs ``chip_smoke.py``'s sweep grid (Config III, 216 specs, 8 dynamics
 lanes, 2 sites x 1,000,000 files, tick 10 s, ``--days`` of horizon)
 through ``run_sweep_torch`` with ``tick_impl="cuda"`` (ticks/s, packing
-included), then ``chip_smoke.profile_phase`` on the replayed tick: wall
+included), then ``chip_smoke.profile_phase`` on the replayed tick
+(after ``--warm`` ticks, then 40 on the host clock and 40 profiled): wall
 microseconds a tick unprofiled, device microseconds a tick and the idle
 share (``torch.profiler``), the twelve largest device rows, and the
 lane-tick and tick-glue kernels' microseconds a tick. ``--root`` times the
@@ -38,6 +39,8 @@ def main(argv=None) -> int:
                     help="simulated horizon of the sweep (default 1)")
     ap.add_argument("--root", type=Path, default=None,
                     help="time the port of this checkout instead")
+    ap.add_argument("--warm", type=int, default=20,
+                    help="ticks before the profile's 80 (default 20)")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,14 +69,15 @@ def main(argv=None) -> int:
     ticks_per_s = grid.n_ticks / wall
     print(f"sweep cuda (captured): {wall:.2f} s wall, {ticks_per_s:.1f} "
           f"ticks/s (packing included), {grid.n_ticks} ticks")
-    prof = cs.profile_phase(torch, grid, graph=True)
+    prof = cs.profile_phase(torch, grid, graph=True, warm=args.warm)
     busy = prof["busy_us"]
     print(json.dumps({"port": str(port), "ticks_per_s": ticks_per_s,
                       "wall_us": prof["wall_us"], "busy_us": busy,
                       "idle_share": (None if busy is None
                                      else 1 - busy / prof["wall_us"]),
                       "topk_us": prof.get("topk_us"),
-                      "glue_us": prof.get("glue_us")}))
+                      "glue_us": prof.get("glue_us"),
+                      "wait_queue": prof.get("wait_queue")}))
     return 0
 
 

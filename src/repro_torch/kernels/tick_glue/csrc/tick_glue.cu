@@ -22,13 +22,13 @@
 // 16-byte loads (4-byte ones for tg_begin's and tg_complete's bool
 // planes), and touches the other planes only where a mask is set:
 // completions, held slots, queued transfers, candidates, migrations.
-// tg_link_admit and tg_migrate read nothing densely but one flag plane:
-// they stream it (see "flag streams" below) on a grid sized to the card
-// and walk its set flags a warp at a time over consecutive elements, so
-// their gathers and stores coalesce. Floats round as
-// the plain version's separate operations do (__fadd_rn, __fsub_rn, the
-// integer conversions of PyTorch's casts), so every output is bitwise the
-// plain version's.
+// tg_link_admit, tg_migrate and tg_wait_select read nothing densely but
+// one flag plane: they stream it (see "flag streams" below) on a grid
+// sized to the card and walk its set flags a warp at a time over
+// consecutive elements, so their gathers and stores coalesce. Floats
+// round as the plain version's separate operations do (__fadd_rn,
+// __fsub_rn, the integer conversions of PyTorch's casts), so every output
+// is bitwise the plain version's.
 //
 // Counts are integers: warp sums (__reduce_add_sync), a shared sum a
 // block, one integer atomic a block and counter. A block cannot see the
@@ -53,9 +53,10 @@
 // tg_wait_select keys each file ticket * F + index (a file that does not
 // wait has ticket 2^30), unique in its row, so "the W lowest keys" defines
 // every output; integer only, so bitwise. Its bound is the flag plane
-// (1 B a file) and the tickets of the waiting files; it reads nothing
-// else, and skips a run of 16 flags with no waiting file once its first
-// key cannot enter the thread's list.
+// (1 B a file) and the tickets of the waiting files; it streams the flags
+// as the flag kernels do, gathers a ticket only where a file waits, and
+// keys a file that does not wait only in the run where one can be among
+// the W lowest (see "wait_select" below).
 //
 // Plain C entry points, loaded with ctypes: each launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError() so the wrapper
@@ -73,23 +74,29 @@ constexpr int64_t kTile = static_cast<int64_t>(kThreads) * kVec * kSteps;
 constexpr int kWarps = kThreads / 32;
 static_assert(kSteps * kWarps == 32, "a tile's warp-step sums fill a warp");
 
-// tg_wait_select: flags a thread takes per step (one 16-byte load), steps
-// a block, the non-waiting ticket and the empty key.
-constexpr int kWsVec = 16;
-constexpr int kWsSteps = 4;
-constexpr int64_t kWsTile = static_cast<int64_t>(kThreads) * kWsVec * kWsSteps;
-constexpr int64_t kBigTicket = int64_t(1) << 30;  // ref.BIG_TICKET
-constexpr int64_t kNoKey = 0x7fffffffffffffffLL;
-
-// tg_link_admit and tg_migrate ("flag streams" below): flags a load (one
-// uint4), loads a thread a step, a block's step of flags (a "run",
-// ops.FLAG_RUN), the resident blocks an SM their grid is sized for
-// (ops.FLAG_BLOCKS_PER_SM), rounds of set flags a warp gathers at once.
+// tg_link_admit, tg_migrate and tg_wait_select ("flag streams" below):
+// flags a load (one uint4), loads a thread a step, a block's flags a load
+// and a step (a "run", ops.FLAG_RUN), the resident blocks an SM their grid
+// is sized for (ops.FLAG_BLOCKS_PER_SM), rounds of set flags a warp
+// gathers at once.
 constexpr int kFlagVec = 16;
 constexpr int kFlagLoads = 4;
-constexpr int64_t kFlagRun = static_cast<int64_t>(kThreads) * kFlagVec * kFlagLoads;
+constexpr int64_t kFlagSpan = static_cast<int64_t>(kThreads) * kFlagVec;
+constexpr int64_t kFlagRun = kFlagSpan * kFlagLoads;
 constexpr int kFlagBlocksPerSm = 4;
 constexpr int kBatch = 8;
+
+// tg_wait_select: the non-waiting ticket, the empty key, and the partial
+// keys a lane of the last block loads before it inserts any (C = 32).
+constexpr int64_t kBigTicket = int64_t(1) << 30;  // ref.BIG_TICKET
+constexpr int64_t kNoKey = 0x7fffffffffffffffLL;
+constexpr int kMergeLoads = 8;
+// Rounds of waiting files a warp gathers at once: a load with many goes
+// thread by thread (kDenseWait), so few rounds remain.
+constexpr int kWaitBatch = 2;
+// A load whose 512 flags in a warp hold this many waiting files is keyed
+// thread by thread, each thread its own 16 files (see wait_select).
+constexpr int kDenseWait = 32;
 
 // File-location states; must match ../ref.py.
 constexpr int32_t kAbsent = 0, kInFlight = 1, kPresent = 2;
@@ -452,11 +459,11 @@ tg_complete_kernel(const float* __restrict__ now,
 }
 
 // ---------------------------------------------------------- flag streams
-// tg_link_admit and tg_migrate read one flag plane densely (lq_queued, mig)
-// and touch the other planes only where a flag is set. On the sweep's state
-// almost no flag is set, so each is a stream of 16 MB; 4-byte loads, each
-// waited on before the next, on 4,096-flag blocks streamed it at 0.7-1.25
-// TB/s. Here a thread starts kFlagLoads 16-byte loads (streaming hint: the
+// tg_link_admit, tg_migrate and tg_wait_select read one flag plane densely
+// (lq_queued, mig, wq_wait) and touch the other planes only where a flag
+// is set. On the sweep's state almost no flag is set, so each is a stream
+// of 16 MB; 4-byte loads, each waited on before the next, on 4,096-flag
+// blocks streamed it at 0.7-1.25 TB/s. Here a thread starts kFlagLoads 16-byte loads (streaming hint: the
 // plane is read once a tick) before it uses any: a run of 16,384 flags a
 // block step, on a grid of kFlagBlocksPerSm blocks an SM (the wrapper's
 // flag_blocks; block b of a row's nb takes runs b, b + nb, ...,
@@ -467,13 +474,14 @@ tg_complete_kernel(const float* __restrict__ now,
 // hold set ones, the warp takes them 32 consecutive elements a round (lane j
 // on element 32q + j, its flag by a shuffle of the loading lanes' bit
 // masks), so every gather and store of the sparse work is one instruction
-// over 32 consecutive elements; it starts the gathers of kBatch rounds
-// before it applies any, so a dense row waits on memory once a batch, not
-// once a round. Each element is loaded, and written, by one warp, and no
-// step gathers from a plane it writes, so a lane's stores never meet a load
-// of another lane's. On the sweep's state at tick 600, in its replayed tick
-// (scripts/bench_tick.py, H100 SXM at 700 W): tg_link_admit 7.9-8.0 us,
-// tg_migrate 9.4 us, against 4.8 us for 16 MB at 3.35 TB/s. The batch size
+// over 32 consecutive elements; it starts the gathers of a batch of rounds
+// (kBatch; kWaitBatch in tg_wait_select) before it applies any, so a dense
+// row waits on memory once a batch, not once a round. Each element is
+// loaded, and written, by one warp, and no step gathers from a plane it
+// writes, so a lane's stores never meet a load of another lane's. In the
+// sweep's replayed tick, ticks 60-100 (scripts/bench_tick.py, H100 SXM at
+// 700 W): tg_link_admit 7.9-8.0 us, tg_migrate 9.4 us, against 4.8 us for
+// 16 MB at 3.35 TB/s. The batch size
 // (4 to 16 rounds), 8 loads a step and 2 to 8 blocks an SM moved neither
 // kernel beyond the run-to-run spread on either of scripts/bench_glue.py's
 // states.
@@ -503,16 +511,20 @@ __device__ __forceinline__ uint4 load_flags(const uint8_t* row, int64_t f,
 }
 
 // For row blockIdx.y in this block's runs (runs blockIdx.x, + gridDim.x,
-// ...): the step's kFlagLoads words a thread, loaded first; then, in a
-// warp with a set flag, prepare() once (the row's constants), and for its
-// set flags v = gather(e) over kBatch rounds, then apply(e, v) for each
-// (e the flat index). Every thread of the block calls it.
-template <typename Prepare, typename Gather, typename Apply>
+// ...): the step's kFlagLoads words a thread, loaded first; seen(run, x)
+// with them, in every thread (run the row offset of the run's first flag,
+// word u of the thread at run + u * kFlagSpan + 16 * threadIdx.x; a word
+// it zeroes is taken no further); then, in a warp with a set flag,
+// prepare() once (the row's constants), and for its set flags v =
+// gather(e) over Batch rounds, then apply(e, v) for each (e the flat
+// index). Every thread of the block calls it.
+template <int Batch, typename Seen, typename Prepare, typename Gather,
+          typename Apply>
 __device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
-                                              bool vec, Prepare prepare,
-                                              Gather gather, Apply apply) {
+                                              bool vec, Seen seen,
+                                              Prepare prepare, Gather gather,
+                                              Apply apply) {
   using Value = decltype(gather(int64_t(0)));
-  constexpr int64_t kLoadSpan = static_cast<int64_t>(kThreads) * kFlagVec;
   static_assert(kFlagLoads * 16 <= 64, "a step's rounds fill one 64-bit mask");
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
@@ -526,7 +538,8 @@ __device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
     uint4 x[kFlagLoads];
 #pragma unroll
     for (int u = 0; u < kFlagLoads; ++u)
-      x[u] = load_flags(row, run + u * kLoadSpan + mine, F, vec);
+      x[u] = load_flags(row, run + u * kFlagSpan + mine, F, vec);
+    seen(run, x);
     uint32_t any = 0u;
 #pragma unroll
     for (int u = 0; u < kFlagLoads; ++u) any |= x[u].x | x[u].y | x[u].z | x[u].w;
@@ -550,10 +563,10 @@ __device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
     }
     const int64_t base = row0 + run + warp0 + lane;
     while (todo != 0u) {  // the same in every lane
-      int bit[kBatch];
-      Value v[kBatch];
+      int bit[Batch];
+      Value v[Batch];
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < Batch; ++k) {
         bit[k] = -1;
         v[k] = Value{};
         if (todo == 0u) continue;
@@ -564,14 +577,24 @@ __device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
         for (int u = 1; u < kFlagLoads; ++u) p = (b >> 4) == u ? pair[u] : p;
         if ((__shfl_sync(full, p, b & 15) >> lane) & 1u) {
           bit[k] = b;
-          v[k] = gather(base + (b >> 4) * kLoadSpan + 32 * (b & 15));
+          v[k] = gather(base + (b >> 4) * kFlagSpan + 32 * (b & 15));
         }
       }
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (bit[k] >= 0) apply(base + (bit[k] >> 4) * kLoadSpan + 32 * (bit[k] & 15), v[k]);
+      for (int k = 0; k < Batch; ++k)
+        if (bit[k] >= 0) apply(base + (bit[k] >> 4) * kFlagSpan + 32 * (bit[k] & 15), v[k]);
     }
   }
+}
+
+// The same with nothing done on the loaded words, kBatch rounds a batch.
+template <typename Prepare, typename Gather, typename Apply>
+__device__ __forceinline__ void for_each_flag(const uint8_t* flags, int64_t F,
+                                              bool vec, Prepare prepare,
+                                              Gather gather, Apply apply) {
+  for_each_flag<kBatch>(
+      flags, F, vec, [](int64_t, const uint4(&)[kFlagLoads]) {}, prepare,
+      gather, apply);
 }
 
 // ----------------------------------------------------------- link_admit
@@ -688,17 +711,43 @@ tg_migrate_kernel(const float* __restrict__ now,
 // ---------------------------------------------------------- wait_select
 // The W lowest keys ticket * F + index of each row (a file that does not
 // wait keyed with ticket 2^30), ascending: lowest = key / F, idx = key % F.
-// The flags dense (16-byte loads), the ticket only where a file waits.
-// Each thread keeps its C lowest keys sorted in registers (C >= W). A
-// 16-byte run of flags with no waiting file fills an empty list with its
-// first C keys, and is skipped whole once its first key is above the
-// thread's C-th (the keys of files that do not wait grow with the index):
-// filling the list directly took tg_wait_select from 23.1 to 17.8-18.6 us
-// on the sweep's state at tick 600 (scripts/bench_glue.py, H100 SXM, 700
-// W); loading a thread's four runs before the keys gained nothing more.
-// Then W rounds of a warp minimum give each warp's
-// W lowest, warp 0 those of the block, written to keys[R, nt, C]; the last
-// block merges each row's nt lists the same way, a warp a row.
+// wq_wait is streamed as a flag plane (for_each_flag, on tg_link_admit's
+// grid). Each waiting file's key goes into one lane's list, the lane's C
+// lowest keys sorted in registers (C >= W; C = 4 for W <= 4, the sweep's,
+// else 32). Where a warp's 512 flags of a load hold few waiting files, the
+// warp gathers their tickets 32 consecutive files a round, kWaitBatch
+// rounds at once; where they hold kDenseWait or more, each thread keys its
+// own waiting files (their tickets in its own 64 bytes) and the rounds
+// skip the load. On the dense synthetic state the rounds alone took 97.9-
+// 103.7 us, this 42.9-43.4 (scripts/bench_glue.py, H100 SXM at 700 W).
+//
+// The fill: only block 0 of a row keys files that do not wait, and only in
+// run 0. Their keys, 2^30 F + f, are above every waiting key (tickets are
+// below 2^30) and grow with the index f. So they enter a row's W lowest
+// only when n < W files wait, and then as the W - n lowest indices of
+// files that do not wait. Run 0 holds the row's first min(F, FLAG_RUN)
+// flags, at least W of them (W <= F, FLAG_RUN = 16384 >= 32 >= W), at
+// most n waiting: so those W - n indices all lie in run 0, which is block
+// 0's first step. There each thread seeds its list with the first C keys
+// of files that do not wait among its own 64 flags (a find-first-zero
+// over its words, whose flags it takes in index order); one of the W - n
+// that lies in a thread's flags has at most W - n - 1 <= C - 1 such files
+// before it there, so it is among them. tests/test_torch_wait_select.py
+// holds a model of this partition and fill to ref.wait_select.
+//
+// Then each warp's lowest, the block's (warp 0 over the warps' lists),
+// written to keys[R, blocks, C] (a block with no key writes the empty
+// list); the last block takes each row's lowest over its blocks' lists, a
+// segment of G lanes a row (G = 16 for C = 4, 32 else). For C = 4 each of
+// these is a butterfly of merges of two sorted lists of 4 (merge4), for C
+// = 32 W rounds of a segment minimum. In the replayed tick this code runs
+// cold, once a block, after the stream (scripts/trace_wait_select.py), so
+// it is kept in loops: the last block's lists all loaded before the first
+// merge, unrolled, took 15.35-15.44 us a tick against 14.51-14.52 for the
+// loop below (two calls, the parents there 23.99-24.43), and a single
+// loop each for a block's levels (shuffles, then shared memory) and for
+// the last block's lists and levels 15.96-15.98 against 14.68-14.80 in
+// one call (scripts/bench_tick.py).
 
 // Inserts key into the ascending list k[0..C) if it is below k[C-1].
 template <int C>
@@ -737,8 +786,38 @@ __device__ int64_t warp_lowest(int64_t (&k)[C], int W) {
   return mine;
 }
 
+__device__ __forceinline__ void cx(int64_t& x, int64_t& y) {
+  const int64_t lo = x < y ? x : y;
+  y = x < y ? y : x;
+  x = lo;
+}
+
+// a = the 4 lowest of the ascending lists a and b, ascending: the lower
+// half of a bitonic merge (min of a and b reversed is bitonic), sorted.
+__device__ __forceinline__ void merge4(int64_t (&a)[4], const int64_t (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = a[i] < b[3 - i] ? a[i] : b[3 - i];
+  cx(a[0], a[2]);
+  cx(a[1], a[3]);
+  cx(a[0], a[1]);
+  cx(a[2], a[3]);
+}
+
+// The 4 lowest keys over the ascending lists of an aligned segment of G
+// lanes, in every lane of it: a butterfly of merge4, kept a loop (its code
+// is fetched once). Every lane of the warp calls it.
+__device__ __forceinline__ void seg_lowest4(int64_t (&k)[4], int G) {
+#pragma unroll 1
+  for (int o = 1; o < G; o <<= 1) {
+    int64_t b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = __shfl_xor_sync(0xffffffffu, k[i], o);
+    merge4(k, b);
+  }
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, C <= 4 ? kFlagBlocksPerSm : 1)
 tg_wait_select_kernel(const uint8_t* __restrict__ wait,
                       const int32_t* __restrict__ ticket, int64_t F, int W,
                       int vec, int64_t* __restrict__ keys,
@@ -746,79 +825,148 @@ tg_wait_select_kernel(const uint8_t* __restrict__ wait,
                       int32_t* __restrict__ work_base) {
   __shared__ int64_t s_keys[kWarps * C];
   const int64_t R = static_cast<int64_t>(gridDim.y);
-  const int64_t nt = static_cast<int64_t>(gridDim.x);
+  const int64_t nb = static_cast<int64_t>(gridDim.x);
   const Work work = carve(work_base, R);
   const int r = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int64_t row0 = static_cast<int64_t>(r) * F;
-  const int64_t big = kBigTicket * F;
   int64_t k[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) k[j] = kNoKey;
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kWsTile;
+  for_each_flag<kWaitBatch>(
+      wait, F, vec,
+      [&](int64_t run, uint4 (&x)[kFlagLoads]) {
+        const int64_t mine = static_cast<int64_t>(threadIdx.x) * kFlagVec;
+        if (run == 0) {  // the fill
+          const int64_t big = kBigTicket * F;
+          int taken = 0;
 #pragma unroll
-  for (int step = 0; step < kWsSteps; ++step) {
-    const int64_t f = tile0 + static_cast<int64_t>(step) * kThreads * kWsVec +
-                      static_cast<int64_t>(threadIdx.x) * kWsVec;
-    if (f >= F) break;
-    const int n = static_cast<int>(F - f < kWsVec ? F - f : kWsVec);
-    uint32_t words[4];
-    if (vec) {
-      const uint4 x = *reinterpret_cast<const uint4*>(wait + row0 + f);
-      words[0] = x.x; words[1] = x.y; words[2] = x.z; words[3] = x.w;
-    } else {
+          for (int u = 0; u < kFlagLoads; ++u) {
+            const int64_t f = u * kFlagSpan + mine;
+            const int n = f >= F ? 0 : static_cast<int>(F - f < kFlagVec ? F - f : kFlagVec);
+            // the files of the word that do not wait, bit b for file f + b
+            uint32_t z = ~flag_bits(x[u]) & ((1u << n) - 1u);
+            for (; z != 0u && taken < C; z &= z - 1u, ++taken)
+              insert_key<C>(k, big + f + (__ffs(z) - 1));
+          }
+        }
+        // a dense load: each thread keys its own waiting files
+        uint32_t any = 0u;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        words[q] = 0;
-        for (int b = 0; b < 4; ++b)
-          if (4 * q + b < n) words[q] |= uint32_t(wait[row0 + f + 4 * q + b]) << (8 * b);
+        for (int u = 0; u < kFlagLoads; ++u) any |= x[u].x | x[u].y | x[u].z | x[u].w;
+        if (!__any_sync(0xffffffffu, any != 0u)) return;
+#pragma unroll
+        for (int u = 0; u < kFlagLoads; ++u) {
+          const uint32_t m = flag_bits(x[u]);
+          if (__reduce_add_sync(0xffffffffu, __popc(m)) < kDenseWait) continue;
+          x[u] = make_uint4(0u, 0u, 0u, 0u);
+          const int64_t f = run + u * kFlagSpan + mine;
+          const int32_t* t = ticket + row0 + f;
+#pragma unroll 1
+          for (uint32_t z = m; z != 0u; z &= z - 1u) {
+            const int b = __ffs(z) - 1;
+            insert_key<C>(k, static_cast<int64_t>(t[b]) * F + (f + b));
+          }
+        }
+      },
+      [] {},
+      [&](int64_t e) { return ticket[e]; },
+      [&](int64_t e, int32_t t) {
+        insert_key<C>(k, static_cast<int64_t>(t) * F + (e - row0));
+      });
+  int64_t* part = keys + (static_cast<int64_t>(r) * nb + blockIdx.x) * C;
+  if constexpr (C == 4) {
+    // the warp's 4 lowest in each lane, then the block's in warp 0; thread
+    // 0 writes them, and last_block's fence covers its stores. A block
+    // with no key writes the empty list.
+    if (__syncthreads_or(k[0] != kNoKey)) {
+      seg_lowest4(k, 32);
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s_keys[warp * 4 + i] = k[i];
+      }
+      __syncthreads();
+      if (warp == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = lane < kWarps ? s_keys[lane * 4 + i] : kNoKey;
+        seg_lowest4(k, kWarps);
       }
     }
-    if ((words[0] | words[1] | words[2] | words[3]) == 0) {  // no waiting file
-      if (k[0] == kNoKey) {  // an empty list takes the run's first C keys
+    if (threadIdx.x == 0) {
+      reinterpret_cast<longlong2*>(part)[0] = make_longlong2(k[0], k[1]);
+      reinterpret_cast<longlong2*>(part)[1] = make_longlong2(k[2], k[3]);
+    }
+  } else {
+    // the warp's W lowest, then the block's (warp 0 over the warps' lists)
+    const int64_t mine = warp_lowest<C>(k, W);
+    if (lane < C) s_keys[warp * C + lane] = mine;
+    __syncthreads();
+    if (warp == 0) {
 #pragma unroll
-        for (int j = 0; j < C; ++j) k[j] = j < n ? big + f + j : kNoKey;
-        continue;
+      for (int j = 0; j < C; ++j) k[j] = kNoKey;
+      for (int j = lane; j < kWarps * C; j += 32) insert_key<C>(k, s_keys[j]);
+      const int64_t best = warp_lowest<C>(k, W);
+      if (lane < C) {
+        part[lane] = best;
+        __threadfence();  // each writer fences before thread 0 takes the ticket
       }
-      if (big + f >= k[C - 1]) continue;  // the run's least key is too large
-    }
-#pragma unroll
-    for (int j = 0; j < kWsVec; ++j) {
-      if (j >= n) break;
-      const bool w = (words[j / 4] >> (8 * (j % 4))) & 0xffu;
-      const int64_t key = (w ? static_cast<int64_t>(ticket[row0 + f + j]) * F : big) + f + j;
-      insert_key<C>(k, key);
-    }
-  }
-  // the warp's W lowest, then the block's (warp 0 over the warps' lists)
-  const int64_t mine = warp_lowest<C>(k, W);
-  if (lane < C) s_keys[warp * C + lane] = mine;
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) k[j] = kNoKey;
-    for (int j = lane; j < kWarps * C; j += 32) insert_key<C>(k, s_keys[j]);
-    const int64_t best = warp_lowest<C>(k, W);
-    if (lane < C) {
-      keys[(static_cast<int64_t>(r) * nt + blockIdx.x) * C + lane] = best;
-      __threadfence();  // each writer fences before thread 0 takes the ticket
     }
   }
   if (!last_block(work.ticket_wait)) return;
-  for (int64_t q = warp; q < R; q += kWarps) {  // a warp a row
+  // a segment of G lanes a row: for C = 4 a lane's lists one at a time,
+  // the next loaded while the last merges; for C = 32 kMergeLoads keys at
+  // a time, all in flight before the first insert; then the segment's
+  // lowest
+  constexpr int G = C <= 4 ? 16 : 32;
+  constexpr int kSegs = kThreads / G;
+  const int j0 = threadIdx.x & (G - 1);
+  for (int64_t q0 = 0; q0 < R; q0 += kSegs) {  // the same in every thread
+    const int64_t q = q0 + threadIdx.x / G;
 #pragma unroll
     for (int j = 0; j < C; ++j) k[j] = kNoKey;
-    const int64_t* p = keys + q * nt * C;
-    for (int64_t j = lane; j < nt * C; j += 32) insert_key<C>(k, __ldcg(p + j));
-    const int64_t best = warp_lowest<C>(k, W);
-    if (lane < W) {  // floor division, as ref's // and %
+    int64_t best;
+    if constexpr (C == 4) {
+      if (q < R) {  // lists j0, j0 + G, ...: the next one loaded while
+                    // the last is merged
+        const longlong2* p = reinterpret_cast<const longlong2*>(keys + q * nb * 4);
+        const longlong2 none = make_longlong2(kNoKey, kNoKey);
+        longlong2 a = j0 < nb ? __ldcg(p + 2 * j0) : none;
+        longlong2 b = j0 < nb ? __ldcg(p + 2 * j0 + 1) : none;
+#pragma unroll 1
+        for (int64_t j = j0; j < nb; j += G) {
+          const bool more = j + G < nb;
+          const longlong2 na = more ? __ldcg(p + 2 * (j + G)) : none;
+          const longlong2 nb2 = more ? __ldcg(p + 2 * (j + G) + 1) : none;
+          const int64_t l[4] = {a.x, a.y, b.x, b.y};
+          merge4(k, l);
+          a = na;
+          b = nb2;
+        }
+      }
+      seg_lowest4(k, G);
+      best = j0 == 0 ? k[0] : j0 == 1 ? k[1] : j0 == 2 ? k[2] : k[3];
+    } else {
+      if (q < R) {
+        const int64_t* p = keys + q * nb * C;
+        for (int64_t j = j0; j < nb * C; j += G * kMergeLoads) {
+          int64_t v[kMergeLoads];
+#pragma unroll
+          for (int i = 0; i < kMergeLoads; ++i)
+            v[i] = j + i * G < nb * C ? __ldcg(p + j + i * G) : kNoKey;
+#pragma unroll
+          for (int i = 0; i < kMergeLoads; ++i) insert_key<C>(k, v[i]);
+        }
+      }
+      best = warp_lowest<C>(k, W);  // G = 32: a segment is a warp
+    }
+    if (q < R && j0 < W) {  // floor division, as ref's // and %
       int64_t t = best / F, i = best % F;
       if (i < 0) {
         i += F;
         t -= 1;
       }
-      lowest[q * W + lane] = static_cast<int32_t>(t);
-      idx[q * W + lane] = i;
+      lowest[q * W + j0] = static_cast<int32_t>(t);
+      idx[q * W + j0] = i;
     }
   }
 }
@@ -842,9 +990,9 @@ inline bool plane_grid(int L, int S, long long F, dim3* grid,
   return true;
 }
 
-// tg_link_admit's and tg_migrate's grid: `blocks` blocks a row (from the
-// wrapper, ops.flag_blocks), 1 to the row's runs of kFlagRun flags (1 at
-// F = 0), by the R = L*S rows.
+// The flag streams' grid (tg_link_admit, tg_migrate, tg_wait_select):
+// `blocks` blocks a row (from the wrapper, ops.flag_blocks), 1 to the
+// row's runs of kFlagRun flags (1 at F = 0), by the R = L*S rows.
 inline bool flag_grid(int L, int S, long long F, int blocks, dim3* grid) {
   if (!plane_grid(L, S, F, grid, kFlagRun)) return false;
   if (blocks < 1 || static_cast<unsigned>(blocks) > grid->x) return false;
@@ -871,10 +1019,11 @@ long long tg_complete_scratch(int L, int S, long long F) {
   return 2LL * grid.x * grid.y;
 }
 
-// int64 keys of tg_wait_select's partials: C a block.
-long long tg_wait_scratch(int L, int S, long long F, int W) {
+// int64 keys of tg_wait_select's partials: C a block, (L*S) x blocks
+// blocks.
+long long tg_wait_scratch(int L, int S, long long F, int W, int blocks) {
   dim3 grid;
-  if (!plane_grid(L, S, F, &grid, kWsTile) || W < 1 || W > 32) return -1;
+  if (!flag_grid(L, S, F, blocks, &grid) || W < 1 || W > 32) return -1;
   return static_cast<long long>(wait_list(W)) * grid.x * grid.y;
 }
 
@@ -989,17 +1138,17 @@ int tg_migrate(const void* now, const void* mig, const void* rank,
 }
 
 // wq_wait [L, S, F] (bool) and wq_ticket [L, S, F] int32; 1 <= W <= 32,
-// W <= F; keys, tg_wait_scratch(L, S, F, W) int64; work from tg_begin of
-// the same tick. Outputs: lowest [L, S, W] int32, idx [L, S, W] int64.
-// One launch.
+// W <= F; blocks a row from ops.flag_blocks; keys, tg_wait_scratch(L, S,
+// F, W, blocks) int64; work from tg_begin of the same tick. Outputs:
+// lowest [L, S, W] int32, idx [L, S, W] int64. One launch.
 int tg_wait_select(const void* wq_wait, const void* wq_ticket, int L, int S,
-                   long long F, int W, void* keys, void* lowest, void* idx,
-                   void* work, void* stream) {
+                   long long F, int W, int blocks, void* keys, void* lowest,
+                   void* idx, void* work, void* stream) {
   dim3 grid;
-  if (!plane_grid(L, S, F, &grid, kWsTile) || W < 1 || W > 32 || W > F)
+  if (!flag_grid(L, S, F, blocks, &grid) || W < 1 || W > 32 || W > F)
     return static_cast<int>(cudaErrorInvalidValue);
   if (grid.y == 0) return static_cast<int>(cudaSuccess);
-  const int vec = F % 16 == 0 && aligned(wq_wait, 16);
+  const int vec = F % kFlagVec == 0 && aligned(wq_wait, 16) && aligned(wq_ticket, 16);
   const auto launch = W <= 4 ? tg_wait_select_kernel<4> : tg_wait_select_kernel<32>;
   launch<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(wq_wait),

@@ -14,8 +14,8 @@ On the card ``work`` is the tick's int32 counter buffer: :func:`begin`
 allocates it and its kernel zeroes it; the later steps of the same tick
 count into it. The per-block partials of :func:`complete` and
 :func:`wait_select` go to scratch buffers the wrapper allocates. The grid
-of :func:`link_admit` and :func:`migrate` is sized to the card's SMs
-(:func:`flag_blocks`, :func:`flag_ranges`).
+of :func:`link_admit`, :func:`migrate` and :func:`wait_select` is sized
+to the card's SMs (:func:`flag_blocks`, :func:`flag_ranges`).
 """
 
 from __future__ import annotations
@@ -40,20 +40,21 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tg_work_ints": ([_I, _I], _LL),
     "tg_complete_scratch": ([_I, _I, _LL], _LL),
-    "tg_wait_scratch": ([_I, _I, _LL, _I], _LL),
+    "tg_wait_scratch": ([_I, _I, _LL, _I, _I], _LL),
     "tg_error_string": ([_I], ctypes.c_char_p),
     "tg_begin": ([_P] * 4 + [_I, _I, _LL] + [_P] * 3, _I),
     "tg_complete": ([_P] * 10 + [_I, _I, _LL] + [_P] * 16, _I),
     "tg_link_admit": ([_P] * 5 + [_I, _I, _LL, _I] + [_P] * 4, _I),
     "tg_migrate": ([_P] * 7 + [_I, _I, _LL, _I] + [_P] * 12, _I),
-    "tg_wait_select": ([_P] * 2 + [_I, _I, _LL, _I] + [_P] * 5, _I),
+    "tg_wait_select": ([_P] * 2 + [_I, _I, _LL, _I, _I] + [_P] * 5, _I),
 }
 
 #: The largest ``W`` of :func:`wait_select` (the window kernel's limit).
 MAX_WAIT = 32
 
-#: Flags a block of ``tg_link_admit`` and ``tg_migrate`` takes a step (256
-#: threads x 4 loads x 16 flags, ``kFlagRun``): a row's runs.
+#: Flags a block of the flag streams (``tg_link_admit``, ``tg_migrate``,
+#: ``tg_wait_select``) takes a step (256 threads x 4 loads x 16 flags,
+#: ``kFlagRun``): a row's runs.
 FLAG_RUN = 16384
 
 #: Resident blocks an SM that their grid is sized for
@@ -62,9 +63,9 @@ FLAG_BLOCKS_PER_SM = 4
 
 
 def flag_blocks(F: int, R: int, sm_count: int) -> int:
-    """Blocks a row of ``tg_link_admit`` and ``tg_migrate`` on a card of
-    ``sm_count`` SMs: ``FLAG_BLOCKS_PER_SM`` an SM over the ``R`` rows, at
-    least one, at most the row's runs of ``FLAG_RUN`` flags."""
+    """Blocks a row of the flag streams on a card of ``sm_count`` SMs:
+    ``FLAG_BLOCKS_PER_SM`` an SM over the ``R`` rows, at least one, at
+    most the row's runs of ``FLAG_RUN`` flags."""
     runs = -(-F // FLAG_RUN)
     return max(1, min(runs, sm_count * FLAG_BLOCKS_PER_SM // max(R, 1)))
 
@@ -240,7 +241,9 @@ def migrate(st, c, now, mig, rank, occ3, work) -> None:
 
 def wait_select(st, W: int, work):
     """See ``ref.wait_select`` (1 <= ``W`` <= :data:`MAX_WAIT`, ``W`` <=
-    F); on the card ``work`` is the tick's counter buffer."""
+    F); on the card ``work`` is the tick's counter buffer, and each
+    block's lowest keys go to a scratch buffer of :func:`flag_blocks`
+    lists a row."""
     if _on_cpu(st):
         return ref.wait_select(st, W, work)
     dev = st["tr_slot"].device
@@ -250,11 +253,12 @@ def wait_select(st, W: int, work):
     _check_all(dev, (("wq_wait", st["wq_wait"], torch.bool, plane),
                      ("wq_ticket", st["wq_ticket"], torch.int32, plane)))
     _check_work(work, dev, L, S)
-    keys = torch.empty((_LIB.get().tg_wait_scratch(L, S, F, W),),
+    blocks = flag_blocks(F, L * S, _sm_count(dev.index))
+    keys = torch.empty((_LIB.get().tg_wait_scratch(L, S, F, W, blocks),),
                        dtype=torch.int64, device=dev)
     lowest = torch.empty((L, S, W), dtype=torch.int32, device=dev)
     idx = torch.empty((L, S, W), dtype=torch.int64, device=dev)
     _LIB.launch("glue_wait_select", "tg_wait_select", dev,
                 _ptr(st["wq_wait"]), _ptr(st["wq_ticket"]), L, S, F, W,
-                *map(_ptr, (keys, lowest, idx, work)))
+                blocks, *map(_ptr, (keys, lowest, idx, work)))
     return lowest, idx

@@ -92,14 +92,16 @@ def test_glue_entry_points_are_declared():
 
 
 def test_glue_scratch_and_wait_select_entry_points_are_declared():
-    """The wait-queue selection (the planes, the sizes with ``W`` after F,
-    the scratch, both outputs, ``work`` and the stream) and the two
-    scratch sizes, as their wrappers declare them."""
+    """The wait-queue selection (the planes, the sizes with ``W`` and the
+    blocks a row after F, the scratch, both outputs, ``work`` and the
+    stream) and the two scratch sizes (the selection's with the blocks a
+    row too), as their wrappers declare them."""
     entry = c_entry_points(_build.SOURCES["tick_glue"])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    assert entry["tg_wait_select"] == ([P] * 2 + [I, I, LL, I] + [P] * 5, I)
+    assert entry["tg_wait_select"] == ([P] * 2 + [I, I, LL, I, I] + [P] * 5,
+                                       I)
     assert entry["tg_complete_scratch"] == ([I, I, LL], LL)
-    assert entry["tg_wait_scratch"] == ([I, I, LL, I], LL)
+    assert entry["tg_wait_scratch"] == ([I, I, LL, I, I], LL)
     for fn in ("tg_wait_select", "tg_complete_scratch", "tg_wait_scratch",
                "tg_complete", "tg_work_ints"):
         assert tg_ops._SIGNATURES[fn] == entry[fn]

@@ -544,18 +544,55 @@ def test_cuda_flag_kernels_bitwise_on_any_grid(cuda_device, monkeypatch,
         assert bitwise_equal(g, w)
 
 
+#: The selection's own cases (beside some of :data:`GLUE_CASES`): ``(L,
+#: S, F, glue_state keywords)``. A third of the files waiting makes most
+#: of a warp's loads dense (each thread keys its own files).
+WAIT_CASES = {
+    "F % 16 == 4, byte loads": (2, 2, 20_004, {}),
+    "F below a run": (2, 2, 10_000, {}),
+    "W - 1 waiting files a row": (2, 3, 3 * tg_ops.FLAG_RUN + 16, {}),
+    "a third of the files waiting": (2, 2, 50_000, dict(wait=0.3)),
+    "a third waiting, byte loads": (2, 2, 20_003, dict(wait=0.3)),
+}
+
+
+def _wait_inputs(case, device, W, seed):
+    """The state of a selection case. ``"W - 1 waiting files a row"``:
+    every row holds exactly ``W - 1`` waiting files (so the fill decides
+    its last head): at the front of the row, in the first thread's four
+    words of run 0, only after run 0, or anywhere."""
+    if case not in WAIT_CASES:
+        return _glue_inputs(case, device, seed=seed)
+    L, S, F, kw = WAIT_CASES[case]
+    st, c, x = glue_state(seed, L=L, S=S, F=F, device=device, **kw)
+    if case == "W - 1 waiting files a row":
+        rng = np.random.default_rng(seed)
+        span = tg_ops.FLAG_RUN // 4  # the flags of one load of a block
+        words = np.concatenate([np.arange(u * span, u * span + 16)
+                                for u in range(4)])
+        wait = np.zeros((L * S, F), bool)
+        for r in range(L * S):
+            at = [np.arange(F), words, np.arange(tg_ops.FLAG_RUN, F),
+                  rng.permutation(F)][r % 4]
+            wait[r, at[:W - 1]] = True
+        st["wq_wait"] = torch.as_tensor(wait.reshape(L, S, F), device=device)
+    return st, c, x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "F not a multiple of 4, byte loads",
                                   "F below a tile", "many rows",
                                   "every file waiting",
                                   "a few waiting files over many tiles",
-                                  "unaligned planes"])
+                                  "unaligned planes", *WAIT_CASES])
 @pytest.mark.parametrize("W", [1, 4, 5, 32])
 def test_cuda_wait_select_bitwise(cuda_device, W, case):
     """``tg_wait_select`` against the plain selection (``torch.topk`` of
     the keys): ``lowest`` and ``idx`` bitwise, one launch, at W of the
-    specialised list (W <= 4) and of the general one."""
-    st, c, x = _glue_inputs(case, cuda_device, seed=W)
+    specialised list (W <= 4) and of the general one, with 16-byte and
+    byte loads, rows below one run and over several, and rows whose last
+    head only the fill of run 0 gives."""
+    st, c, x = _wait_inputs(case, cuda_device, W, seed=W)
     W = min(W, st["wq_wait"].shape[-1])
     before = tg_ops.launch_counts()["glue_wait_select"]
     got = _glue_step(tg_ops, "wait_select", st, c, x, W)
@@ -564,6 +601,43 @@ def test_cuda_wait_select_bitwise(cuda_device, W, case):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert bitwise_equal(g, w)
+    if case == "W - 1 waiting files a row":
+        assert (want[0][..., -1] == tg_ref.BIG_TICKET).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [4, 32])
+def test_cuda_wait_select_replayed_from_a_graph(cuda_device, W):
+    """``glue.begin`` and the selection captured in one CUDA graph and
+    replayed twice, on two wait queues written into the captured planes:
+    bitwise to the plain selection after each replay (``tg_begin`` resets
+    the selection's ticket, so each replay's last block merges)."""
+    st, c, x = glue_state(3, L=8, S=2, F=50_000, device=cuda_device)
+    now, dt = x["now"], x["dt"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: the build, the SM count
+        tg_ops.wait_select(st, W, tg_ops.begin(st, now, dt)[1])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tg_ops.launch_counts()["glue_wait_select"]
+    with torch.cuda.graph(graph):
+        got = tg_ops.wait_select(st, W, tg_ops.begin(st, now, dt)[1])
+    assert tg_ops.launch_counts()["glue_wait_select"] == before + 1
+    gen = torch.Generator(device=cuda_device)
+    for share in (0.02, 3e-5):
+        gen.manual_seed(int(share * 1e5))
+        plane = st["wq_wait"].shape
+        st["wq_wait"].copy_(torch.rand(plane, generator=gen,
+                                       device=cuda_device) < share)
+        st["wq_ticket"].copy_(torch.randint(0, 40, plane, generator=gen,
+                                            device=cuda_device,
+                                            dtype=torch.int32))
+        graph.replay()
+        want = tg_ref.wait_select(st, W)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert bitwise_equal(g, w)
 
 
 @pytest.mark.cuda

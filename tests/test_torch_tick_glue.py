@@ -43,6 +43,7 @@ from torch_glue_inputs import (
     bitwise_equal,
     clone_state,
     glue_state,
+    kernel_wait_select,
 )
 
 _INF = float("inf")
@@ -59,10 +60,8 @@ def model_begin(st, now, dt):
     return active, torch.zeros(5 * L * S + 3, dtype=torch.int32)
 
 
-#: ``tg_complete``'s tile (256 threads x 4 elements x 4 steps) and
-#: ``tg_wait_select``'s (256 x 16 x 4).
+#: ``tg_complete``'s tile (256 threads x 4 elements x 4 steps).
 COMPLETE_TILE = 4096
-WAIT_TILE = 16384
 
 
 def tiled_row_sum(x, tile=COMPLETE_TILE):
@@ -128,8 +127,8 @@ def model_complete(st, c, now, new_done, comp, work):
     return want, occ3
 
 
-#: The SM count the models size ``tg_link_admit``'s and ``tg_migrate``'s
-#: grid for (an H100 SXM's).
+#: The SM count the models size the flag streams' grid for
+#: (``tg_link_admit``, ``tg_migrate``, ``tg_wait_select``; an H100 SXM's).
 MODEL_SMS = 132
 
 
@@ -206,22 +205,15 @@ def model_migrate(st, c, now, mig, rank, occ3, work):
 
 
 def model_wait_select(st, W, work):
-    """``tg_wait_select``: each file's key ``ticket * F + index`` (ticket
-    2^30 where it does not wait), the lowest C keys of each tile (C = 4 for
-    W <= 4, else 32; a short tile's list padded with the empty key), then
-    the W lowest of each row's tile lists, by sorting (keys are unique in
-    a row); floor division back to the ticket and the index."""
+    """``tg_wait_select`` on the flag streams' grid, lane by lane
+    (``torch_glue_inputs.kernel_wait_select``)."""
     L, S, F = st["wq_wait"].shape
-    C = 4 if W <= 4 else 32
-    empty = torch.iinfo(torch.int64).max
-    key = (torch.where(st["wq_wait"], st["wq_ticket"].to(torch.int64),
-                       ref.BIG_TICKET) * F + torch.arange(F))
-    nt = max(1, -(-F // WAIT_TILE))
-    pad = torch.full((L, S, nt * WAIT_TILE - F), empty, dtype=torch.int64)
-    tiles = torch.cat([key, pad], dim=-1).view(L, S, nt, WAIT_TILE)
-    lists = torch.sort(tiles, dim=-1).values[..., :C]
-    best = torch.sort(lists.reshape(L, S, nt * C), dim=-1).values[..., :W]
-    return (best // F).to(torch.int32), best % F
+    lowest, idx = kernel_wait_select(
+        st["wq_wait"].reshape(-1, F).numpy(),
+        st["wq_ticket"].reshape(-1, F).numpy(), W,
+        ops.flag_blocks(F, L * S, MODEL_SMS), ops.flag_ranges)
+    return (torch.from_numpy(lowest).view(L, S, W),
+            torch.from_numpy(idx).view(L, S, W))
 
 
 MODELS = {"begin": model_begin, "complete": model_complete,
@@ -588,7 +580,8 @@ def test_tick_with_kernel_models_bitwise_over_200_ticks(name, monkeypatch):
 @pytest.mark.parametrize("F", [1, 15, 16, 17, 4095, 1_000_000])
 def test_flag_partition_covers_each_element_once(F, R, sms):
     """``ops.flag_blocks`` and ``ops.flag_ranges`` (the grid and the runs
-    of ``tg_link_admit`` and ``tg_migrate``): every element of a row in
+    of the flag streams, ``tg_link_admit``, ``tg_migrate`` and
+    ``tg_wait_select``): every element of a row in
     exactly one block's ranges, every block with at least one run, and
     the grid within its bounds (one to the row's runs, at most
     ``FLAG_BLOCKS_PER_SM`` an SM over the rows unless one a row)."""

@@ -14,6 +14,10 @@ unlimited (fractional ones too), the cold tier on or off per lane and
 disk limits finite or infinite per site; and the wait queue (``wq_wait``,
 ``wq_ticket``) with the share of waiting files given, tickets tied within
 a row too (drawn last, so the other draws do not depend on them).
+
+:func:`kernel_wait_select` models ``tg_wait_select`` lane by lane, for the
+CPU tests of the selection (``test_torch_wait_select.py``) and of the tick
+(``test_torch_tick_glue.py``).
 """
 
 import numpy as np
@@ -148,3 +152,77 @@ def assert_states_equal(got, want, what=""):
     assert set(got) == set(want)
     for k, w in want.items():
         assert bitwise_equal(got[k], w), f"{what}{k}: not bitwise equal"
+
+
+#: ``tg_wait_select``'s threads a block, 16-byte flag loads a thread a
+#: step and flags a load (``kThreads``, ``kFlagLoads``, ``kFlagVec``): a
+#: run of ``ops.FLAG_RUN`` flags; and the waiting files of a warp's 512
+#: flags of a load from which each thread keys its own (``kDenseWait``).
+WS_THREADS, WS_LOADS, WS_VEC = 256, 4, 16
+WS_DENSE = 32
+
+#: The kernel's empty key.
+NO_KEY = np.iinfo(np.int64).max
+
+
+def _lowest_by_group(group, key, n):
+    """A mask of the ``n`` lowest ``key`` within each ``group``."""
+    order = np.lexsort((key, group))
+    g = group[order]
+    start = np.r_[0, np.flatnonzero(g[1:] != g[:-1]) + 1]
+    rank = np.arange(g.size) - np.repeat(start, np.diff(np.r_[start, g.size]))
+    keep = np.zeros(g.size, bool)
+    keep[order[rank < n]] = True
+    return keep
+
+
+def kernel_wait_select(wait, ticket, W, blocks, flag_ranges, fill=True):
+    """``tg_wait_select`` on rows ``wait [R, F]`` (bool) and ``ticket [R,
+    F]`` (int32) with ``blocks`` blocks a row taking the runs
+    ``flag_ranges(F, blocks, b)``: each key ``ticket * F + index`` of a
+    waiting file goes to the list of the lane that gathers it (lane j of
+    warp w on the files 32 q + j of the warp's 512 flags of a load, or,
+    where those hold ``WS_DENSE`` waiting files or more, the thread whose
+    16 flags hold it); in
+    the block that takes run 0 each thread's list is seeded with the first
+    C keys ``2^30 F + index`` of files that do not wait among its own 64
+    flags of the run (``fill``); a lane keeps its C lowest (C = 4 for W <=
+    4, else 32), a warp the W lowest of its lanes', a block the W lowest
+    of its warps' (written as C keys, the empty key past W), and each row
+    the W lowest of its blocks'. Returns ``(lowest [R, W] int32, idx [R,
+    W] int64)``, the floor quotient and remainder by F."""
+    R, F = wait.shape
+    C = 4 if W <= 4 else 32
+    span = WS_THREADS * WS_VEC  # the flags of one load of a block
+    big = np.int64(2 ** 30) * F
+    lowest = np.empty((R, W), np.int32)
+    idx = np.empty((R, W), np.int64)
+    for r in range(R):
+        key = np.where(wait[r], ticket[r].astype(np.int64),
+                       np.int64(2 ** 30)) * F + np.arange(F)
+        parts = []
+        for b in range(blocks):
+            keys, lanes = [], []
+            for lo, hi in flag_ranges(F, blocks, b):
+                f = lo + np.flatnonzero(wait[r, lo:hi])
+                keys.append(key[f])
+                load = (f - lo) // 512  # a warp's flags of one load
+                dense = np.bincount(load, minlength=64)[load] >= WS_DENSE
+                lanes.append(np.where(dense, (f - lo) % span // WS_VEC,
+                                      (f - lo) % span // 512 * 32 + f % 32))
+                if lo == 0 and fill:  # run 0: each thread's own flags
+                    f = np.flatnonzero(~wait[r, lo:hi])
+                    thread = f % span // WS_VEC
+                    first = _lowest_by_group(thread, f, C)
+                    keys.append(big + f[first])
+                    lanes.append(thread[first])
+            keys, lanes = np.concatenate(keys), np.concatenate(lanes)
+            keep = _lowest_by_group(lanes, keys, C)
+            keys, lanes = keys[keep], lanes[keep]
+            keep = _lowest_by_group(lanes // 32, keys, W)
+            block = np.sort(keys[keep])[:W]
+            parts.append(np.r_[block, np.full(C - block.size, NO_KEY)])
+        best = np.sort(np.concatenate(parts))[:W]
+        lowest[r] = best // F
+        idx[r] = best % F
+    return lowest, idx
