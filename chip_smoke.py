@@ -106,10 +106,12 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    hymba_1_5b in float32 (nh 25, nkv 5, hd 64, T = S = 2048, causal,
    window 1024), and bf16 at hd 100 (nh 32, nkv 16, T = S = 2048,
    causal, window 1024), a width that is not a multiple of 8; the bf16
-   cases at a multiple of 8 through the ``wgmma`` tensor-core kernel, hd
-   100 through the SIMT one, the float32 ones through the ``tf32x3`` one
-   (each product in three TF32 terms of split operands), each case
-   checked to launch its route's kernel exactly once; each against the
+   cases through the ``wgmma`` tensor-core kernel (``loader``: TMA at a
+   multiple of 8, hd 100 through the producer's threads, ``cp.async``),
+   the float32 ones through the ``tf32x3`` one (each product in three
+   TF32 terms of split operands), each case checked to launch its
+   route's kernel exactly once, and the thread loader exactly when its
+   width needs it; each against the
    plain version at atol 4e-3 / rtol 8e-3 in bf16 (one bf16 ulp, and at
    most 1% of the elements unequal) or 2e-5 in float32, with PyTorch's
    ``scaled_dot_product_attention`` timed beside it as the yardstick
@@ -132,8 +134,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     cold decide run); the glue kernels,
     which replace no Pallas kernel, name the lines of ``repro``'s tick
     that XLA fuses as what they replace; attention entries
-    also name their route (``variant``: ``wgmma``, ``simt`` or
-    ``tf32x3``, each at least once) and that kernel's source; then the
+    also name their route (``variant``: ``wgmma`` or ``tf32x3``, each at
+    least once; the ``wgmma`` ones their ``loader``, ``tma`` or
+    ``threads``, each at least once) and that kernel's source; then the
     ``ok`` line.
 
 Phases 3, 8, 9 and 10 print the kernel's and the plain version's
@@ -188,19 +191,20 @@ KERNEL_SOURCE = {
     "engine_count": _CAROUSEL,
     "engine_tick": _CAROUSEL,
     "flash_attention":
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_wgmma.cu",
     "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
 }
 #: The attention kernel each route launches (``flash_attention.ops._route``:
-#: float32 -> ``tf32x3``, bfloat16 at hd a multiple of 8 -> ``wgmma``, else
-#: ``simt``).
+#: float32 -> ``tf32x3``, bfloat16 -> ``wgmma``).
 ATTENTION_SOURCE = {
     "tf32x3": "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_tf32x3.cu",
-    "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
-             "flash_attention_wgmma.cu",
-    "simt": KERNEL_SOURCE["flash_attention"],
+    "wgmma": KERNEL_SOURCE["flash_attention"],
 }
+#: The wgmma kernel's loaders (``flash_attention.ops._loader``: TMA at hd a
+#: multiple of 8, else the producer's threads), each on some case.
+ATTENTION_LOADERS = ("tma", "threads")
 REPLACES = {
     "transfer_tick": "src/repro/kernels/lane_tick/lane_tick.py:81",
     "gcs_admit": "src/repro/kernels/lane_tick/lane_tick.py:194",
@@ -1575,7 +1579,8 @@ def carousel_phase(torch, n: int = 1_000_000, n_ticks: int = 1000):
 #: Published widths, and hd 168: what ``repro``'s gemma3_27b config derives
 #: (5376/32; the published head_dim is 128), kept as a width that is not a
 #: power of two, with two query heads per kv head; hd 100 in bf16, a width
-#: that is not a multiple of 8, is the SIMT kernel's route.
+#: that is not a multiple of 8, goes through the wgmma kernel's thread
+#: loader (8-byte ``cp.async``; TMA needs rows of a multiple of 16 bytes).
 ATTENTION_CASES = (
     ("qwen3_4b", 1, 32, 8, 128, 4096, "bfloat16", True, 0),
     ("gemma3_27b local", 1, 32, 16, 128, 4096, "bfloat16", True, 1024),
@@ -1650,22 +1655,28 @@ def attention_phase(torch):
     ops.reset_launch_counts()
     outs, launches, routes = [], [], []
     for q, k, v, kw in inputs:
-        route = ops._route(q.dtype, q.shape[-1])
+        hd = q.shape[-1]
+        route = ops._route(q.dtype, hd)
+        loader = ops._loader(hd) if route == "wgmma" else None
         before = ops.launch_counts()
         outs.append(ops.flash_attention(q, k, v, **kw))
         after = ops.launch_counts()
         launches.append(after["flash_attention"] - before["flash_attention"])
-        key = f"flash_attention_{route}"
-        check(after[key] - before[key] == 1,
+        d = {key: after[key] - before[key] for key in after}
+        check(d[f"flash_attention_{route}"] == 1,
               f"flash_attention: the {route} kernel launched "
-              f"{after[key] - before[key]} times for one call")
-        routes.append(route)
+              f"{d[f'flash_attention_{route}']} times for one call")
+        check(d["flash_attention_wgmma_threads"] == (loader == "threads"),
+              f"flash_attention: the wgmma thread loader launched "
+              f"{d['flash_attention_wgmma_threads']} times for one call at "
+              f"hd {hd} ({route}, loader {loader})")
+        routes.append((route, loader))
     torch.cuda.synchronize()
     check(launches == [1] * len(inputs),
           f"flash_attention: {launches} launches per case")
 
     per_case = []
-    for case, (q, k, v, kw), out, n_launch, route in zip(
+    for case, (q, k, v, kw), out, n_launch, (route, loader) in zip(
             ATTENTION_CASES, inputs, outs, launches, routes):
         label, B, nh, nkv, hd, T, dt_name, causal, window = case
         want = ref.attention(q, k, v, **kw)
@@ -1705,6 +1716,8 @@ def attention_phase(torch):
                                   n=5),
                  library_ms=time_ms(torch, lib, n=10),
                  variant=route, source=ATTENTION_SOURCE[route])
+        if loader is not None:
+            r["loader"] = loader
         if dt_name == "bfloat16":
             flops = 4 * hd * pairs
             r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
@@ -1725,7 +1738,8 @@ def attention_phase(torch):
         dev_txt = (f"{dev_us:.1f}" if dev_us is not None else
                    f"not measured (profiler read {prof_us:.1f})")
         log(f"attention {label} (B={B} nh={nh} nkv={nkv} hd={hd} T=S={T} "
-            f"{dt_name} causal={causal} window={window}, {route} kernel): "
+            f"{dt_name} causal={causal} window={window}, {route} kernel"
+            f"{'' if loader is None else f', {loader} loader'}): "
             f"max abs err "
             f"{r['max_abs_err']:.3g} (bar atol {atol} rtol {rtol}; SDPA's "
             f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
@@ -1928,7 +1942,7 @@ def main(argv=None) -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")},
                     **{k: r[k] for k in (
-                        "variant", "device_us", "graph_ms",
+                        "variant", "loader", "device_us", "graph_ms",
                         "bound_ms_without_rank", "bound_ms_simt",
                         "copy_device_us", "library_device_us",
                         "wall_us", "idle_share",
@@ -1945,6 +1959,9 @@ def main(argv=None) -> int:
     check({k["variant"] for k in kernels if k["name"] == "flash_attention"}
           == set(ATTENTION_SOURCE), "the kernels line misses an attention "
                                     "route")
+    check({k.get("loader") for k in kernels if k.get("variant") == "wgmma"}
+          == set(ATTENTION_LOADERS), "the kernels line misses a loader of "
+                                     "the wgmma kernel")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels on one GPU: the bf16 route (``wgmma``)
-in each of its head-width buckets, or the float32 route.
+in each of its head-width buckets and with each loader, or the float32
+route.
 
     python3 scripts/bench_attention.py [--dtype bfloat16|float32]
                                        [--reps 5] [--root DIR]
+                                       [--cases LABEL,...]
 
-Cases, causal, one layer, B = 1. bfloat16 (T = S = 4096): the three bf16
-cases of ``chip_smoke.py`` (qwen3_4b, gemma3_27b's local layers, hd 168)
-and one case in each other bucket (hd 64 at qwen3_4b's head counts, hd
-256 with 16 query heads on 8 kv heads). float32 (T = S = 2048): the two
+Cases, causal, one layer, B = 1. bfloat16 (T = S = 4096): the bf16
+cases of ``chip_smoke.py`` (qwen3_4b, gemma3_27b's local layers, hd 168,
+hd 100 at its head counts and window), one case in each other bucket (hd
+64 at qwen3_4b's head counts, hd 256 with 16 query heads on 8 kv heads),
+and hd 97 (32 query heads on 16, no window), an odd width: hd 100 and 97
+go through the wgmma kernel's thread loader (8-byte ``cp.async``; loads
+through registers), the others through TMA. float32 (T = S = 2048): the two
 float32 cases of ``chip_smoke.py`` (hd 168, hymba_1_5b) and hd 128 and hd
 256 at the head counts of the bf16 cases of those widths. For each case:
 ``--reps`` timings of 10 calls (CUDA events after 3 warm-up calls,
 ``chip_smoke.time_ms``), the device time per call from ``torch.profiler``
 (``chip_smoke.device_us``), the host's time to enqueue one call, the
-launches of the kernel its route picks, the largest error and the elements
+launches of the kernel its route picks (and its loader, where the port
+has one), the largest error and the elements
 outside the bar against the plain version (bf16: the share unequal), one
 call of PyTorch's SDPA (``chip_smoke.sdpa``), and the bound: bf16 4*hd
 flops per unmasked pair at 989 TFLOP/s; float32 12*hd at dense TF32's 495
@@ -47,6 +53,8 @@ CASES = {
         ("hd168", 32, 16, 168, 1024),
         ("hd64", 32, 8, 64, 0),
         ("hd256", 16, 8, 256, 0),
+        ("hd100", 32, 16, 100, 1024),
+        ("hd97", 32, 16, 97, 0),
     )),
     "float32": (2048, (
         ("hd168", 32, 16, 168, 1024),
@@ -65,6 +73,9 @@ def main(argv=None) -> int:
                     help="timings of 10 calls per case (default 5)")
     ap.add_argument("--root", type=Path, default=None,
                     help="time the port of this checkout instead")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated labels of the cases to run "
+                         "(default all of the dtype's)")
     args = ap.parse_args(argv)
 
     import torch
@@ -84,6 +95,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
     T, cases = CASES[args.dtype]
+    if args.cases is not None:
+        # inputs come from one generator in case order: keep the order
+        wanted = set(args.cases.split(","))
+        unknown = wanted - {c[0] for c in cases}
+        if unknown:
+            print(f"bench_attention: no case {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
     atol, rtol = cs.ATTENTION_BARS[args.dtype]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -93,12 +112,23 @@ def main(argv=None) -> int:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((1, nh, T, hd), (1, nkv, T, hd),
                                  (1, nkv, T, hd)))
+        if args.cases is not None and label not in wanted:
+            continue
         kw = dict(causal=True, window=window)
         route = ops._route(dtype, hd)
+        # the parent of the thread loader has no loaders
+        loader = (ops._loader(hd) if route == "wgmma"
+                  and hasattr(ops, "_loader") else None)
         key = f"flash_attention_{route}"
-        before = ops.launch_counts()[key]
+        before = ops.launch_counts()
         out = ops.flash_attention(q, k, v, **kw)
-        launched = ops.launch_counts()[key] - before
+        after = ops.launch_counts()
+        launched = after[key] - before[key]
+        if loader == "threads":
+            tkey = "flash_attention_wgmma_threads"
+            if after[tkey] - before[tkey] != launched:
+                raise SystemExit(f"{label}: the thread loader launched "
+                                 f"{after[tkey] - before[tkey]} times")
         want = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
@@ -126,7 +156,8 @@ def main(argv=None) -> int:
             bound = cs.bound_ms(0, 12 * hd * pairs, cs.TF32_OPS_PER_S)[0]
             bound_simt = cs.bound_ms(0, 4 * hd * pairs)[0]
         row = dict(case=label, nh=nh, nkv=nkv, hd=hd, window=window, T=T,
-                   dtype=args.dtype, route=route, launches=launched, ms=ms,
+                   dtype=args.dtype, route=route, loader=loader,
+                   launches=launched, ms=ms,
                    device_ms=dev_us / 1e3, host_enqueue_ms=host_us / 1e3,
                    library_ms=library_ms, bound_ms=bound,
                    bound_ms_simt=bound_simt, max_abs_err=err,
@@ -135,7 +166,9 @@ def main(argv=None) -> int:
         simt = ("" if bound_simt is None
                 else f", SIMT bound {bound_simt:.4f} ms")
         print(f"{label} (nh {nh} nkv {nkv} hd {hd} window {window} T=S {T} "
-              f"{args.dtype}, {route} kernel, {launched} launch): ms "
+              f"{args.dtype}, {route} kernel"
+              f"{'' if loader is None else f', {loader} loader'}, "
+              f"{launched} launch): ms "
               f"{' '.join(f'{t:.4f}' for t in ms)}; device {dev_us:.1f} us; "
               f"host enqueue {host_us:.1f} us; SDPA {library_ms:.4f} ms; "
               f"bound {bound:.4f} ms{simt}; max abs err {err:.3g}, "

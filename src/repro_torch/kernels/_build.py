@@ -32,7 +32,6 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES: Dict[str, str] = {
     "lane_tick": "lane_tick/csrc/lane_tick.cu",
     "carousel_update": "carousel_update/csrc/carousel_update.cu",
-    "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "flash_attention_tf32x3":
         "flash_attention/csrc/flash_attention_tf32x3.cu",
@@ -249,10 +248,11 @@ class KernelLib:
             self._lib = lib
         return self._lib
 
-    def launch(self, kernel: str, fn: str, device, *args) -> None:
+    def launch(self, kernel, fn: str, device, *args) -> None:
         """Call entry point ``fn`` with ``args`` and the current stream of
         ``device`` last; raise if it returns a CUDA error code, else count
-        one launch of ``kernel``."""
+        one launch of ``kernel`` (a name, or a tuple of names, each
+        counted: a kernel and the variant of it that ran)."""
         import torch
 
         entry = getattr(self.get(), fn)
@@ -265,7 +265,8 @@ class KernelLib:
         if rc != 0:
             msg = getattr(self.get(), self.error_fn)(rc).decode()
             raise RuntimeError(f"{fn}: CUDA error {rc}: {msg}")
-        self.launches[kernel] += 1
+        for k in (kernel,) if isinstance(kernel, str) else kernel:
+            self.launches[k] += 1
 
 
 def check_tensor(name: str, t, dtype, shape, device) -> None:

@@ -9,9 +9,8 @@
 //
 //   fa_tf32x3_forward -> fa_tf32x3_kernel<W>, W = hd rounded up to 8
 //
-// bfloat16 inputs go to flash_attention_wgmma.cu (hd a multiple of 8) or
-// to the SIMT kernel of flash_attention.cu; ../ops.py picks the kernel from
-// dtype and hd alone.
+// bfloat16 inputs go to flash_attention_wgmma.cu; ../ops.py picks the
+// kernel from dtype alone.
 //
 // Arithmetic. One TF32 product keeps 10 mantissa bits of each operand, so
 // scores would be off by about 5e-4 relative, far outside the 2e-5 bar of

@@ -1,18 +1,19 @@
 // Hand-written Hopper (sm_90a) attention forward in bfloat16: tensor cores
-// through wgmma, K/V tiles through a TMA ring, warp-specialised producer
-// and consumer warpgroups.
+// through wgmma, K/V tiles through a ring in shared memory filled by a
+// producer warpgroup (TMA, or cp.async from its threads), consumer
+// warpgroups.
 //
 // Replaces the Pallas kernel _attn_kernel / flash_attention_pallas of
 // src/repro/kernels/flash_attention/flash_attention.py:28 (:66) for
-// bfloat16 inputs whose head width hd is a multiple of 8 in 8..256, and
-// computes what ../ref.py computes (the definition, attention_ref):
+// bfloat16 inputs at any head width hd in 1..256, and computes what
+// ../ref.py computes (the definition, attention_ref):
 //
-//   fa_wgmma_forward -> fa_wgmma_kernel<HDP>
+//   fa_wgmma_forward -> fa_wgmma_kernel<HDP, THREADS>
 //
-// float32 inputs, and bfloat16 at other widths, stay on the SIMT kernel
-// (flash_attention.cu); ../ops.py picks the kernel from dtype and hd alone.
+// float32 inputs go to flash_attention_tf32x3.cu; ../ops.py picks the
+// kernel from dtype alone.
 //
-// Arithmetic (the same function and the same bar as the SIMT kernel): the
+// Arithmetic (held to the float32 definition at one bf16 ulp): the
 // scores Q.K^T are formed from the bf16 inputs in float32 and multiplied
 // there by hd^-0.5 * log2(e) (Q is not pre-scaled, which would round once
 // more; the softmax then runs on exp2); masks, running max, normaliser and
@@ -32,11 +33,10 @@
 //   first, the query heads of one kv head next to each other in launch
 //   order so their K/V tiles are still in L2;
 // - warp specialisation: consumer warpgroups of 64 query rows each run the
-//   wgmmas and the softmax; one thread of the last warpgroup starts every
-//   TMA copy: Q once, then K and V tiles of BK = 64 rows into a ring of up
-//   to 3 stages with full/empty mbarrier pairs, so later tiles land while
-//   this one is computed. Two consumers (setmaxnreg: 240 registers each,
-//   24 for the producer) up to HDP 192, so one consumer's softmax runs
+//   wgmmas and the softmax; the last warpgroup, the producer, fills Q once,
+//   then K and V tiles of BK = 64 rows into a ring of up to 3 stages with
+//   full/empty mbarrier pairs, so later tiles land while this one is
+//   computed. Two consumers up to HDP 192, so one consumer's softmax runs
 //   while the other's wgmmas keep the tensor cores busy; one for HDP 256,
 //   whose accumulator (128 registers a thread) spills at 240;
 // - each consumer starts S_i = Q.K_i^T and the P_{i-1}.V_{i-1} it owes for
@@ -47,12 +47,36 @@
 //   memory (no transpose), HDP/16 k-steps; O += P.V as wgmma m64nHDPk16
 //   with P in registers (the S accumulator's fragment is the A fragment)
 //   and V in shared memory read MN-major (the transpose bit);
-// - TMA maps are 3-D over [heads, rows, hd] with 128-byte swizzle and boxes
-//   of 64 bf16 columns, the layout the wgmma descriptors read (SBO 1024 B
-//   between 8-row groups; LBO one 64-column chunk for V). Rows past T or S
-//   of a head read zeros, never the next head's rows, and so do columns
-//   past hd up to the bucket width HDP, which pads hd = 168 to 192 for
-//   free. A key at s >= S still scores -inf in registers: it weighs 0;
+// - shared tiles in the layout of a TMA box of 64 bf16 columns with
+//   128-byte swizzle, which the wgmma descriptors read (SBO 1024 B between
+//   8-row groups; LBO one 64-column chunk for V): element c of row r lies
+//   in 64-column chunk c / 64, row r, 16-byte piece ((c % 64) / 8) ^ (r %
+//   8). Rows past T or S read zeros, never the next head's rows, and so do
+//   columns past hd up to the bucket width HDP. A key at s >= S still
+//   scores -inf in registers: it weighs 0;
+// - two loaders, one consumer. Where a row is a multiple of 16 bytes
+//   (hd % 8 == 0; THREADS false), one producer thread starts TMA copies
+//   through 3-D maps over [heads, rows, hd], whose fill gives the zeros
+//   (hd 168 runs in the 192 bucket for free), and the full barriers count
+//   one arrival and the bytes. TMA takes no other width (its global
+//   strides are multiples of 16 bytes; a row of hd 100 is 200), so there
+//   (THREADS true) all 128 producer threads copy into the same layout,
+//   each a unit of a row in every P-th row (Walk): 4 values by an 8-byte
+//   cp.async where hd % 4 == 0, 2 by a 4-byte one at even hd, and at odd
+//   hd (cp.async has no 2-byte size) 4 values loaded one at a time into
+//   registers, 2 rows of them in flight, and stored as 8 bytes (zeros
+//   past hd). Rows past T or S are copied with source size 0 (zeros);
+//   columns hd..HDP-1 are zeroed once at the start and no copy writes
+//   values there. Each thread arrives on the full barrier when its copies
+//   have landed (cp.async.mbarrier.arrive.noinc; after its stores at odd
+//   hd), so those barriers count 128 arrivals, and a consumer orders the
+//   copies, generic-proxy writes, before its wgmmas, async-proxy reads,
+//   by fence.proxy.async after each wait. The producer walks its
+//   addresses in 40 registers, taken from the consumers: 232 each where
+//   the TMA instances give 240 and 24 (at 24 the walk spills). The
+//   copies and their addresses take issue slots from the consumers: at
+//   the same work a thread loader of 8-byte copies ran 1.3-1.4x TMA's
+//   time on an H100 SXM at 700 W, one of 16-byte copies 1.1x;
 // - templates on the bucket HDP in {64, 128, 192, 256} so the accumulator
 //   holds HDP/2 registers a thread, not 128. BK = 64 in every bucket: at
 //   128 keys the scores and P's halves (128 registers) spill beside the
@@ -71,7 +95,8 @@
 // keeps rel < window; a masked pair scores exactly -1e30, so a row whose
 // every key is masked averages all keys. Key tiles outside every row's mask
 // are skipped only where each row of the query tile keeps a key (always
-// so when T <= S), as the SIMT kernel does.
+// so when T <= S): the skipped pairs would weigh exactly 0. At odd hd the
+// output is stored one value at a time (a pair would cross a row).
 //
 // Plain C entry points, loaded with ctypes: launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError() or one of this
@@ -91,18 +116,29 @@ constexpr int kBK = 64;         // keys per K/V tile
 constexpr int kSmemMax = 232448;  // shared memory a block may use (227 KB)
 constexpr float kMasked = -1e30f;
 
+constexpr int kProducers = 128;  // threads of the producer warpgroup
+constexpr int kOddBatch = 2;  // rows of 4 loads in flight a thread, odd hd
+
 // Codes of this file's own failures, above every cudaError_t.
 constexpr int kErrEntryPoint = 20001;
 constexpr int kErrEncode = 20002;
+constexpr int kErrAlign = 20003;
 
 // Tiling of a head-width bucket HDP: consumer warpgroups (64 query rows
 // each) per CTA. The 256 bucket keeps one consumer: its 128 accumulator
 // registers a thread spill at the 240 that setmaxnreg leaves each of two.
-template <int HDP>
+// With two, the registers each warpgroup keeps after setmaxnreg: 384
+// threads launch at 168 each (64,512 in all), and 2 x 128 x 240 + 128 x 24
+// and 2 x 128 x 232 + 128 x 40 both come to that sum.
+template <int HDP, bool THREADS>
 struct Bucket {
   static constexpr int kConsumers = HDP <= 192 ? 2 : 1;
   static constexpr int kBQ = 64 * kConsumers;  // query rows per CTA
   static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr uint32_t kProducerRegs = THREADS ? 40 : 24;
+  static constexpr uint32_t kConsumerRegs = THREADS ? 232 : 240;
+  static_assert(kConsumers == 1 || 2 * kConsumerRegs + kProducerRegs == 504,
+                "registers: 384 threads launch at 168 each");
 };
 
 // Byte offsets of one CTA's shared memory (from a 1024-byte aligned base:
@@ -177,6 +213,149 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(head)
       : "memory");
 }
+
+// -- the thread loader ------------------------------------------------------
+
+// Where a TMA box of 64 columns with 128-byte swizzle puts element (r, c)
+// of a tile of R rows at `tile`: 64-column chunk c / 64, row r, 16-byte
+// piece ((c % 64) / 8) ^ (r % 8), byte 2 * (c % 8) in it.
+template <int R>
+__device__ __forceinline__ uint32_t swizzled(uint32_t tile, int r, int c) {
+  return tile + (c >> 6) * (R * kRowBytes) + r * kRowBytes +
+         ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+               "l"(src), "n"(BYTES), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(0), "r"(0), "r"(0), "r"(0)
+               : "memory");
+}
+
+// Order this thread's shared-memory writes (generic proxy) before reads by
+// the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A producer thread's share of a tile, the same in every tile. Each row is
+// cut into units of U values, n_u a row (U = 2 or 4 copied values; at odd
+// hd U = 4 with the row read up to a multiple of 4, zeros past hd).
+// Thread i takes unit i % n_u of rows i / n_u, i / n_u + P, ..., P = 128 /
+// n_u rows at a time; threads from P * n_u on take none. Consecutive
+// threads take consecutive units, so a warp reads one run of memory, and
+// a thread's unit keeps its column: from row to row only the row's
+// address and its swizzle change.
+struct Walk {
+  int c;     // first column of this thread's unit
+  int r0;    // its first row, or 1 << 20: no unit
+  int pass;  // P
+};
+
+__device__ __forceinline__ Walk make_walk(int tid, int hd, int u) {
+  const int n_u = (hd + u - 1) / u;
+  const int pass = kProducers / n_u;
+  return Walk{(tid % n_u) * u, tid / n_u < pass ? tid / n_u : 1 << 20,
+              pass};
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t lo,
+                                             uint32_t hi) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(lo),
+               "r"(hi)
+               : "memory");
+}
+
+// This thread's units of a tile of R rows into the swizzled `tile`, from
+// `src`, where `rows` of the R rows exist (the rest read zeros): BYTES a
+// unit through cp.async, or at BYTES == 2 (odd hd) four values loaded one
+// at a time into registers, kOddBatch rows of them in flight, and stored
+// as one 8-byte unit.
+template <int R, int BYTES>
+__device__ __forceinline__ void load_tile(uint32_t tile,
+                                          const __nv_bfloat16* src, int rows,
+                                          int hd, Walk w) {
+  const int present = min(rows, R);
+  // the unit's 64-column chunk, and its bytes into a 128-byte row before
+  // the swizzle, which moves them by (r % 8) 16-byte pieces
+  const uint32_t col = tile + (w.c >> 6) * (R * kRowBytes);
+  const uint32_t piece = (w.c << 1) & 127;
+  auto to = [&](int r) {
+    return col + r * kRowBytes + (piece ^ ((r & 7) << 4));
+  };
+  if constexpr (BYTES > 2) {
+    for (int r = w.r0; r < R; r += w.pass) {
+      const bool in = r < present;
+      cp_async<BYTES>(to(r), src + (in ? r * hd + w.c : 0), in ? BYTES : 0);
+    }
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    const int nk = hd - w.c;  // values of the unit inside the row, 1..4+
+    for (int r0 = w.r0; r0 < R; r0 += kOddBatch * w.pass) {
+      uint32_t lo[kOddBatch], hi[kOddBatch];
+#pragma unroll
+      for (int b = 0; b < kOddBatch; ++b) {
+        const int r = r0 + b * w.pass;
+        const bool in = r < present;
+        const unsigned short* p = s + (in ? r * hd + w.c : 0);
+        const uint32_t x0 = in ? __ldg(p) : 0u;
+        const uint32_t x1 = in && nk > 1 ? __ldg(p + 1) : 0u;
+        const uint32_t x2 = in && nk > 2 ? __ldg(p + 2) : 0u;
+        const uint32_t x3 = in && nk > 3 ? __ldg(p + 3) : 0u;
+        lo[b] = x0 | (x1 << 16);
+        hi[b] = x2 | (x3 << 16);
+      }
+#pragma unroll
+      for (int b = 0; b < kOddBatch; ++b) {
+        const int r = r0 + b * w.pass;
+        if (r < R) st_shared_v2(to(r), lo[b], hi[b]);
+      }
+    }
+  }
+}
+
+// This thread has issued its copies of a tile: its arrival on the full
+// barrier `bar` comes when they have landed (cp.async), or now, after its
+// stores (BYTES == 2).
+template <int BYTES>
+__device__ __forceinline__ void arrive_loaded(uint32_t bar) {
+  if constexpr (BYTES > 2)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     bar)
+                 : "memory");
+  else
+    mbar_arrive(bar);
+}
+
+// Zero the 16-byte pieces of each row of a tile of R rows from the one
+// that holds column hd rounded down to 8 (a thread loader copies the
+// values below hd over that one later): columns hd..HDP-1 read zeros, as
+// TMA's fill gives them.
+template <int HDP, int R>
+__device__ __forceinline__ void zero_pad(uint32_t tile, int hd, int tid,
+                                         int n_threads) {
+  const int j0 = hd / 8, per_row = HDP / 8 - j0;
+  for (int i = tid; i < R * per_row; i += n_threads) {
+    const int r = i / per_row;
+    st_shared_zero16(swizzled<R>(tile, r, 8 * (j0 + i % per_row)));
+  }
+}
+
+// The operands for a thread loader, and its copy size in bytes (8, 4 or
+// 2); unused by the TMA instances.
+struct Ptrs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  int copy;
+};
 
 // -- wgmma -----------------------------------------------------------------
 
@@ -543,16 +722,43 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], Rows& r,
   r.l_b = r.l_b * r.corr_b + sum_b;
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(Bucket<HDP>::kThreads, 1)
+// The producer of a THREADS instance, all 128 threads (tid 0..127): Q once,
+// then each K/V tile into its ring stage once the consumers have released
+// it, BYTES a copy.
+template <int BYTES, int BQ, int STAGES, int KV_BYTES>
+__device__ __forceinline__ void produce_threads(
+    const Ptrs& src, uint32_t sq, uint32_t sk, uint32_t sv, uint32_t bar_q,
+    int bh, int bkv, int t0, int Tq, int S, int hd, int kt0, int n_tiles,
+    int tid) {
+  const Walk w = make_walk(tid, hd, BYTES > 2 ? BYTES / 2 : 4);
+  load_tile<BQ, BYTES>(sq, src.q + (static_cast<long long>(bh) * Tq + t0) * hd,
+                       Tq - t0, hd, w);
+  arrive_loaded<BYTES>(bar_q);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(bar_q + 8 * (1 + 2 * STAGES + st),
+              ((i / STAGES) & 1) ^ 1);  // stage released
+    const int s0 = (kt0 + i) * kBK;
+    const long long off = (static_cast<long long>(bkv) * S + s0) * hd;
+    load_tile<kBK, BYTES>(sk + st * KV_BYTES, src.k + off, S - s0, hd, w);
+    arrive_loaded<BYTES>(bar_q + 8 * (1 + st));
+    load_tile<kBK, BYTES>(sv + st * KV_BYTES, src.v + off, S - s0, hd, w);
+    arrive_loaded<BYTES>(bar_q + 8 * (1 + STAGES + st));
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <int HDP, bool THREADS>
+__global__ void __launch_bounds__(Bucket<HDP, THREADS>::kThreads, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
-                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap vmap, const Ptrs src,
                 __nv_bfloat16* __restrict__ o, int nh, int group, int Tq,
                 int S, int hd, int causal, int window, float scale) {
   constexpr int BK = kBK;
-  constexpr int kConsumers = Bucket<HDP>::kConsumers;
-  constexpr int kBQ = Bucket<HDP>::kBQ;
+  using T = Bucket<HDP, THREADS>;
+  constexpr int kConsumers = T::kConsumers;
+  constexpr int kBQ = T::kBQ;
   using L = Smem<HDP, BK, kBQ>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -581,11 +787,22 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kt0 = lo / BK;
   const int n_tiles = (hi + BK - 1) / BK - kt0;
 
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
+  if constexpr (THREADS) {
+    zero_pad<HDP, kBQ>(sq, hd, threadIdx.x, T::kThreads);
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(bar_k(st), 1);
-      mbar_init(bar_v(st), 1);
+      zero_pad<HDP, BK>(sk + st * L::kKVBytes, hd, threadIdx.x, T::kThreads);
+      zero_pad<HDP, BK>(sv + st * L::kKVBytes, hd, threadIdx.x, T::kThreads);
+    }
+    fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    // a full barrier counts TMA's one arrival (and its bytes) or one
+    // arrival per producer thread
+    constexpr uint32_t kFull = THREADS ? kProducers : 1;
+    mbar_init(bar_q, kFull);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_k(st), kFull);
+      mbar_init(bar_v(st), kFull);
       mbar_init(bar_e(st), kConsumers * 4);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -595,9 +812,21 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // the warpgroup, as a value the compiler sees is uniform in each warp
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == kConsumers) {
-    // -- producer: one thread starts every copy ----------------------------
-    if constexpr (kConsumers == 2) setmaxnreg_dec<24>();
-    if (threadIdx.x == kConsumers * 128) {
+    if constexpr (kConsumers == 2) setmaxnreg_dec<T::kProducerRegs>();
+    if constexpr (THREADS) {
+      // -- producer: its 128 threads copy every tile -----------------------
+      const int tid = threadIdx.x - kConsumers * 128;
+      if (src.copy == 8)
+        produce_threads<8, kBQ, kStages, L::kKVBytes>(
+            src, sq, sk, sv, bar_q, bh, bkv, t0, Tq, S, hd, kt0, n_tiles, tid);
+      else if (src.copy == 4)
+        produce_threads<4, kBQ, kStages, L::kKVBytes>(
+            src, sq, sk, sv, bar_q, bh, bkv, t0, Tq, S, hd, kt0, n_tiles, tid);
+      else
+        produce_threads<2, kBQ, kStages, L::kKVBytes>(
+            src, sq, sk, sv, bar_q, bh, bkv, t0, Tq, S, hd, kt0, n_tiles, tid);
+    } else if (threadIdx.x == kConsumers * 128) {
+      // -- producer: one thread starts every copy --------------------------
       mbar_expect_tx(bar_q, L::kQBytes);
       for (int c = 0; c < L::kChunks; ++c)
         tma_load(sq + c * L::kQChunk, &qmap, bar_q, c * 64, t0, bh);
@@ -622,7 +851,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // Each step starts S_i = Q.K_i^T and the P_{i-1}.V_{i-1} owed for the
     // previous tile back to back, waits for both, then runs the softmax of
     // tile i; the other consumer's wgmmas fill the tensor cores meanwhile.
-    if constexpr (kConsumers == 2) setmaxnreg_inc<240>();
+    if constexpr (kConsumers == 2) setmaxnreg_inc<T::kConsumerRegs>();
     const int lane = threadIdx.x % 32;
     const int warp = (threadIdx.x % 128) / 32;
     const int tw0 = t0 + wg * 64;  // first row of this warpgroup
@@ -641,6 +870,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_e(st));
     };
+    // a tile has landed; copies by threads are ordered before the wgmmas
+    auto wait_full = [&](uint32_t bar, uint32_t parity) {
+      mbar_wait(bar, parity);
+      if constexpr (THREADS) fence_proxy_async();
+    };
 
     float acc[HDP / 2];
 #pragma unroll
@@ -650,8 +884,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < BK / 2; ++j) s[j] = 0.0f;
     uint32_t p_hi[BK / 4], p_lo[BK / 4];
 
-    mbar_wait(bar_q, 0);
-    mbar_wait(bar_k(0), 0);
+    wait_full(bar_q, 0);
+    wait_full(bar_k(0), 0);
     qk_start<HDP, BK, L::kQChunk>(s, q_wg, sk);
     wgmma_wait<0>();
     fence_regs(s);
@@ -661,12 +895,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 1; i < n_tiles; ++i) {
       const int st = i % kStages, prev = (i - 1) % kStages;
       const int s0 = (kt0 + i) * BK;
-      mbar_wait(bar_k(st), (i / kStages) & 1);
+      wait_full(bar_k(st), (i / kStages) & 1);
       qk_start<HDP, BK, L::kQChunk>(s, q_wg, sk + st * L::kKVBytes);
 #pragma unroll
       for (int j = 0; j < HDP / 2; ++j)
         acc[j] *= (j / 2) % 2 ? r.corr_b : r.corr_a;
-      mbar_wait(bar_v(prev), ((i - 1) / kStages) & 1);
+      wait_full(bar_v(prev), ((i - 1) / kStages) & 1);
       pv_start<HDP, BK>(acc, p_hi, p_lo, sv + prev * L::kKVBytes);
       wgmma_wait<0>();
       fence_regs(s);
@@ -682,7 +916,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int j = 0; j < HDP / 2; ++j)
       acc[j] *= (j / 2) % 2 ? r.corr_b : r.corr_a;
-    mbar_wait(bar_v(last), ((n_tiles - 1) / kStages) & 1);
+    wait_full(bar_v(last), ((n_tiles - 1) / kStages) & 1);
     pv_start<HDP, BK>(acc, p_hi, p_lo, sv + last * L::kKVBytes);
     wgmma_wait<0>();
     fence_regs(acc);
@@ -701,37 +935,72 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const bool second = (j / 2) % 2;
       const int t = second ? r.tb : r.ta;
       const float l = second ? r.l_b : r.l_a;
-      if (t < Tq && col < hd)
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + (static_cast<long long>(bh) * Tq + t) * hd + col) =
-            __floats2bfloat162_rn(acc[j] / l, acc[j + 1] / l);
+      if (t < Tq && col < hd) {
+        __nv_bfloat16* at =
+            o + (static_cast<long long>(bh) * Tq + t) * hd + col;
+        if (THREADS && (hd & 1)) {
+          // odd hd: the pair would cross into the next row, misaligned
+          at[0] = __float2bfloat16_rn(acc[j] / l);
+          if (col + 1 < hd) at[1] = __float2bfloat16_rn(acc[j + 1] / l);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(at) =
+              __floats2bfloat162_rn(acc[j] / l, acc[j + 1] / l);
+        }
+      }
     }
   }
 }
 
 // Bring-up probe of the pieces above on one warpgroup: S = Q.K^T for 64
 // query rows and BK keys, then O = S.V with S carried as two bf16 halves
-// (no scale, mask or softmax), both written in float32 row-major. With
-// small integer inputs every sum is exact, so both must equal the plain
-// products bitwise.
-template <int HDP>
+// (no scale, mask or softmax), both written in float32 row-major, O with
+// all HDP columns. The warpgroup loads its own tiles: TMA from thread 0,
+// or every thread as a THREADS producer does. With small integer inputs
+// every sum is exact, so both must equal the plain products bitwise, and
+// O's columns from hd on must be 0.
+template <int BYTES, int HDP>
+__device__ __forceinline__ void probe_load(const Ptrs& src, uint32_t sq,
+                                           uint32_t sk, uint32_t sv,
+                                           uint32_t bar, int hd) {
+  const Walk w = make_walk(threadIdx.x, hd, BYTES > 2 ? BYTES / 2 : 4);
+  load_tile<64, BYTES>(sq, src.q, 64, hd, w);
+  load_tile<kBK, BYTES>(sk, src.k, kBK, hd, w);
+  load_tile<kBK, BYTES>(sv, src.v, kBK, hd, w);
+  arrive_loaded<BYTES>(bar);
+}
+
+template <int HDP, bool THREADS>
 __global__ void __launch_bounds__(128, 1)
 fa_wgmma_tile_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
-                     const __grid_constant__ CUtensorMap vmap,
-                     float* __restrict__ s_out, float* __restrict__ o_out) {
+                     const __grid_constant__ CUtensorMap vmap, const Ptrs src,
+                     int hd, float* __restrict__ s_out,
+                     float* __restrict__ o_out) {
   constexpr int BK = kBK;
   using L = Smem<HDP, BK, 64>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
   const uint32_t bar = base + L::kBar;
+  if constexpr (THREADS) {
+    zero_pad<HDP, 64>(sq, hd, threadIdx.x, 128);
+    zero_pad<HDP, BK>(sk, hd, threadIdx.x, 128);
+    zero_pad<HDP, BK>(sv, hd, threadIdx.x, 128);
+    fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
-    mbar_init(bar, 1);
+    mbar_init(bar, THREADS ? kProducers : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if constexpr (THREADS) {
+    if (src.copy == 8)
+      probe_load<8, HDP>(src, sq, sk, sv, bar, hd);
+    else if (src.copy == 4)
+      probe_load<4, HDP>(src, sq, sk, sv, bar, hd);
+    else
+      probe_load<2, HDP>(src, sq, sk, sv, bar, hd);
+  } else if (threadIdx.x == 0) {
     mbar_expect_tx(bar, L::kQBytes + 2 * L::kKVBytes);
     for (int c = 0; c < L::kChunks; ++c) {
       tma_load(sq + c * L::kQChunk, &qmap, bar, c * 64, 0, 0);
@@ -740,6 +1009,7 @@ fa_wgmma_tile_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
   mbar_wait(bar, 0);
+  if constexpr (THREADS) fence_proxy_async();
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int ra = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
@@ -815,44 +1085,94 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-template <int HDP>
+// Bytes a copy moves at head width hd: 16 (a TMA row is a multiple of 16
+// bytes), else a thread loader's 8, 4 or (odd hd) 2. q, k and v must
+// start on a multiple of it.
+int copy_bytes(int hd) {
+  return hd % 8 == 0 ? 16 : hd % 4 == 0 ? 8 : hd % 2 == 0 ? 4 : 2;
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <int HDP, bool THREADS>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int nh, int nkv, int Tq, int S, int hd, int causal, int window,
            float scale, cudaStream_t st) {
-  using T = Bucket<HDP>;
+  using T = Bucket<HDP, THREADS>;
   using L = Smem<HDP, kBK, T::kBQ>;
-  CUtensorMap qm, km, vm;
-  int rc = make_map(&qm, q, hd, Tq, B * nh, T::kBQ);
-  if (rc == 0) rc = make_map(&km, k, hd, S, B * nkv, kBK);
-  if (rc == 0) rc = make_map(&vm, v, hd, S, B * nkv, kBK);
-  if (rc != 0) return rc;
+  CUtensorMap qm{}, km{}, vm{};  // a thread loader reads none
+  if constexpr (!THREADS) {
+    int rc = make_map(&qm, q, hd, Tq, B * nh, T::kBQ);
+    if (rc == 0) rc = make_map(&km, k, hd, S, B * nkv, kBK);
+    if (rc == 0) rc = make_map(&vm, v, hd, S, B * nkv, kBK);
+    if (rc != 0) return rc;
+  }
+  const Ptrs src{static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v), copy_bytes(hd)};
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      fa_wgmma_kernel<HDP, THREADS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(nh, (Tq + T::kBQ - 1) / T::kBQ, B);
-  fa_wgmma_kernel<HDP><<<grid, T::kThreads, L::kBytes, st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), nh, nh / nkv, Tq, S, hd,
-      causal, window, scale);
+  fa_wgmma_kernel<HDP, THREADS><<<grid, T::kThreads, L::kBytes, st>>>(
+      qm, km, vm, src, static_cast<__nv_bfloat16*>(o), nh, nh / nkv, Tq, S,
+      hd, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HDP>
+template <bool THREADS>
+int launch_bucket(const void* q, const void* k, const void* v, void* o,
+                  int B, int nh, int nkv, int Tq, int S, int hd, int causal,
+                  int window, float scale, cudaStream_t st) {
+  if (hd <= 64)
+    return launch<64, THREADS>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                               window, scale, st);
+  if (hd <= 128)
+    return launch<128, THREADS>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                                window, scale, st);
+  if (hd <= 192)
+    return launch<192, THREADS>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                                window, scale, st);
+  return launch<256, THREADS>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                              window, scale, st);
+}
+
+template <int HDP, bool THREADS>
 int launch_tile(const void* q, const void* k, const void* v, void* s_out,
-                void* o_out, cudaStream_t st) {
+                void* o_out, int hd, cudaStream_t st) {
   using L = Smem<HDP, kBK, 64>;
-  CUtensorMap qm, km, vm;
-  int rc = make_map(&qm, q, HDP, 64, 1, 64);
-  if (rc == 0) rc = make_map(&km, k, HDP, kBK, 1, kBK);
-  if (rc == 0) rc = make_map(&vm, v, HDP, kBK, 1, kBK);
-  if (rc != 0) return rc;
+  CUtensorMap qm{}, km{}, vm{};
+  if constexpr (!THREADS) {
+    int rc = make_map(&qm, q, hd, 64, 1, 64);
+    if (rc == 0) rc = make_map(&km, k, hd, kBK, 1, kBK);
+    if (rc == 0) rc = make_map(&vm, v, hd, kBK, 1, kBK);
+    if (rc != 0) return rc;
+  }
+  const Ptrs src{static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v), copy_bytes(hd)};
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma_tile_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      fa_wgmma_tile_kernel<HDP, THREADS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fa_wgmma_tile_kernel<HDP><<<1, 128, L::kBytes, st>>>(
-      qm, km, vm, static_cast<float*>(s_out), static_cast<float*>(o_out));
+  fa_wgmma_tile_kernel<HDP, THREADS><<<1, 128, L::kBytes, st>>>(
+      qm, km, vm, src, hd, static_cast<float*>(s_out),
+      static_cast<float*>(o_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool THREADS>
+int launch_tile_bucket(const void* q, const void* k, const void* v,
+                       void* s_out, void* o_out, int hd, cudaStream_t st) {
+  if (hd <= 64) return launch_tile<64, THREADS>(q, k, v, s_out, o_out, hd, st);
+  if (hd <= 128)
+    return launch_tile<128, THREADS>(q, k, v, s_out, o_out, hd, st);
+  if (hd <= 192)
+    return launch_tile<192, THREADS>(q, k, v, s_out, o_out, hd, st);
+  return launch_tile<256, THREADS>(q, k, v, s_out, o_out, hd, st);
 }
 
 }  // namespace
@@ -866,43 +1186,48 @@ const char* fa_wgmma_error_string(int code) {
   if (code == kErrEncode)
     return "cuTensorMapEncodeTiled refused the tensor map (shape, stride "
            "or alignment)";
+  if (code == kErrAlign)
+    return "q, k or v does not start on a multiple of the loader's copy "
+           "size (16 bytes at hd % 8 == 0, 8 at hd % 4 == 0, 4 at even hd)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q/o: [B, nh, T, hd]; k/v: [B, nkv, S, hd], contiguous bfloat16, 16-byte
-// aligned; nh % nkv == 0, hd a multiple of 8 in 8..256, S >= 1, T >= 1;
-// window <= 0 means no window; scale = hd^-0.5 as the caller rounds it to
-// float32. hd goes to the narrowest bucket HDP in {64, 128, 192, 256}.
+// q/o: [B, nh, T, hd]; k/v: [B, nkv, S, hd], contiguous bfloat16, q, k and
+// v starting on a multiple of copy_bytes(hd) and o on 4 bytes; nh % nkv ==
+// 0, hd in 1..256, S >= 1, T >= 1; window <= 0 means no window; scale =
+// hd^-0.5 as the caller rounds it to float32. hd goes to the narrowest
+// bucket HDP in {64, 128, 192, 256}, through TMA at hd % 8 == 0 and the
+// thread loader at other widths.
 int fa_wgmma_forward(const void* q, const void* k, const void* v, void* o,
                      int B, int nh, int nkv, int Tq, int S, int hd,
                      int causal, int window, float scale, void* stream) {
-  if (hd < 8 || hd > 256 || hd % 8 || S < 1 || Tq < 1 || nkv < 1 ||
-      nh % nkv)
+  if (hd < 1 || hd > 256 || S < 1 || Tq < 1 || nkv < 1 || nh % nkv ||
+      !aligned(o, 4))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int copy = copy_bytes(hd);
+  if (!aligned(q, copy) || !aligned(k, copy) || !aligned(v, copy))
+    return kErrAlign;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64)
-    return launch<64>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal, window,
-                      scale, st);
-  if (hd <= 128)
-    return launch<128>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal, window,
-                       scale, st);
-  if (hd <= 192)
-    return launch<192>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal, window,
-                       scale, st);
-  return launch<256>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal, window, scale,
-                     st);
+  if (copy == 16)
+    return launch_bucket<false>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                                window, scale, st);
+  return launch_bucket<true>(q, k, v, o, B, nh, nkv, Tq, S, hd, causal,
+                             window, scale, st);
 }
 
-// The probe: q [64, hdp], k/v [64, hdp] contiguous bfloat16 with hdp a
-// bucket; s_out [64, 64] and o_out [64, hdp] float32.
+// The probe: q [64, hd], k/v [64, hd] contiguous bfloat16 (aligned as for
+// fa_wgmma_forward), hd in 1..256; s_out [64, 64] and o_out [64, HDP]
+// float32, HDP the bucket of hd. Loads as fa_wgmma_forward does at hd.
 int fa_wgmma_tile_check(const void* q, const void* k, const void* v,
-                        void* s_out, void* o_out, int hdp, void* stream) {
+                        void* s_out, void* o_out, int hd, void* stream) {
+  if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const int copy = copy_bytes(hd);
+  if (!aligned(q, copy) || !aligned(k, copy) || !aligned(v, copy))
+    return kErrAlign;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hdp == 64) return launch_tile<64>(q, k, v, s_out, o_out, st);
-  if (hdp == 128) return launch_tile<128>(q, k, v, s_out, o_out, st);
-  if (hdp == 192) return launch_tile<192>(q, k, v, s_out, o_out, st);
-  if (hdp == 256) return launch_tile<256>(q, k, v, s_out, o_out, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (copy == 16)
+    return launch_tile_bucket<false>(q, k, v, s_out, o_out, hd, st);
+  return launch_tile_bucket<true>(q, k, v, s_out, o_out, hd, st);
 }
 
 }  // extern "C"

@@ -8,21 +8,22 @@ raises off a CUDA device, ``"auto"`` is ``"cuda"`` for CUDA tensors and
 ``"torch"`` for CPU ones. The function runs where its tensors live. No
 padding: the kernels mask the ragged edges of T and S themselves.
 
-Three kernels compute the same function, and :func:`_route` picks one from
-the dtype and the head width alone, never from a failure:
+Two kernels compute the same function, and :func:`_route` picks one from
+the dtype alone, never from a failure:
 
 - ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``): float32 at any hd in
   1..256 — tensor cores through ``mma.sync``, each product in three TF32
   terms of split operands, fed by a ``cp.async`` ring;
-- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with hd a
-  multiple of 8 in 8..256 (TMA needs 16-byte rows) — tensor cores fed by
-  a TMA ring;
-- ``"simt"`` (``csrc/flash_attention.cu``): bfloat16 at the other widths.
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 at any hd in
+  1..256 — tensor cores through ``wgmma``, fed by one of two loaders
+  (:func:`_loader`, from hd alone): TMA where a row is a multiple of 16
+  bytes (hd % 8 == 0), else the producer warpgroup's threads through
+  ``cp.async`` (8 or 4 bytes a copy) or, at odd hd, through registers.
 
-The wrapper checks device, dtype, shape, contiguity and (for ``wgmma``)
-16-byte alignment, launches on the current stream without synchronising,
-raises on a CUDA error and counts its launches per kernel
-(:func:`launch_counts`); it has no fallback.
+The wrapper checks device, dtype, shape, contiguity and the alignment the
+loader's copies need (:func:`_copy_bytes`), launches on the current stream
+without synchronising, raises on a CUDA error and counts its launches per
+kernel and loader (:func:`launch_counts`); it has no fallback.
 """
 
 from __future__ import annotations
@@ -54,10 +55,6 @@ _I = ctypes.c_int
 _FORWARD = [_P] * 4 + [_I] * 8 + [ctypes.c_float]
 
 #: argtypes of the C entry points (see ``_build.KernelLib``).
-_SIMT_SIGNATURES = {
-    "fa_error_string": ([_I], ctypes.c_char_p),
-    "fa_forward": (_FORWARD + [_P], _I),
-}
 _TF32X3_SIGNATURES = {
     "fa_tf32x3_error_string": ([_I], ctypes.c_char_p),
     "fa_tf32x3_forward": (_FORWARD + [_P], _I),
@@ -70,11 +67,10 @@ _WGMMA_SIGNATURES = {
     "fa_wgmma_tile_check": ([_P] * 5 + [_I, _P], _I),
 }
 
-_SIMT = _build.KernelLib("flash_attention", _SIMT_SIGNATURES,
-                         "fa_error_string", ("flash_attention_simt",))
 _WGMMA = _build.KernelLib("flash_attention_wgmma", _WGMMA_SIGNATURES,
                           "fa_wgmma_error_string",
-                          ("flash_attention_wgmma", "tile_check"))
+                          ("flash_attention_wgmma",
+                           "flash_attention_wgmma_threads", "tile_check"))
 _TF32X3 = _build.KernelLib("flash_attention_tf32x3", _TF32X3_SIGNATURES,
                            "fa_tf32x3_error_string",
                            ("flash_attention_tf32x3", "tile_check"))
@@ -82,18 +78,19 @@ _TF32X3 = _build.KernelLib("flash_attention_tf32x3", _TF32X3_SIGNATURES,
 _KERNELS = {
     "tf32x3": (_TF32X3, "flash_attention_tf32x3", "fa_tf32x3_forward"),
     "wgmma": (_WGMMA, "flash_attention_wgmma", "fa_wgmma_forward"),
-    "simt": (_SIMT, "flash_attention_simt", "fa_forward"),
 }
 
 
 def launch_counts():
-    """Kernel launches since the last reset: ``flash_attention`` (all
-    three kernels), ``flash_attention_tf32x3``, ``flash_attention_wgmma``
-    and ``flash_attention_simt``. A call that went to the plain version
-    does not count."""
-    per_route = {key: lib.launch_counts()[key]
-                 for lib, key, _ in _KERNELS.values()}
-    return {"flash_attention": sum(per_route.values()), **per_route}
+    """Kernel launches since the last reset: ``flash_attention`` (both
+    kernels), ``flash_attention_tf32x3``, ``flash_attention_wgmma`` (either
+    loader) and ``flash_attention_wgmma_threads`` (the thread loader's
+    share of it). A call that went to the plain version does not count."""
+    counts = {key: lib.launch_counts()[key]
+              for lib, key, _ in _KERNELS.values()}
+    return {"flash_attention": sum(counts.values()), **counts,
+            "flash_attention_wgmma_threads":
+                _WGMMA.launch_counts()["flash_attention_wgmma_threads"]}
 
 
 def reset_launch_counts() -> None:
@@ -103,14 +100,23 @@ def reset_launch_counts() -> None:
 
 def _route(dtype, hd: int) -> str:
     """The kernel that takes inputs of ``dtype`` and head width ``hd``:
-    ``"tf32x3"`` for float32, ``"wgmma"`` for bfloat16 with hd a multiple
-    of 8 in 8..256, else ``"simt"`` (the wrapper refuses hd outside
-    1..256)."""
-    if dtype == torch.float32:
-        return "tf32x3"
-    if dtype == torch.bfloat16 and hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM:
-        return "wgmma"
-    return "simt"
+    ``"tf32x3"`` for float32, else ``"wgmma"`` (the wrapper refuses other
+    dtypes and hd outside 1..256)."""
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
+
+
+def _loader(hd: int) -> str:
+    """How the wgmma kernel loads its tiles at head width ``hd``: ``"tma"``
+    where a row is a multiple of 16 bytes, else ``"threads"``."""
+    return "tma" if hd % 8 == 0 else "threads"
+
+
+def _copy_bytes(hd: int) -> int:
+    """Bytes each copy of the wgmma kernel's loader moves at head width
+    ``hd``, and the alignment q, k and v must start on: 16 through TMA
+    (hd % 8 == 0), 8 or 4 through the thread loader's ``cp.async`` (hd %
+    4 == 0, even hd), 2 at odd hd (loads through registers)."""
+    return 16 if hd % 8 == 0 else 8 if hd % 4 == 0 else 4 if hd % 2 == 0 else 2
 
 
 def _attention_kernel(q, k, v, causal: bool, window: int):
@@ -136,8 +142,7 @@ def _attention_kernel(q, k, v, causal: bool, window: int):
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(
             f"head_dim {hd} outside 1..{MAX_HEAD_DIM}: float32 runs the "
-            f"tf32x3 kernel, bfloat16 at a multiple of 8 the wgmma kernel "
-            f"and at other widths the SIMT kernel")
+            f"tf32x3 kernel, bfloat16 the wgmma kernel")
     if S < 1:
         raise ValueError("no keys: S must be at least 1")
     out = torch.empty_like(q)
@@ -146,38 +151,54 @@ def _attention_kernel(q, k, v, causal: bool, window: int):
     args = (*(t.data_ptr() for t in (q, k, v, out)), B, nh, nkv, T, S, hd,
             int(bool(causal)), int(window), hd ** -0.5)
     route = _route(q.dtype, hd)
-    if route == "wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the wgmma kernel reads through "
-                                 f"TMA and needs a 16-byte aligned start")
     lib, key, fn = _KERNELS[route]
+    if route == "wgmma":
+        _check_alignment(hd, q, k, v)
+        if _loader(hd) == "threads":
+            key = (key, "flash_attention_wgmma_threads")
     lib.launch(key, fn, dev, *args)
     return out
 
 
+def _check_alignment(hd: int, q, k, v) -> None:
+    """Raise ``ValueError`` unless q, k and v start on a multiple of the
+    wgmma kernel's copy size at ``hd``."""
+    align = _copy_bytes(hd)
+    how = ("reads through TMA" if _loader(hd) == "tma" else
+           f"copies {align} bytes at a time at head_dim {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: the wgmma kernel {how} and needs a "
+                             f"{align}-byte aligned start")
+
+
 def _wgmma_tile_check(q, k, v):
-    """Bring-up probe of the wgmma kernel's pieces (TMA maps, swizzle,
-    descriptors, fragment layouts, the split of P into two bf16 halves) on
-    one warpgroup, without scale, masks or softmax: ``q [64, HDP]``, ``k``
-    and ``v [WGMMA_KEYS, HDP]`` contiguous bfloat16 on a CUDA device, with
-    HDP one of :data:`WGMMA_WIDTHS`. Returns float32 ``S = q k^T [64,
-    WGMMA_KEYS]`` and ``O = S v [64, HDP]``, exact for small integer
-    inputs."""
-    hdp, bk = q.shape[-1], WGMMA_KEYS
-    if hdp not in WGMMA_WIDTHS:
-        raise ValueError(f"width {hdp} is not a bucket of the wgmma kernel "
-                         f"{WGMMA_WIDTHS}")
+    """Bring-up probe of the wgmma kernel's pieces (its loader at this
+    width, TMA maps or the thread loader's cp.async walk, the swizzle and
+    the zeroed pad columns, descriptors, fragment layouts, the split of P
+    into two bf16 halves) on one warpgroup, without scale, masks or
+    softmax: ``q [64, hd]``, ``k`` and ``v [WGMMA_KEYS, hd]`` contiguous
+    bfloat16 on a CUDA device, hd in 1..256, aligned as
+    :func:`flash_attention` needs. Returns float32 ``S = q k^T [64,
+    WGMMA_KEYS]`` and ``O = S v [64, HDP]`` with HDP the bucket of hd
+    (:data:`WGMMA_WIDTHS`; its columns from hd on are 0), exact for small
+    integer inputs."""
+    hd, bk = q.shape[-1], WGMMA_KEYS
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"width {hd}: the wgmma probe takes "
+                         f"1..{MAX_HEAD_DIM}")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the wgmma probe needs CUDA tensors, got {dev}")
-    _build.check_tensor("q", q, torch.bfloat16, (64, hdp), dev)
-    _build.check_tensor("k", k, torch.bfloat16, (bk, hdp), dev)
-    _build.check_tensor("v", v, torch.bfloat16, (bk, hdp), dev)
+    _build.check_tensor("q", q, torch.bfloat16, (64, hd), dev)
+    _build.check_tensor("k", k, torch.bfloat16, (bk, hd), dev)
+    _build.check_tensor("v", v, torch.bfloat16, (bk, hd), dev)
+    _check_alignment(hd, q, k, v)
+    hdp = next(w for w in WGMMA_WIDTHS if w >= hd)
     s = torch.empty((64, bk), dtype=torch.float32, device=dev)
     o = torch.empty((64, hdp), dtype=torch.float32, device=dev)
     _WGMMA.launch("tile_check", "fa_wgmma_tile_check", dev,
-                  *(t.data_ptr() for t in (q, k, v, s, o)), hdp)
+                  *(t.data_ptr() for t in (q, k, v, s, o)), hd)
     return s, o
 
 

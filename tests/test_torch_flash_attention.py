@@ -85,6 +85,18 @@ def test_attention_rows_with_every_key_masked():
     torch.testing.assert_close(late, tt[2].mean(2), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("window", [0, 64])
+def test_attention_bf16_at_a_width_not_a_multiple_of_8(window):
+    """bfloat16 at hd 100, the wgmma kernel's thread-loader width, held to
+    ``attention_ref`` on the same rounded inputs, T and S unaligned to the
+    kernel's tiles."""
+    jx, tt, tol = _both(attention_inputs(1, 4, 2, 150, 150, 100, 11),
+                        "bfloat16")
+    got = ops.flash_attention(*tt, causal=True, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tt[0].shape
+    _close(got, attention_ref(*jx, causal=True, window=window), tol)
+
+
 def test_cuda_impl_on_cpu_tensors_raises():
     _, tt, _ = _both(attention_inputs(1, 2, 1, 8, 8, 8, 0), "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -92,6 +104,6 @@ def test_cuda_impl_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="unknown"):
         ops.flash_attention(*tt, impl="pallas")
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "flash_attention_simt": 0,
                                    "flash_attention_tf32x3": 0,
-                                   "flash_attention_wgmma": 0}
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_wgmma_threads": 0}

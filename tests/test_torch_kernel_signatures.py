@@ -21,8 +21,8 @@ from repro_torch.kernels.lane_tick import ops as lt_ops
 from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.tick_glue import ops as tg_ops
 
-LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._SIMT, fa_ops._WGMMA,
-        fa_ops._TF32X3, ms_ops._LIB, tg_ops._LIB)
+LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._WGMMA, fa_ops._TF32X3,
+        ms_ops._LIB, tg_ops._LIB)
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
             "float": ctypes.c_float, "const char*": ctypes.c_char_p}
@@ -120,3 +120,16 @@ def test_engine_entry_points_are_declared():
     for fn in ("cu_engine_count", "cu_engine_tick", "cu_engine_max_links",
                "cu_engine_blocks"):
         assert cu_ops._SIGNATURES[fn] == entry[fn]
+
+
+def test_wgmma_entry_points_are_declared():
+    """The bf16 kernel's entry points keep their signatures with both
+    loaders behind them: the forward's four pointers, eight ints (hd among
+    them) and the scale, then the stream; the probe's five pointers, its
+    width and the stream."""
+    entry = c_entry_points(_build.SOURCES["flash_attention_wgmma"])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert entry["fa_wgmma_forward"] == ([P] * 4 + [I] * 8 + [F, P], I)
+    assert entry["fa_wgmma_tile_check"] == ([P] * 5 + [I, P], I)
+    for fn in ("fa_wgmma_forward", "fa_wgmma_tile_check"):
+        assert fa_ops._WGMMA_SIGNATURES[fn] == entry[fn]

@@ -28,9 +28,10 @@ rtol 8e-3 with at most 1% of the elements unequal (both sides compute in
 float32, the wgmma kernel carrying its probabilities as two bf16 halves,
 and round once, so they differ by at most one ulp and only next to a
 rounding boundary; SDPA, which rounds its probabilities to bfloat16,
-differs on about 40%), each case through the kernel its dtype and width
-route to, and the wgmma and tf32x3 kernels' pieces bitwise on integer
-inputs; the
+differs on about 40%), each case through the kernel its dtype routes to
+and, in bfloat16, the loader its width needs (TMA at a multiple of 8,
+else the producer's threads), and the wgmma kernel's pieces with each
+loader and the tf32x3 kernel's bitwise on integer inputs; the
 Mamba scan at 1e-4 (the sum over
 the state runs in another order).
 """
@@ -946,8 +947,26 @@ ATTENTION_CASES = [
     (1, 2, 1, 70, 150, 128, torch.bfloat16, False, 0),
     (1, 2, 2, 80, 40, 64, torch.bfloat16, True, 8),
     (2, 8, 2, 160, 160, 128, torch.bfloat16, True, 0),
-    # bf16 at a width that is not a multiple of 8: the SIMT kernel
+    # bf16 at widths that are not a multiple of 8: the wgmma kernel's
+    # thread loader, 8-byte copies (hd 100, 4), 4-byte (50, 250), odd
+    # widths through registers (37, 97, 3); ragged T and S, rows whose
+    # every key is masked, causal=False with S unaligned, a GQA group of 4,
+    # and a second kv head that starts 8 (hd 100, S 149) or 4 (hd 50, S
+    # 151) bytes past a 16-byte boundary
     (1, 4, 2, 150, 150, 100, torch.bfloat16, True, 0),
+    (2, 4, 2, 149, 149, 100, torch.bfloat16, True, 0),
+    (1, 4, 2, 151, 151, 50, torch.bfloat16, True, 16),
+    (1, 4, 2, 200, 200, 50, torch.bfloat16, True, 0),
+    (1, 2, 1, 130, 130, 37, torch.bfloat16, True, 32),
+    (1, 4, 2, 150, 150, 97, torch.bfloat16, True, 0),
+    (1, 2, 1, 100, 100, 4, torch.bfloat16, True, 0),
+    (1, 2, 1, 200, 130, 250, torch.bfloat16, True, 0),
+    (1, 4, 2, 130, 200, 50, torch.bfloat16, True, 64),
+    (1, 2, 2, 80, 40, 36, torch.bfloat16, True, 8),
+    (1, 2, 1, 90, 70, 3, torch.bfloat16, True, 16),
+    (1, 2, 1, 70, 150, 100, torch.bfloat16, False, 0),
+    (1, 2, 1, 70, 150, 97, torch.bfloat16, False, 0),
+    (2, 8, 2, 160, 160, 100, torch.bfloat16, True, 0),
 ]
 
 
@@ -960,10 +979,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
                for shape in ((B, nh, T, hd), (B, nkv, S, hd),
                              (B, nkv, S, hd)))
-    if dtype == torch.float32:
-        route = "tf32x3"
-    else:
-        route = "wgmma" if hd % 8 == 0 else "simt"
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
+    threads = int(route == "wgmma" and hd % 8 != 0)
     assert fa_ops._route(dtype, hd) == route
     before = fa_ops.launch_counts()
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -973,6 +990,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     assert after["flash_attention"] == before["flash_attention"] + 1
     key = f"flash_attention_{route}"
     assert after[key] == before[key] + 1
+    key = "flash_attention_wgmma_threads"
+    assert after[key] == before[key] + threads
     assert got.dtype == dtype and got.shape == q.shape
     atol, rtol = ATTENTION_BARS[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
@@ -982,20 +1001,35 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hdp", fa_ops.WGMMA_WIDTHS)
+@pytest.mark.parametrize("hdp", [*fa_ops.WGMMA_WIDTHS, 168, 100, 50, 37, 4,
+                                 250, 97])
 def test_cuda_wgmma_tile_bitwise(cuda_device, hdp):
-    """The wgmma kernel's TMA maps, swizzle, descriptors, fragment layouts
-    and two-half split on one 64-row tile: with small integer inputs every
-    sum is exact, so S = q k^T and O = S v equal the plain products."""
-    bk = fa_ops.WGMMA_KEYS
-    g = torch.Generator().manual_seed(hdp)
+    """The wgmma kernel's loader at this width (TMA maps at a multiple of
+    8; else the thread loader: 8-byte cp.async at 100 and 4, 4-byte at 50
+    and 250, loads through registers at 37 and 97), swizzle, zeroed pad
+    columns, descriptors, fragment layouts and two-half split on one
+    64-row tile: with small integer inputs every sum is exact, so S = q
+    k^T and O = S v equal the plain products, and O's pad columns (from
+    the width up to its bucket) are 0. A probe on NaN inputs runs first,
+    so shared memory that the loader leaves unwritten most likely holds
+    NaN and shows in S or O."""
+    bk, hd = fa_ops.WGMMA_KEYS, hdp
+    g = torch.Generator().manual_seed(hd)
     q, k, v = (torch.randint(-3, 4, shape, generator=g)
                .to(cuda_device, torch.bfloat16)
-               for shape in ((64, hdp), (bk, hdp), (bk, hdp)))
+               for shape in ((64, hd), (bk, hd), (bk, hd)))
+    # stale NaN in the shared memory the probe's CTA will get
+    fa_ops._wgmma_tile_check(*(torch.full((r, 64), float("nan"),
+                                          dtype=torch.bfloat16,
+                                          device=cuda_device)
+                               for r in (64, bk, bk)))
     s, o = fa_ops._wgmma_tile_check(q, k, v)
     s_ref = q.float() @ k.float().T
     assert torch.equal(s, s_ref)
-    assert torch.equal(o, s_ref @ v.float())
+    width = next(w for w in fa_ops.WGMMA_WIDTHS if w >= hd)
+    assert o.shape == (64, width)
+    assert torch.equal(o[:, :hd], s_ref @ v.float())
+    assert torch.equal(o[:, hd:], torch.zeros_like(o[:, hd:]))
 
 
 #: Largest magnitude of the tf32x3 probe's integer inputs: small (every
@@ -1071,6 +1105,49 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
                           device=cuda_device)[1:].view(qb.shape)
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.flash_attention(shifted, qb, qb)
+
+
+def _shifted(t):
+    """A contiguous copy of ``t`` starting 2 bytes past an allocation."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                      device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,copy", [(64, 16), (100, 8), (50, 4), (37, 2)])
+def test_cuda_wgmma_checks_its_loader_alignment(cuda_device, hd, copy):
+    """Each loader's copy size is the alignment q, k and v must start on:
+    a start 2 bytes off raises ``ValueError`` for each input and launches
+    nothing where the copies are 16, 8 or 4 bytes; at odd hd (2 bytes,
+    through registers) every bf16 tensor is aligned, and the shifted
+    inputs give what the plain version gives."""
+    assert fa_ops._copy_bytes(hd) == copy
+    g = torch.Generator().manual_seed(hd)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+               for shape in ((1, 4, 96, hd), (1, 2, 96, hd), (1, 2, 96, hd)))
+    before = fa_ops.launch_counts()
+    if copy > 2:
+        for i in range(3):
+            args = [q, k, v]
+            args[i] = _shifted(args[i])
+            with pytest.raises(ValueError, match=f"{copy}-byte"):
+                fa_ops.flash_attention(*args)
+            with pytest.raises(ValueError, match=f"{copy}-byte"):
+                fa_ops._wgmma_tile_check(*(a[0, 0, :64].contiguous()
+                                           if j != i else
+                                           _shifted(a[0, 0, :64])
+                                           for j, a in enumerate(args)))
+        assert fa_ops.launch_counts() == before
+    else:
+        got = fa_ops.flash_attention(*(_shifted(t) for t in (q, k, v)))
+        want = fa_ref.attention(q, k, v)
+        torch.cuda.synchronize()
+        atol, rtol = ATTENTION_BARS[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        assert int((got != want).sum()) <= 0.01 * got.numel()
 
 
 @pytest.mark.cuda
