@@ -66,7 +66,22 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    pool's bytes; for the eager one the GCS candidates and admissions per
    lane per tick of the profiled ticks (counted after them) and of 40
    ticks half-way through the horizon;
-7. decide phase, the §5.3 decision workflow through the port's front door
+7. execution phase, on the same grid through the normal entry points on
+   ``cuda``, each run held bitwise to the sweep phase's captured
+   ``simulate_packed`` outputs or ``run_sweep_torch`` results:
+   ``record_series=360`` (every output of capture off unchanged, each
+   kernel still launched once a tick; on a 0.25-day cut of the grid the
+   replayed tick's series bitwise to the eager tick's; the profiled
+   replayed tick at strides 1 and 360 beside capture off), ``lane_chunk=2``
+   (peak device memory allocated, ``torch.cuda.max_memory_allocated``,
+   below the unchunked run's), ``devices=["cuda:0", "cuda:0"]`` with
+   ``lane_chunk=2``, retryable chunk jobs under injected crashes, hangs
+   and transient faults (0.3 each; retries scheduled; device memory back
+   within half a chunk's graph pool), and a fleet of two worker processes
+   on the card (``transport="subprocess"``, ``lane_chunk=2``: each
+   worker's chunks and busy seconds, the dispatcher's device memory
+   unchanged);
+8. decide phase, the §5.3 decision workflow through the port's front door
    (``sim.decide.decide`` on ``sim.sweep.SweepDriver(backend="torch",
    tick=10.0, tick_impl="cuda", device="cuda", cache=<dir>)``, the cache
    in a fresh directory under ``build/``): the pricing grid's axes (2
@@ -86,7 +101,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``displaced_disk.displaced_tb``, per sweep call the specs, lanes, pack
    s, ``TickLoop.capture_s``, graph pool bytes, sweep s and ticks/s (the
    ``sweep.torch`` trace events), and the phase's wall s;
-8. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
+9. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
    then ``simulate_ticks`` for 1,000 ticks on 6 links through the tick
@@ -97,7 +112,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    with its capture and without, its launches a tick (replays counted),
    and over 128 steady ticks its wall and device microseconds a tick
    (``torch.profiler``), idle share and bound;
-9. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
+10. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
    hd 128, T = S = 4096, bf16, causal), gemma3_27b's local layers (nh 32,
    nkv 16, published head_dim 128, T = S = 4096, bf16, causal, window
    1024), the same at hd 168 (the width ``repro``'s gemma3_27b config
@@ -124,10 +139,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    12*hd flops per unmasked pair at dense TF32's 495 TFLOP/s (the split
    design's own least time), printed beside the SIMT ceiling, 4*hd flops
    at 67 TFLOP/s (``bound_ms_simt``);
-10. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
+11. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
     d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
     version at 1e-4 atol/rtol;
-11. the ``kernels`` JSON line: one entry per kernel and case (``case``
+12. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
     before the path runs, read just after each case; the lane-tick and
     glue entries also with ``launches_decide``, their launches in the
@@ -997,15 +1012,16 @@ def glue_phase(torch, grid) -> dict:
 
 
 def profile_phase(torch, grid, graph: bool, warm: int = 20,
-                  n: int = 40) -> dict:
+                  n: int = 40, record_series=None) -> dict:
     """Where a tick's time goes on the ``cuda`` path, replayed from its
     CUDA graph (``graph``) or eager: after ``warm`` ticks, ``n`` ticks of
     the grid's loop (``sim.batched.TickLoop``, as ``simulate_packed``
-    drives it) timed on the host clock, then the next ``n`` under
-    ``torch.profiler`` for device time by kernel; the idle share is the
-    device's unused part of the unprofiled wall time. Returns the wall and
-    device-busy microseconds per tick (busy ``None`` when the profiler saw
-    no kernel)."""
+    drives it, with series capture at ``record_series`` when given) timed
+    on the host clock, then the next ``n`` under ``torch.profiler`` for
+    device time by kernel; the idle share is the device's unused part of
+    the unprofiled wall time. Returns the wall and device-busy
+    microseconds per tick (busy ``None`` when the profiler saw no
+    kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1014,8 +1030,15 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     from repro_torch.sim.batched import TickLoop
 
     dev = torch.device("cuda")
-    loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev, graph=graph)
-    name = "captured" if graph else "eager"
+    kw = {}
+    if record_series:  # (a parent checkout's loop may not take record=)
+        from repro_torch.sim.batched import _normalize_record
+
+        kw["record"] = _normalize_record(record_series, grid.n_ticks)
+    loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev, graph=graph,
+                    **kw)
+    name = ("captured" if graph else "eager") + (
+        f", series every {record_series} ticks" if record_series else "")
     loop.advance(warm)
     torch.cuda.synchronize()
     # the same number of ticks once without the profiler: its own host
@@ -1134,6 +1157,206 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     return dict(wall_us=wall_us / n, busy_us=busy_us / n, topk_us=topk_us,
                 glue_us={k: v / n for k, v in glue_us.items()},
                 wait_queue=wait_queue)
+
+
+#: The execution phase's series-capture strides: every tick, and hourly at
+#: a 10 s tick (the event engine's sampling, ``repro``'s parity test).
+SERIES_STRIDES = (1, 360)
+#: Its horizon for the replayed series against the eager tick's.
+SERIES_EAGER_DAYS = 0.25
+
+
+def same_outputs(got: dict, want: dict, what: str) -> int:
+    """Check every output of ``want`` bitwise in ``got``; returns how many
+    were compared."""
+    for k in want:
+        check(got[k].dtype == want[k].dtype and np.array_equal(got[k],
+                                                               want[k]),
+              f"{what}: {k} not bitwise")
+    return len(want)
+
+
+def same_results(got, want, what: str) -> int:
+    """Check a sweep's results spec by spec: every metric and bill equal."""
+    check(got.ok and len(got.results) == len(want.results),
+          f"{what}: {len(got.results)} results of {len(want.results)}, "
+          f"failures {got.failures}")
+    for a, b in zip(got.results, want.results):
+        check(a.spec == b.spec and a.metrics == b.metrics
+              and (a.storage_usd, a.network_usd, a.ops_usd)
+              == (b.storage_usd, b.network_usd, b.ops_usd),
+              f"{what}: {a.spec.label} differs")
+    return len(got.results)
+
+
+def peak_bytes(torch, fn):
+    """``fn()`` and the most device memory allocated while it ran, above
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def execution_phase(torch, grid, specs, days: float, n_files: int, captured,
+                    swept, card: str) -> None:
+    """The execution layer on the card, each run through the normal entry
+    points on ``cuda`` and held bitwise to the sweep phase's captured
+    ``simulate_packed`` outputs (``captured``) or ``run_sweep_torch``
+    results (``swept``): series capture (capture off's outputs and launches
+    unchanged, the replayed tick's series bitwise to the eager tick's on a
+    shorter horizon, the profiled tick at each stride beside capture off),
+    lane chunks (peak device memory below the unchunked run's), chunks
+    round-robin over a device list, retryable chunk jobs under injected
+    faults (device memory back where it was), and a fleet of two worker
+    processes on the card."""
+    from repro_torch.core.scenarios import pack_specs
+    from repro_torch.kernels.lane_tick import ops
+    from repro_torch.kernels.tick_glue import ops as glue_ops
+    from repro_torch.obs.metrics import get_registry, split_series_name
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.sim.batched import run_sweep_torch, simulate_packed
+    from repro_torch.sim.faults import FaultPlan
+    from repro_torch.sim.jobs import RetryPolicy
+
+    t_phase = time.perf_counter()
+    kernels = ops.KERNELS + glue_ops.KERNELS
+    log(f"execution phase ({card}): the sweep grid, {grid.n_lanes} lanes, "
+        f"{n_files} files/site, {grid.n_ticks} ticks")
+
+    # -- series capture on the main path
+    stride = SERIES_STRIDES[-1]
+    ops.reset_launch_counts()
+    glue_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = simulate_packed(grid, tick_impl="cuda", record_series=stride)
+    wall = time.perf_counter() - t0
+    launched = {**ops.launch_counts(), **glue_ops.launch_counts()}
+    check(launched == {k: grid.n_ticks for k in kernels},
+          f"series capture: launches {launched}, not one of each kernel a "
+          f"tick")
+    n = same_outputs(rec, captured, "series capture (off vs on)")
+    n_samples = (grid.n_ticks - 1) // stride + 1
+    check(rec["ser_disk"].shape == (grid.n_lanes, n_samples, 2)
+          and all(np.isfinite(rec[k]).all() for k in rec if k.startswith(
+              "ser_")) and rec["ser_run"].max() > 0,
+          "series capture: series buffers malformed or empty")
+    log(f"exec series (record_series={stride}): {wall:.2f} s wall, "
+        f"{grid.n_ticks / wall:.1f} ticks/s; {n} outputs bitwise to capture "
+        f"off, launches {launched} (one a tick each, unchanged); "
+        f"{n_samples} samples; running jobs max {rec['ser_run'].max():g}, "
+        f"waiting files max {rec['ser_queue'].max():g}")
+    short = pack_specs(pricing_specs(min(days, SERIES_EAGER_DAYS), n_files),
+                       tick=10.0)
+    runs = {eager: simulate_packed(short, tick_impl="cuda", _eager=eager,
+                                   record_series=stride)
+            for eager in (True, False)}
+    n = same_outputs(runs[False], runs[True], "series capture (replayed vs "
+                                              "eager)")
+    log(f"exec series: replayed tick bitwise to the eager tick on "
+        f"{short.n_ticks} ticks ({n} outputs, series included)")
+    del runs
+    base = profile_phase(torch, grid, graph=True)
+    for k in SERIES_STRIDES:
+        p = profile_phase(torch, grid, graph=True, record_series=k)
+        busy = (f"device busy {p['busy_us']:.1f} us/tick against "
+                f"{base['busy_us']:.1f} off (+{p['busy_us'] - base['busy_us']:.1f})"
+                if p["busy_us"] is not None and base["busy_us"] is not None
+                else "device busy not measured")
+        log(f"exec series capture cost, stride {k}: wall "
+            f"{p['wall_us']:.1f} us/tick against {base['wall_us']:.1f} off "
+            f"(+{p['wall_us'] - base['wall_us']:.1f}); {busy}")
+
+    # -- lane chunks, and chunks round-robin over a device list
+    whole, whole_peak = peak_bytes(torch, lambda: simulate_packed(
+        grid, tick_impl="cuda"))
+    same_outputs(whole, captured, "unchunked rerun")
+    t0 = time.perf_counter()
+    chunked, chunk_peak = peak_bytes(torch, lambda: simulate_packed(
+        grid, tick_impl="cuda", lane_chunk=2))
+    wall = time.perf_counter() - t0
+    n = same_outputs(chunked, captured, "lane_chunk=2")
+    log(f"exec lane_chunk=2: {wall:.2f} s wall, {n} outputs bitwise; peak "
+        f"device memory allocated {chunk_peak} B chunked against "
+        f"{whole_peak} B unchunked ({chunk_peak / whole_peak:.3f})")
+    check(chunk_peak < whole_peak, "lane_chunk=2: peak device memory not "
+                                   "below the unchunked run's")
+    t0 = time.perf_counter()
+    rr = simulate_packed(grid, tick_impl="cuda", lane_chunk=2,
+                         devices=["cuda:0", "cuda:0"])
+    wall = time.perf_counter() - t0
+    n = same_outputs(rr, captured, "devices round-robin")
+    log(f"exec devices=['cuda:0', 'cuda:0'], lane_chunk=2: {wall:.2f} s "
+        f"wall, {n} outputs bitwise")
+    del whole, chunked, rr
+
+    # -- retryable chunk jobs under injected faults
+    reg = get_registry()
+    tracer = get_tracer()
+    before = {k: reg.value(f"jobs.{k}") for k in ("retries", "crashes",
+                                                 "timeouts")}
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    tracer.reset()
+    tracer.enable()
+    try:
+        t0 = time.perf_counter()
+        res = run_sweep_torch(
+            specs, tick=10.0, tick_impl="cuda", lane_chunk=2,
+            job_timeout=0.5,
+            faults=FaultPlan(seed=11, crash=0.3, hang=0.3, transient=0.3,
+                             hang_s=1.0, attempts=1),
+            retry=RetryPolicy(max_attempts=3, base_delay_s=0.01,
+                              max_delay_s=0.05))
+        wall = time.perf_counter() - t0
+        call = [e["args"] for e in tracer.events
+                if e["name"] == "sweep.torch"][-1]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    torch.cuda.synchronize()
+    alloc1 = torch.cuda.memory_allocated()
+    fired = {k: reg.value(f"jobs.{k}") - v for k, v in before.items()}
+    n = same_results(res, swept, "faults")
+    check(fired["retries"] > 0, "faults: no retry was scheduled")
+    log(f"exec faults (crash/hang/transient 0.3 each, job_timeout 0.5 s, "
+        f"lane_chunk=2): {wall:.2f} s wall, {n} specs bitwise to the "
+        f"unchunked sweep; {fired}; {call['chunks']} chunks, graph pool "
+        f"{call['pool_bytes']} B; device memory allocated {alloc0} B "
+        f"before, {alloc1} B after")
+    check(alloc1 - alloc0 < call["pool_bytes"] // 2,
+          "faults: device memory held after the sweep")
+
+    # -- the worker fleet: two processes on this card
+    reg.reset()
+    t0 = time.perf_counter()
+    fleet = run_sweep_torch(specs, tick=10.0, tick_impl="cuda",
+                            transport="subprocess", workers=2, lane_chunk=2)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    alloc2 = torch.cuda.memory_allocated()
+    n = same_results(fleet, swept, "fleet")
+    counters = reg.snapshot()["counters"]
+    per = {}
+    for key, v in counters.items():
+        name, labels = split_series_name(key)
+        if name in ("worker.jobs", "worker.busy_s"):
+            per.setdefault(labels["worker"], {})[name] = v
+    log(f"exec fleet (subprocess, 2 workers, lane_chunk=2): {wall:.2f} s "
+        f"wall, {n} specs bitwise to the unchunked sweep; "
+        + "; ".join(f"worker {w}: {d.get('worker.jobs', 0):g} chunks, "
+                    f"{d.get('worker.busy_s', 0.0):.2f} s busy"
+                    for w, d in sorted(per.items()))
+        + f"; startup s {reg.snapshot()['histograms'].get('workers.startup_s', {}).get('sum')}"
+        f"; dispatcher device memory {alloc1} B before, {alloc2} B after")
+    check(len(per) == 2 and sum(d.get("worker.jobs", 0)
+                                for d in per.values()) == -(-grid.n_lanes
+                                                             // 2),
+          f"fleet: chunks by worker {per}")
+    check(alloc2 <= alloc1, "fleet: the dispatcher's device memory grew")
+    log(f"execution phase: {time.perf_counter() - t_phase:.2f} s wall")
 
 
 #: The decide phase's small grid, run on the kernels and on the plain path:
@@ -1911,6 +2134,9 @@ def main(argv=None) -> int:
         log(f"profile captured: device busy taken from the eager profile, "
             f"{busy:.1f} us/tick: idle share "
             f"{1 - busy / prof[True]['wall_us']:.3f}")
+
+    execution_phase(torch, grid, specs, days, n_files, outs[False],
+                    runs["cuda"], card)
 
     decide_launches = decide_phase(torch, days, n_files)
 

@@ -3,6 +3,8 @@
 replayed from its CUDA graph, of this checkout or of another.
 
     python3 scripts/bench_tick.py [--days 1] [--root DIR] [--warm N]
+                                  [--dump FILE.npz]
+    python3 scripts/bench_tick.py --compare A.npz B.npz
 
 Runs ``chip_smoke.py``'s sweep grid (Config III, 216 specs, 8 dynamics
 lanes, 2 sites x 1,000,000 files, tick 10 s, ``--days`` of horizon)
@@ -16,6 +18,13 @@ port of another checkout (for example a parent commit unpacked with ``git
 archive`` under ``build/``) with this script's helpers; its kernels build
 into its own ``build/``. Prints the card, the profile and one JSON line.
 Needs CUDA.
+
+``--dump`` also runs the grid once more on a ``TickLoop`` replayed from
+its graph and saves its outputs and the SHA-256 of each state tensor
+after the last tick to an ``.npz`` file; ``--compare`` (no GPU needed)
+prints, for two such files (say, a parent's and this checkout's), which
+state tensors and outputs are bitwise equal and, for each output that is
+not, its elements that differ and the largest relative difference.
 """
 
 from __future__ import annotations
@@ -41,7 +50,13 @@ def main(argv=None) -> int:
                     help="time the port of this checkout instead")
     ap.add_argument("--warm", type=int, default=20,
                     help="ticks before the profile's 80 (default 20)")
+    ap.add_argument("--dump", type=Path, default=None,
+                    help="save the replayed run's outputs and final state")
+    ap.add_argument("--compare", type=Path, nargs=2, default=None,
+                    help="compare two --dump files and exit")
     args = ap.parse_args(argv)
+    if args.compare is not None:
+        return compare(*args.compare)
 
     import torch
 
@@ -78,7 +93,61 @@ def main(argv=None) -> int:
                       "topk_us": prof.get("topk_us"),
                       "glue_us": prof.get("glue_us"),
                       "wait_queue": prof.get("wait_queue")}))
+    if args.dump is not None:
+        dump(torch, grid, args.dump)
     return 0
+
+
+def dump(torch, grid, path: Path) -> None:
+    """Run ``grid``'s every tick on a replayed ``TickLoop`` and save its
+    outputs (``out.*``) and the SHA-256 of each tensor of its final state
+    (``st.*``) to ``path``."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop
+
+    dev = torch.device("cuda")
+    loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev, graph=True)
+    loop.advance(grid.n_ticks)
+    arrays = {f"out.{k}": v for k, v in loop.result().items()}
+    arrays.update({f"st.{k}": np.array(hashlib.sha256(
+        v.cpu().numpy().tobytes()).hexdigest()) for k, v in loop.st.items()})
+    loop.close()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+    print(f"dump: {len(arrays)} arrays to {path}")
+
+
+def compare(a: Path, b: Path) -> int:
+    """Print which arrays of two dumps are bitwise equal; 0 if all are."""
+    import numpy as np
+
+    x, y = np.load(a), np.load(b)
+    keys = sorted(set(x.files) | set(y.files))
+    unequal = 0
+    for k in keys:
+        if k not in x.files or k not in y.files:
+            print(f"{k}: only in {a if k in x.files else b}")
+            unequal += 1
+            continue
+        u, v = x[k], y[k]
+        if u.dtype == v.dtype and np.array_equal(u, v):
+            print(f"{k}: bitwise equal")
+            continue
+        unequal += 1
+        if u.dtype.kind == "U":  # a state tensor's digest
+            print(f"{k}: differs")
+            continue
+        diff = u != v
+        rel = (np.abs(u.astype(np.float64) - v) / np.maximum(
+            np.abs(u.astype(np.float64)), 1e-30))[diff]
+        print(f"{k}: {int(diff.sum())} of {diff.size} elements differ, "
+              f"largest relative difference {float(rel.max()):.3e}")
+    print(json.dumps({"arrays": len(keys), "unequal": unequal}))
+    return 0 if unequal == 0 else 1
 
 
 if __name__ == "__main__":

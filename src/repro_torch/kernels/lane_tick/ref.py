@@ -77,7 +77,10 @@ def transfer_tick(link_id, active, done, total, sizes, bw, mode, dt, month,
     recall = (sizes * comp_recall).sum(-1)
     mig = (sizes * comp_mig).sum(-1)
     onehot = month_onehot(month, n_months)
-    egress = onehot * (sizes * comp_recall).sum((1, 2))[:, None]
+    # the lane's egress from its sites' sums, as the kernel folds it: a
+    # sum over one row per lane would change its order with the number of
+    # lanes (PyTorch splits a single output's reduction across threads)
+    egress = onehot * recall.sum(-1)[:, None]
     cls_a = onehot * comp_mig.sum((1, 2)).to(torch.float32)[:, None]
     cls_b = onehot * comp_recall.sum((1, 2)).to(torch.float32)[:, None]
     return new_done, comp, tape, recall, mig, egress, cls_a, cls_b
@@ -150,7 +153,10 @@ def _gcs_passes(want, sizes, used, limit, n_passes: int, with_dist: bool):
             dist = torch.where(rem, torch.minimum(
                 dist, (gate - limit64).abs()), dist)
         new = rem & (gate <= limit64)
-        used = (used.double() + (sizes_flat * new).double().sum(1)).float()
+        # per site, then over the sites: an order that does not change
+        # with the number of lanes
+        site_bytes = (sizes * new.view_as(sizes)).double().sum(-1)
+        used = (used.double() + site_bytes.sum(-1)).float()
         admitted = admitted | new
     return admitted, used, dist
 

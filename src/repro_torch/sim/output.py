@@ -1,6 +1,8 @@
 """Export helpers of the port's sweep results, copied from
-``repro.sim.output``: atomic text commits, CSV rows, and the paper's
-Table 6/7/8 mean and error across runs."""
+``repro.sim.output``: atomic text commits, CSV rows, the paper's
+Table 6/7/8 mean and error across runs, and the downsampled
+``TimeSeries`` that per-tick series capture
+(``repro_torch.sim.batched.series_from_capture``) produces."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import csv
 import io
 import os
 import uuid
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,3 +67,32 @@ def mean_and_error(per_run_values: List[float]) -> Tuple[float, float, float]:
     sd = float(a.std(ddof=1))
     se = sd / np.sqrt(len(a))
     return m, 100.0 * sd / m, 100.0 * se / m
+
+
+@dataclass
+class TimeSeries:
+    """Downsampled (time, value) series — used volume, transfers/hour, ..."""
+
+    name: str
+    times: List[int] = field(default_factory=list)
+    values: List[float] = field(default_factory=list)
+
+    def record(self, t: int, v: float) -> None:
+        self.times.append(t)
+        self.values.append(v)
+
+    def to_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        return np.asarray(self.times), np.asarray(self.values)
+
+    def summary(self) -> Dict[str, float]:
+        """Scalar digest (min/mean/max/last) — per-config sweep reporting."""
+        if not self.values:
+            return {"n": 0.0, "min": 0.0, "mean": 0.0, "max": 0.0, "last": 0.0}
+        a = np.asarray(self.values, dtype=np.float64)
+        return {
+            "n": float(len(a)),
+            "min": float(a.min()),
+            "mean": float(a.mean()),
+            "max": float(a.max()),
+            "last": float(a[-1]),
+        }

@@ -12,9 +12,13 @@ workflow), copied from ``repro.sim.sweep`` for ``backend="torch"``.
   (``repro_torch.sim.decide``) calls in a loop — memo -> cache ->
   simulate, with its books in the metrics registry.
 
-The resilient job path, the worker fleet, lane chunking, series capture
-and sharding are not part of the port yet: their knobs raise
-``ValueError``.
+Both take the JAX package's execution knobs with its meaning: series
+capture (``record_series``), lane chunks and device round-robin
+(``lane_chunk``, ``devices``), the resilient job path (``retry``,
+``faults``, ``job_timeout``; completed chunks journaled into the cache as
+they land) and the worker fleet (``transport``, ``workers``). ``shard``
+(the JAX package's ``shard_map`` lane mesh) has no counterpart in the
+port and raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -22,10 +26,10 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from repro_torch.core.scenarios import ScenarioSpec, dynamics_key
-from repro_torch.kernels.registry import resolve_device, resolve_tick_impl
+from repro_torch.core.scenarios import ScenarioSpec, cache_key, dynamics_key
+from repro_torch.kernels.registry import resolve_tick_impl
 from repro_torch.obs.metrics import get_registry
 from repro_torch.sim.output import atomic_write_text, mean_and_error, write_csv
 
@@ -117,8 +121,8 @@ class SweepResult:
     lanes_simulated: Optional[int] = None
     #: Distinct requested specs answered from the persistent result cache.
     cache_hits: int = 0
-    #: Reports of abandoned work, as in the JAX package's record; the port
-    #: has no retrying job path yet, so this stays empty.
+    #: Structured reports of jobs that exhausted their retry budget
+    #: (``repro_torch.sim.jobs.JobFailure``); empty for a complete sweep.
     failures: List[Any] = field(default_factory=list)
 
     #: Below this wall-clock floor a throughput rate is noise, not signal.
@@ -199,34 +203,74 @@ class SweepResult:
             doc["lanes_simulated"] = self.lanes_simulated
             doc["cache_hits"] = self.cache_hits
         if self.failures:
-            doc["failures"] = list(self.failures)
+            doc["failures"] = [f.as_dict() for f in self.failures]
         atomic_write_text(path, json.dumps(doc, indent=2))
 
 
-#: Knobs of ``repro.sim.sweep.run_sweep`` / ``SweepDriver`` that the port
-#: does not run yet.
-_LATER_KNOBS = ("retry", "faults", "transport", "lane_chunk",
-                "record_series", "shard")
-
-
-def _check_knobs(where: str, backend: str, knobs: Dict[str, Any]) -> None:
+def _check_backend(backend: str, shard: bool) -> None:
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (the port runs "
                          "backend='torch' only)")
-    for name in knobs:
-        if name in _LATER_KNOBS:
-            raise ValueError(f"{name}= is not supported by the torch "
-                             "backend yet")
-        raise TypeError(f"{where}() got an unexpected keyword argument "
-                        f"{name!r}")
+    from repro_torch.sim.batched import _check_shard  # imports this module
+
+    _check_shard(shard)
 
 
-def run_sweep(specs: Sequence[ScenarioSpec], backend: str = "torch",
+def _jobs_engaged(retry: Any, faults: Any, transport: Any) -> bool:
+    """Whether this call routes through the ``repro_torch.sim.jobs`` layer:
+    only when resilience or fleet execution was asked for
+    (``retry``/``faults``/``transport``); the plain path runs the whole
+    grid as one program and stays untouched otherwise."""
+    return retry is not None or faults is not None or transport is not None
+
+
+def _journal_to_cache(cache: Any, backend: str, tick: float,
+                      tick_impl: Optional[str]) -> Callable:
+    """A per-job completion hook that checkpoints results into the
+    persistent cache as they finish (the resume mechanism: a killed run
+    re-executed with the same cache recomputes only unfinished jobs).
+
+    Dedups by cache key across calls so pricing variants of one dynamics
+    lane still produce a single write, exactly like the bulk
+    ``cache.store`` the non-journaled path uses.
+    """
+    seen: set = set()
+
+    def journal(pairs) -> None:
+        fresh = []
+        for spec, result in pairs:
+            if not result.monthly:
+                continue
+            key = cache_key(spec, backend=backend, tick=tick,
+                            tick_impl=tick_impl)
+            if key not in seen:
+                seen.add(key)
+                fresh.append((spec, result))
+        if fresh:
+            cache.store(fresh, backend=backend, tick=tick,
+                        tick_impl=tick_impl)
+
+    return journal
+
+
+def run_sweep(specs: Sequence[ScenarioSpec],
+              workers: Optional[int] = None,
+              progress: Optional[Callable[[int, int, ScenarioResult], None]]
+              = None, backend: str = "torch",
               tick: float = 10.0, tick_impl: str = "auto",
-              device=None, cache: Optional[Any] = None,
-              **knobs: Any) -> SweepResult:
+              lane_chunk: Optional[int] = None,
+              devices: Optional[Sequence[Any]] = None,
+              cache: Optional[Any] = None,
+              record_series=None,
+              retry: Optional[Any] = None,
+              faults: Optional[Any] = None,
+              job_timeout: Optional[float] = None,
+              transport: Optional[Any] = None,
+              shard: bool = False,
+              device=None,
+              _journal: Optional[Callable] = None) -> SweepResult:
     """Run a spec grid on the port's batched program; results keep the
-    input order.
+    input order. The JAX package's signature, and ``device``.
 
     ``backend`` must be ``"torch"``; ``tick`` is the clock step in seconds,
     ``tick_impl`` the kernel implementation (``repro_torch.kernels.
@@ -241,36 +285,71 @@ def run_sweep(specs: Sequence[ScenarioSpec], backend: str = "torch",
     never serve each other. ``SweepResult.lanes_simulated``/``cache_hits``
     report the split.
 
-    Any of ``retry``, ``faults``, ``transport``, ``lane_chunk``,
-    ``record_series`` or ``shard`` raises ``ValueError``.
+    ``lane_chunk``/``devices``: chunked execution in bounded device
+    memory, dealt round-robin over devices; ``record_series``: per-tick
+    series capture, each result carrying its digests in ``.series`` (see
+    ``repro_torch.sim.batched``). ``retry``/``faults``/``job_timeout``:
+    the lane chunks as retryable jobs (``repro_torch.sim.jobs``, faults
+    from ``repro_torch.sim.faults``); work that exhausts its retries is
+    dropped, not fatal, and reported in ``SweepResult.failures``. With
+    ``cache`` set, completed chunks are journaled into it as they land, so
+    a re-run recomputes only the unfinished ones; ``faults`` with
+    ``corrupt > 0`` reads the cache through a ``FaultyBackend``.
+    ``transport``/``workers``: the chunk jobs on a worker fleet
+    (``repro_torch.sim.runners``; ``"subprocess"``, ``"local"`` or a
+    factory). ``shard=True`` raises ``ValueError``.
     """
-    _check_knobs("run_sweep", backend, knobs)
+    _check_backend(backend, shard)
     # deferred: batched and cache import this module
-    from repro_torch.sim.batched import run_sweep_torch
+    from repro_torch.sim.batched import _resolve_devices, run_sweep_torch
+    from repro_torch.sim.faults import as_faults
 
-    impl = resolve_tick_impl(tick_impl, device).name
+    faults = as_faults(faults)
+    impl = resolve_tick_impl(tick_impl,
+                             _resolve_devices(device, devices)[0]).name
+    engaged = _jobs_engaged(retry, faults, transport)
+    knobs = dict(progress=progress, lane_chunk=lane_chunk, devices=devices,
+                 record_series=record_series, retry=retry, faults=faults,
+                 job_timeout=job_timeout, workers=workers,
+                 transport=transport, device=device)
     if cache is None:
         return run_sweep_torch(specs, tick=tick, tick_impl=impl,
-                               device=device)
-    from repro_torch.sim.cache import as_cache
+                               journal=_journal, **knobs)
+    from repro_torch.sim.cache import ResultCache, as_cache
 
     cache = as_cache(cache)
+    if faults is not None and faults.corrupt > 0.0:
+        # Corrupt-read injection wraps a *local* view of the caller's
+        # backend (the caller's ResultCache object is not mutated); the
+        # cache detects the garbage, drops the entry, recomputes.
+        from repro_torch.sim.faults import FaultyBackend
+
+        cache = ResultCache(FaultyBackend(cache.backend, faults))
     specs = list(specs)
     t0 = time.perf_counter()
     hits = cache.fetch(specs, backend=backend, tick=tick, tick_impl=impl)
     miss = [s for s in dict.fromkeys(specs) if s not in hits]
     computed: Dict[ScenarioSpec, ScenarioResult] = {}
+    failures: List[Any] = []
     if miss:
-        res = run_sweep_torch(miss, tick=tick, tick_impl=impl, device=device)
+        journal = (_journal_to_cache(cache, backend, tick, impl)
+                   if engaged else None)
+        res = run_sweep_torch(miss, tick=tick, tick_impl=impl,
+                              journal=journal, **knobs)
+        # Key by result spec, not input order: a partial result has
+        # fewer entries than ``miss``.
         computed = {r.spec: r for r in res.results}
-        cache.store(computed.items(), backend=backend, tick=tick,
-                    tick_impl=impl)
+        failures = list(res.failures)
+        if not engaged:  # the plain path has no journal; store in bulk
+            cache.store(computed.items(), backend=backend, tick=tick,
+                        tick_impl=impl)
     merged = {**hits, **computed}
     return SweepResult(
-        results=[merged[s] for s in specs],
+        results=[merged[s] for s in specs if s in merged],
         wall_s=time.perf_counter() - t0,
         lanes_simulated=len({dynamics_key(s) for s in computed}),
-        cache_hits=len(hits))
+        cache_hits=len(hits),
+        failures=failures)
 
 
 class SweepDriver:
@@ -301,18 +380,50 @@ class SweepDriver:
     ``cache`` adds a persistent tier between the memo and the engine:
     memo -> cache -> simulate. Simulated results are stored back, so a
     re-run of the same workflow answers from disk (``lanes_simulated``
-    stays 0). Any of ``retry``, ``faults``, ``transport``, ``lane_chunk``,
-    ``record_series`` or ``shard`` raises ``ValueError``.
+    stays 0).
+
+    The execution knobs (``workers``, ``lane_chunk``, ``devices``,
+    ``progress``, ``record_series``, ``retry``, ``faults``,
+    ``job_timeout``, ``transport``) pass through to every ``run_sweep``
+    call, as :func:`run_sweep` takes them; with a cache and the job path
+    engaged, each round's completed chunks are journaled into the cache as
+    they land. ``failures`` accumulates every round's ``JobFailure``
+    reports, which the decision layer reads to degrade its claims.
+    ``shard=True`` raises ``ValueError``.
     """
 
     def __init__(self, backend: str = "torch", tick: float = 10.0,
-                 tick_impl: str = "auto", device=None,
-                 cache: Optional[Any] = None, **knobs: Any):
-        _check_knobs("SweepDriver", backend, knobs)
+                 workers: Optional[int] = None,
+                 tick_impl: str = "auto",
+                 lane_chunk: Optional[int] = None,
+                 devices: Optional[Sequence[Any]] = None,
+                 progress: Optional[Callable[[int, int, ScenarioResult],
+                                             None]] = None,
+                 cache: Optional[Any] = None,
+                 record_series=None,
+                 retry: Optional[Any] = None,
+                 faults: Optional[Any] = None,
+                 job_timeout: Optional[float] = None,
+                 transport: Optional[Any] = None,
+                 shard: bool = False,
+                 device=None):
+        _check_backend(backend, shard)
+        from repro_torch.sim.batched import _resolve_devices
+        from repro_torch.sim.faults import as_faults
+
         self.backend = backend
         self.tick = tick
-        self.device = resolve_device(device)
+        self.devices = devices
+        self.device = _resolve_devices(device, devices)[0]
         self.tick_impl = resolve_tick_impl(tick_impl, self.device).name
+        self.workers = workers
+        self.lane_chunk = lane_chunk
+        self.progress = progress
+        self.record_series = record_series
+        self.retry = retry
+        self.faults = as_faults(faults)
+        self.job_timeout = job_timeout
+        self.transport = transport
         if cache is not None:
             from repro_torch.sim.cache import as_cache
 
@@ -324,8 +435,8 @@ class SweepDriver:
         self.configs_run = 0
         self.cache_hits = 0
         self.wall_s = 0.0
-        #: kept for the decision layer, which degrades its claims on any
-        #: abandoned work; always empty in the port
+        #: cumulative ``JobFailure`` reports across every round; the
+        #: decision layer reads this to degrade its claims
         self.failures: List[Any] = []
 
     @property
@@ -350,16 +461,34 @@ class SweepDriver:
             self.cache_hits += hits
             new = [s for s in new if s not in served]
         lanes_before = len(self._lane_keys)
+        round_failures: List[Any] = []
         if new:
-            res = run_sweep(new, backend=self.backend, tick=self.tick,
-                            tick_impl=self.tick_impl, device=self.device)
+            engaged = _jobs_engaged(self.retry, self.faults, self.transport)
+            journal = None
+            if self.cache is not None and engaged:
+                journal = _journal_to_cache(self.cache, self.backend,
+                                            self.tick, self.tick_impl)
+            res = run_sweep(new, workers=self.workers,
+                            progress=self.progress, backend=self.backend,
+                            tick=self.tick, tick_impl=self.tick_impl,
+                            lane_chunk=self.lane_chunk, devices=self.devices,
+                            record_series=self.record_series,
+                            retry=self.retry, faults=self.faults,
+                            job_timeout=self.job_timeout,
+                            transport=self.transport,
+                            device=None if self.devices else self.device,
+                            _journal=journal)
             self.sweep_calls += 1
             self.configs_run += len(res.results)
             self.wall_s += res.wall_s
+            # key by result spec, not request order: a partial result has
+            # fewer entries than ``new``
             for result in res.results:
                 self._memo[result.spec] = result
                 self._lane_keys.add(dynamics_key(result.spec))
-            if self.cache is not None:
+            round_failures = list(res.failures)
+            self.failures.extend(round_failures)
+            if self.cache is not None and not engaged:
                 self.cache.store(((r.spec, r) for r in res.results),
                                  backend=self.backend, tick=self.tick,
                                  tick_impl=self.tick_impl)
@@ -373,7 +502,8 @@ class SweepDriver:
                       help="run_sweep invocations issued by the driver")
         reg.set_gauge("sweep.wall_s", self.wall_s,
                       help="Cumulative driver simulation wall time (s)")
-        return SweepResult(results=[self._memo[s] for s in specs],
+        return SweepResult(results=[self._memo[s] for s in specs
+                                    if s in self._memo],
                            wall_s=time.perf_counter() - t0,
                            lanes_simulated=len(self._lane_keys) - lanes_before,
-                           cache_hits=hits)
+                           cache_hits=hits, failures=round_failures)

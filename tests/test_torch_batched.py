@@ -29,6 +29,7 @@ from repro_torch.core.scenarios import (
 )
 from repro_torch.kernels.registry import resolve_tick_impl
 from repro_torch.sim.batched import TickLoop, run_sweep_torch, simulate_packed
+from repro_torch.sim.jobs import RetryPolicy
 from repro_torch.sim.sweep import run_sweep
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
@@ -163,19 +164,33 @@ def test_front_door_forwards_and_rejects_later_knobs(pricing_grid,
         assert a.metrics == b.metrics
         assert a.cost_usd == b.cost_usd
     assert res.lanes_simulated == 2  # seeds 0 and 1; two prices share 0
-    # the result cache is the one knob of repro's run_sweep now served
+    # the result cache
     cached = run_sweep(few, tick=60.0, device="cpu", cache=tmp_path)
     assert cached.lanes_simulated == 2 and cached.cache_hits == 0
     for a, b in zip(cached.results, res.results):
         assert a.metrics == b.metrics
     with pytest.raises(ValueError, match="backend"):
         run_sweep(few, backend="jax", device="cpu")
-    for knob in ("retry", "faults", "transport", "lane_chunk",
-                 "record_series", "shard"):
-        with pytest.raises(ValueError, match=knob):
-            run_sweep(few, device="cpu", **{knob: 1})
+    # the execution knobs of repro's run_sweep are served now: each one
+    # forwards to the batched program and leaves the results as they were
+    served = [dict(lane_chunk=1), dict(record_series=6),
+              dict(retry=RetryPolicy()), dict(faults="seed=3"),
+              dict(transport="local", workers=2, lane_chunk=1),
+              dict(retry=RetryPolicy(), job_timeout=60.0),
+              dict(devices=["cpu", "cpu"])]
+    for knobs in served:
+        where = {} if "devices" in knobs else {"device": "cpu"}
+        got_k = run_sweep(few, tick=60.0, **where, **knobs)
+        assert got_k.ok and got_k.lanes_simulated == 2, knobs
+        for a, b in zip(got_k.results, res.results):
+            assert a.metrics == b.metrics, knobs
+            assert a.cost_usd == b.cost_usd, knobs
+            assert bool(a.series) == ("record_series" in knobs), knobs
+    # only shard, which has no counterpart, and unknown keywords raise
+    with pytest.raises(ValueError, match="shard"):
+        run_sweep(few, device="cpu", shard=True)
     with pytest.raises(TypeError):
-        run_sweep(few, device="cpu", workers=2)
+        run_sweep(few, device="cpu", bogus=2)
     with pytest.raises(ValueError, match="tick_impl"):
         run_sweep(few, device="cpu", tick_impl="jnp")
     with pytest.raises(ValueError, match="CUDA device"):

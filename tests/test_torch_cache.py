@@ -41,6 +41,8 @@ from repro_torch.core.scenarios import (
     with_seeds,
 )
 from repro_torch.sim.batched import run_sweep_torch
+from repro_torch.sim.faults import FaultPlan
+from repro_torch.sim.jobs import RetryPolicy
 from repro_torch.sim.cache import (
     LocalDirBackend,
     ResultCache,
@@ -334,12 +336,20 @@ def test_driver_resolves_and_pins_tick_impl_and_rejects_later_knobs(
                       cache=tmp_path)
     assert drv.tick_impl == "torch" and drv.device.type == "cpu"
     assert isinstance(drv.cache, ResultCache)
-    for knob in ("retry", "faults", "transport", "lane_chunk",
-                 "record_series", "shard"):
-        with pytest.raises(ValueError, match=knob):
-            SweepDriver(device="cpu", **{knob: 1})
+    # repro's execution knobs are kept for every round; only shard, which
+    # has no counterpart in the port, and unknown keywords raise
+    knobs = SweepDriver(device="cpu", workers=2, lane_chunk=1,
+                        record_series=6, retry=RetryPolicy(),
+                        faults="seed=3,transient=0.5", job_timeout=9.0,
+                        transport="local")
+    assert (knobs.workers, knobs.lane_chunk, knobs.record_series,
+            knobs.job_timeout, knobs.transport) == (2, 1, 6, 9.0, "local")
+    assert knobs.faults == FaultPlan(seed=3, transient=0.5)
+    assert knobs.failures == []
+    with pytest.raises(ValueError, match="shard"):
+        SweepDriver(device="cpu", shard=True)
     with pytest.raises(TypeError):
-        SweepDriver(device="cpu", workers=2)
+        SweepDriver(device="cpu", bogus=2)
     with pytest.raises(ValueError, match="backend"):
         SweepDriver(backend="jax", device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):

@@ -33,7 +33,11 @@ and, in bfloat16, the loader its width needs (TMA at a multiple of 8,
 else the producer's threads), and the wgmma kernel's pieces with each
 loader and the tf32x3 kernel's bitwise on integer inputs; the
 Mamba scan at 1e-4 (the sum over
-the state runs in another order).
+the state runs in another order); the execution layer on the ``cuda``
+sweep: lane chunks, a device list, retryable chunk jobs under injected
+faults and a fleet of two worker processes, each bitwise to the unchunked
+run, and series capture with the replayed tick's series bitwise to the
+eager tick's and one launch of each kernel a tick.
 """
 
 import numpy as np
@@ -425,6 +429,124 @@ def test_cuda_replays_count_their_launches(cuda_device):
         assert ops.launch_counts() == {k: grid.n_ticks for k in ops.KERNELS}
         assert tg_ops.launch_counts() == {k: grid.n_ticks
                                           for k in tg_ops.KERNELS}
+
+
+def _exec_grid():
+    """Five lanes with a small disk cache (waiting files, every series
+    moving): chunks of 2 leave a padded last chunk."""
+    from repro_torch.core.scenarios import ScenarioSpec, pack_specs
+
+    return pack_specs([ScenarioSpec(base="III", cache_tb=2.0 + 4.0 * i,
+                                    gcs_limit_tb=[None, 5.0][i % 2], seed=i,
+                                    days=0.05, n_files=2000)
+                       for i in range(5)], tick=10.0)
+
+
+def _assert_outputs_equal(got, want):
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype, key
+        np.testing.assert_array_equal(got[key], w, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_cuda_chunks_and_round_robin_bitwise_to_unchunked(cuda_device):
+    """The ``cuda`` sweep in lane chunks of 1, 2 and 3 (padded last
+    chunks) and dealt over a device list, each bitwise to the unchunked
+    run: no float sum of a lane depends on the lanes beside it."""
+    from repro_torch.sim.batched import simulate_packed
+
+    grid = _exec_grid()
+    whole = simulate_packed(grid, tick_impl="cuda")
+    for kw in (dict(lane_chunk=1), dict(lane_chunk=2), dict(lane_chunk=3),
+               dict(lane_chunk=2, devices=["cuda:0", "cuda:0"]),
+               dict(devices=["cuda", "cuda"])):
+        _assert_outputs_equal(simulate_packed(grid, tick_impl="cuda", **kw),
+                              whole)
+    assert whole["jobs_done_site"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_series_replayed_bitwise_to_eager_and_launches_unchanged(
+        cuda_device):
+    """Series capture on the ``cuda`` tick: the replayed tick's series and
+    outputs bitwise to the eager tick's, capture off's outputs unchanged
+    by it, and each kernel still launched once a tick."""
+    from repro_torch.sim.batched import simulate_packed
+
+    grid = _exec_grid()
+    off = simulate_packed(grid, tick_impl="cuda")
+    got = {}
+    for eager in (True, False):
+        ops.reset_launch_counts()
+        tg_ops.reset_launch_counts()
+        got[eager] = simulate_packed(grid, tick_impl="cuda", _eager=eager,
+                                     record_series=7)
+        assert ops.launch_counts() == {k: grid.n_ticks for k in ops.KERNELS}
+        assert tg_ops.launch_counts() == {k: grid.n_ticks
+                                          for k in tg_ops.KERNELS}
+    _assert_outputs_equal(got[False], got[True])
+    for key, want in off.items():
+        np.testing.assert_array_equal(got[False][key], want, err_msg=key)
+    assert got[False]["ser_queue"].max() > 0
+    assert got[False]["ser_run"].max() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fault_injected_jobs_bitwise_and_memory_returns(cuda_device):
+    """Retryable chunk jobs on the card under injected crashes, hangs and
+    transient faults: the same results as the plain sweep, and the device
+    memory of the attempts given back."""
+    from repro_torch.core.scenarios import ScenarioSpec
+    from repro_torch.sim.batched import run_sweep_torch
+    from repro_torch.sim.faults import FaultPlan
+    from repro_torch.sim.jobs import RetryPolicy
+
+    specs = [ScenarioSpec(base="III", cache_tb=2.0 + 4.0 * i, seed=i,
+                          days=0.05, n_files=2000) for i in range(5)]
+    from repro_torch.obs.trace import get_tracer
+
+    plain = run_sweep_torch(specs, tick=10.0, tick_impl="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable()
+    try:
+        res = run_sweep_torch(
+            specs, tick=10.0, tick_impl="cuda", lane_chunk=2,
+            job_timeout=0.2,
+            faults=FaultPlan(seed=11, crash=0.3, hang=0.3, transient=0.3,
+                             hang_s=0.5),
+            retry=RetryPolicy(max_attempts=3, base_delay_s=0.0))
+        (call,) = [e["args"] for e in tracer.events
+                   if e["name"] == "sweep.torch"]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    torch.cuda.synchronize()
+    assert call["chunks"] == 3 and call["pool_bytes"] > 0
+    assert torch.cuda.memory_allocated() - before < call["pool_bytes"] // 2
+    assert res.ok
+    for a, b in zip(res.results, plain.results):
+        assert a.metrics == b.metrics and a.cost_usd == b.cost_usd
+
+
+@pytest.mark.cuda
+def test_cuda_subprocess_fleet_bitwise(cuda_device):
+    """Two worker processes on the card, each opening its own CUDA
+    context: the fleet's results are the plain sweep's."""
+    from repro_torch.core.scenarios import ScenarioSpec
+    from repro_torch.sim.batched import run_sweep_torch
+
+    specs = [ScenarioSpec(base="III", cache_tb=2.0 + 4.0 * i, seed=i,
+                          days=0.05, n_files=2000) for i in range(5)]
+    plain = run_sweep_torch(specs, tick=10.0, tick_impl="cuda")
+    fleet = run_sweep_torch(specs, tick=10.0, tick_impl="cuda",
+                            transport="subprocess", workers=2, lane_chunk=2)
+    assert fleet.ok and len(fleet.results) == len(plain.results)
+    for a, b in zip(fleet.results, plain.results):
+        assert a.metrics == b.metrics and a.cost_usd == b.cost_usd
 
 
 GLUE_STEPS = ("begin", "complete", "link_admit", "migrate", "wait_select")
