@@ -101,7 +101,24 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``displaced_disk.displaced_tb``, per sweep call the specs, lanes, pack
    s, ``TickLoop.capture_s``, graph pool bytes, sweep s and ticks/s (the
    ``sweep.torch`` trace events), and the phase's wall s;
-9. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
+9. CLI phase, the port's two commands as a user runs them, each a
+   subprocess (``python -m repro_torch.cli.decide`` / ``.run_sweep``,
+   failures not caught): ``decide --tick-impl cuda --tick 10
+   --cross-check --json`` on the pricing grid at the sweep's catalogue and
+   horizon, ``--max-rounds 2``, a fresh ``--cache-dir`` (cold: exit 0, its
+   decision points re-run on the event engine within the CLI's 0.10 jobs /
+   0.20 cost bars; decisions, displaced TB and break-even bracket equal to
+   the decide phase's in-process ``decide()``), then again on the same
+   cache (warm: 0 lanes simulated, the same decision); then ``run_sweep
+   --backend process --workers 3`` on a JSON ``--spec`` of Table 5's I, II
+   and III with ``curves: true`` and III over twice the horizon (specs the
+   batched program refuses), and the same specs on a 2-worker fleet of the
+   ``"scenario"`` kind (``transport="subprocess"``), every row and curve
+   digest bitwise the CLI's; prints each run's wall s, the cross-check's
+   configs and wall s, the event engine's events and events/s per config
+   (host CPU), and the device memory before and after, each beside the
+   card's name and power limit;
+10. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
    then ``simulate_ticks`` for 1,000 ticks on 6 links through the tick
@@ -112,7 +129,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    with its capture and without, its launches a tick (replays counted),
    and over 128 steady ticks its wall and device microseconds a tick
    (``torch.profiler``), idle share and bound;
-10. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
+11. attention phase: ``flash_attention`` at qwen3_4b widths (nh 32, nkv 8,
    hd 128, T = S = 4096, bf16, causal), gemma3_27b's local layers (nh 32,
    nkv 16, published head_dim 128, T = S = 4096, bf16, causal, window
    1024), the same at hd 168 (the width ``repro``'s gemma3_27b config
@@ -139,10 +156,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    12*hd flops per unmasked pair at dense TF32's 495 TFLOP/s (the split
    design's own least time), printed beside the SIMT ceiling, 4*hd flops
    at 67 TFLOP/s (``bound_ms_simt``);
-11. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
+12. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
     d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
     version at 1e-4 atol/rtol;
-12. the ``kernels`` JSON line: one entry per kernel and case (``case``
+13. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it), each with its launches on its own path (counts reset just
     before the path runs, read just after each case; the lane-tick and
     glue entries also with ``launches_decide``, their launches in the
@@ -154,7 +171,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     ``threads``, each at least once) and that kernel's source; then the
     ``ok`` line.
 
-Phases 3, 8, 9 and 10 print the kernel's and the plain version's
+Phases 3, 8, 10 and 11 print the kernel's and the plain version's
 milliseconds (CUDA events after warm-up) and the bound: the larger of the
 bytes the function needs over the memory rate and its operations over the
 card's peak for their type (float32 outside the tensor cores, bf16 on
@@ -1440,9 +1457,10 @@ def log_calls(what: str, calls) -> None:
             f"{c['ticks'] / c['sweep_s']:.1f} ticks/s")
 
 
-def decide_phase(torch, days: float, n_files: int) -> dict:
+def decide_phase(torch, days: float, n_files: int):
     """The §5.3 decision workflow on the card (see the module notes);
-    returns each lane-tick and glue kernel's launches in the cold run."""
+    returns each lane-tick and glue kernel's launches in the cold run, and
+    the cold report's JSON document."""
     import shutil
     import tempfile
 
@@ -1539,7 +1557,151 @@ def decide_phase(torch, days: float, n_files: int) -> dict:
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     log(f"decide phase: {time.perf_counter() - t_phase:.2f} s wall")
-    return launched
+    return launched, doc
+
+
+#: The CLI phase's ``run_sweep --backend process`` specs: Table 5's three
+#: configurations with their Fig. 6/8 curves at the sweep's catalogue and
+#: horizon, and III over twice the horizon. None of them packs into the
+#: batched program (``curves``, and two horizons in one grid).
+def process_spec_doc(days: float, n_files: int) -> dict:
+    return {"n_files": n_files,
+            "scenarios": [{"base": b, "days": days, "curves": True}
+                          for b in ("I", "II", "III")]
+            + [{"base": "III", "days": 2 * days}]}
+
+
+def run_cli(module: str, args, what: str, card: str):
+    """``python -m repro_torch.cli.<module> args`` in a subprocess from
+    this checkout; returns its exit code, wall seconds and stderr. Its
+    output goes to files (a piped stream that fills would block it)."""
+    import os
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    with tempfile.TemporaryFile() as out, tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        rc = subprocess.run([sys.executable, "-m", f"repro_torch.cli.{module}",
+                             *map(str, args)], cwd=ROOT, env=env, stdout=out,
+                            stderr=err, timeout=600).returncode
+        wall = time.perf_counter() - t0
+        err.seek(0)
+        text = err.read().decode(errors="replace")
+    log(f"cli {what}: exit {rc}, {wall:.2f} s wall [{card}]")
+    if rc != 0:
+        log(text[-6000:])
+    return rc, wall, text
+
+
+def smi_memory_used() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cli_phase(torch, days: float, n_files: int, card: str,
+              decided: dict) -> None:
+    """The CLIs on the card, as a user runs them (see the module notes):
+    ``decide --cross-check`` cold and warm on the pricing grid, decisions
+    equal to the in-process decide phase's; ``run_sweep --backend
+    process`` on specs the batched program refuses, bitwise equal to the
+    same specs on a 2-worker fleet of the ``"scenario"`` kind."""
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.core.scenarios import specs_from_mapping
+    from repro_torch.sim.sweep import run_sweep
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    alloc0, smi0 = torch.cuda.memory_allocated(), smi_memory_used()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="cli_phase_", dir=ROOT / "build"))
+    try:
+        cache = work / "cache"
+        docs = {}
+        for run in ("cold", "warm"):
+            out = work / f"decide_{run}.json"
+            rc, wall, err = run_cli(
+                "decide", ["--tick-impl", "cuda", "--tick", 10.0,
+                           "--days", days, "--files", n_files,
+                           "--max-rounds", 2, "--cache-dir", cache,
+                           "--cross-check", "--json", out, "--quiet"],
+                f"decide {run} (216-config grid, {n_files} files/site, "
+                f"{days:g} days, --cross-check)", card)
+            check(rc == 0, f"cli decide {run}: exit {rc}")
+            doc = docs[run] = json.loads(out.read_text())
+            m = re.search(r"cross-check: (\d+) configs on backend=process "
+                          r"in ([0-9.]+) s", err)
+            check(m is not None, f"cli decide {run}: no cross-check line")
+            log(f"cli decide {run}: {doc['stats']['lanes_simulated']} lanes "
+                f"simulated, {doc['stats']['configs_run']} configs run; "
+                f"cross-check {m.group(1)} configs on the event engine in "
+                f"{m.group(2)} s [{card}]")
+            check(decisions(doc) == decisions(decided)
+                  and doc["displaced_disk"]["displaced_tb"]
+                  == decided["displaced_disk"]["displaced_tb"],
+                  f"cli decide {run}: decision {decisions(doc)} "
+                  f"(displaced {doc['displaced_disk']['displaced_tb']} TB) "
+                  f"differs from the in-process decide()'s "
+                  f"{decisions(decided)}")
+        check(docs["warm"]["stats"]["lanes_simulated"] == 0
+              and docs["warm"]["stats"]["configs_run"] == 0,
+              "cli decide warm: lanes simulated")
+        log(f"cli decide: cold and warm decisions equal the in-process "
+            f"decide()'s: claim_holds {decided['claim_holds']}, displaced "
+            f"{decided['displaced_disk']['displaced_tb']} TB, break-even "
+            f"{decided['break_even'] and decided['break_even']['bracket']}")
+
+        spec_doc = process_spec_doc(days, n_files)
+        spec_path = work / "process_specs.json"
+        spec_path.write_text(json.dumps(spec_doc))
+        out = work / "process.json"
+        rc, wall, _ = run_cli(
+            "run_sweep", ["--backend", "process", "--spec", spec_path,
+                          "--workers", 3, "--json", out, "--quiet"],
+            "run_sweep --backend process (I, II, III with curves, III at "
+            f"{2 * days:g} days; {n_files} files/site, 3 workers)", card)
+        check(rc == 0, f"cli run_sweep --backend process: exit {rc}")
+        got = json.loads(out.read_text())
+        for row in got["rows"]:
+            log(f"  event engine {row['label']}, {row['days']:g} days: "
+                f"{row['events']} events in {row['wall_s']:.3f} s, "
+                f"{row['events'] / row['wall_s']:.0f} events/s on the host, "
+                f"jobs {row['jobs_done']}, cost {row['cost_usd']:.2f} USD "
+                f"[{card}]")
+        check(len(got["series"]) == 3,
+              f"cli run_sweep: {len(got['series'])} curve sets, not 3")
+        specs = specs_from_mapping(spec_doc)
+        t0 = time.perf_counter()
+        fleet = run_sweep(specs, backend="process", transport="subprocess",
+                          workers=2)
+        log(f"fleet (scenario kind, 2 subprocess workers): "
+            f"{time.perf_counter() - t0:.2f} s wall [{card}]")
+        check(fleet.ok and len(fleet) == len(specs), "fleet: jobs lost")
+        fleet.to_json(str(work / "fleet.json"))
+        want = json.loads((work / "fleet.json").read_text())
+
+        def bits(doc):
+            return ([{k: v for k, v in r.items() if k != "wall_s"}
+                     for r in doc["rows"]], doc["series"], doc["pareto"])
+
+        check(bits(got) == bits(want),
+              "fleet: scenario results not bitwise the CLI's")
+        log("fleet: every row (metrics, bill, events) and curve digest "
+            "bitwise the CLI's process backend")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    log(f"cli phase: device memory allocated {alloc0} B before, "
+        f"{torch.cuda.memory_allocated()} B after; nvidia-smi memory.used "
+        f"{smi0} before, {smi_memory_used()} after [{card}]")
+    log(f"cli phase: {time.perf_counter() - t_phase:.2f} s wall [{card}]")
 
 
 def carousel_inputs(torch, gen, n: int, m: int):
@@ -2138,7 +2300,8 @@ def main(argv=None) -> int:
     execution_phase(torch, grid, specs, days, n_files, outs[False],
                     runs["cuda"], card)
 
-    decide_launches = decide_phase(torch, days, n_files)
+    decide_launches, decided = decide_phase(torch, days, n_files)
+    cli_phase(torch, days, n_files, card, decided)
 
     # one entry per kernel and case: the lane-tick kernels at the sweep's
     # shapes with their launches on the sweep, then the three further

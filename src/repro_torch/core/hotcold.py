@@ -3,8 +3,10 @@
 
 ``MigrationPolicy`` decides which evicted hot-tier files migrate to the
 cold tier, ``ColdDeletionPolicy`` how the cold tier is trimmed (the batched
-program rejects trimming, as ``repro``'s does), ``PopularityModel`` the
-static popularity draw and the selection CDF both packers share.
+program rejects trimming, as ``repro``'s does; the event engine carries
+the policy in its config, as ``repro``'s does), ``PopularityModel`` the
+static popularity draw and the selection CDF the packer and the event
+engine share.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ class MigrationPolicy:
 
     min_popularity: int = 0
 
+    def should_migrate(self, popularity: int) -> bool:
+        return popularity >= self.min_popularity
+
 
 @dataclass
 class ColdDeletionPolicy:
@@ -32,6 +37,13 @@ class ColdDeletionPolicy:
     is None (the paper's configuration III)."""
 
     capacity_threshold: Optional[float] = None  # fraction of the limit
+
+    def trim_target(self, limit: Optional[float], used: float) -> float:
+        """Bytes to free (0 if no trim needed)."""
+        if self.capacity_threshold is None or limit is None:
+            return 0.0
+        cap = self.capacity_threshold * limit
+        return max(0.0, used - cap)
 
 
 @dataclass

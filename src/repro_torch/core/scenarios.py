@@ -4,7 +4,8 @@ from ``repro.core.scenarios``.
 ``ScenarioSpec`` is the flat, picklable description of one HCDC variant
 (cache size, egress option, storage price, job rate, workload, seed);
 ``build_config`` materialises it into an ``HCDCConfig``; ``expand_grid``
-produces the Cartesian product of spec axes; ``pack_specs`` packs a grid
+produces the Cartesian product of spec axes and ``specs_from_mapping``
+reads a sweep document (the CLIs' ``--spec``); ``pack_specs`` packs a grid
 into the dense per-lane arrays the batched tick program consumes;
 ``cache_key`` content-addresses a spec's result for ``repro_torch.sim.
 cache``, and the continuous-axis helpers (``axis_value``, ``with_axis``,
@@ -167,6 +168,41 @@ def expand_grid(axes: Mapping[str, Any]) -> List[ScenarioSpec]:
             for combo in itertools.product(*levels)]
 
 
+def specs_from_mapping(doc: Mapping[str, Any]) -> List[ScenarioSpec]:
+    """Parse a sweep document (already-loaded YAML/JSON) into specs.
+
+    Two accepted shapes::
+
+        {"axes": {...}, "days": 1, ...}     # grid + shared fixed fields
+        {"scenarios": [{...}, {...}], ...}  # explicit spec list + shared
+
+    Shared top-level fields apply to every spec unless the axis/scenario
+    overrides them.
+    """
+    doc = dict(doc)
+    axes = doc.pop("axes", None)
+    scenarios = doc.pop("scenarios", None)
+    shared = {k: v for k, v in doc.items() if k in _SPEC_FIELDS}
+    extra = set(doc) - _SPEC_FIELDS
+    if extra:
+        raise ValueError(f"unknown top-level fields: {sorted(extra)}")
+    if (axes is None) == (scenarios is None):
+        raise ValueError("provide exactly one of 'axes' or 'scenarios'")
+    if axes is not None:
+        merged = dict(shared)
+        merged.update(axes)
+        return expand_grid(merged)
+    specs = []
+    for s in scenarios:
+        s = dict(s)
+        unknown = set(s) - _SPEC_FIELDS
+        if unknown:
+            raise ValueError(f"unknown scenario fields: {sorted(unknown)} "
+                             f"(valid: {sorted(_SPEC_FIELDS)})")
+        specs.append(ScenarioSpec(**{**shared, **s}))
+    return specs
+
+
 def with_seeds(specs: Iterable[ScenarioSpec], n_seeds: int,
                first_seed: int = 0) -> List[ScenarioSpec]:
     """Replicate each spec across ``n_seeds`` consecutive seeds.
@@ -218,20 +254,28 @@ def engine_fingerprint(backend: str = "torch",
                        tick_impl: Optional[str] = None) -> str:
     """Canonical engine identity of the port for result caching.
 
+    ``"process"`` is the event-driven engine (``repro_torch.core.hcdc``):
+    bit-deterministic per spec and bitwise ``repro``'s, so it keeps
+    ``repro``'s fingerprint, and ``cache_key(spec, backend="process")``
+    is ``repro``'s key.
+
     The batched program's outputs depend on its clock step, so the tick
-    value is part of the fingerprint: ``"torch:60"`` is the plain PyTorch
+    value is part of its fingerprint: ``"torch:60"`` is the plain PyTorch
     tick (``tick_impl="torch"``, or ``None``), ``"torch:60:cuda"`` the
     hand-written kernels. The kernels differ from the plain tick at
     GCS-admission ties within 16 ulps of the limit, so the two are not
     bitwise and their entries never serve each other; nor do they serve
-    the JAX package's ``jax:*`` or ``process`` entries (the engines agree
-    statistically, not bitwise). ``"auto"`` is rejected: resolve it
-    (``repro_torch.kernels.registry.resolve_tick_impl``) before keying, or
-    one key could name two programs on two machines.
+    the JAX package's ``jax:*`` entries or either package's ``process``
+    entries (the engines agree statistically, not bitwise). ``"auto"`` is
+    rejected: resolve it (``repro_torch.kernels.registry.
+    resolve_tick_impl``) before keying, or one key could name two programs
+    on two machines.
     """
+    if backend == "process":
+        return "process"
     if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r} (the port's engine "
-                         "is backend='torch')")
+        raise ValueError(f"unknown backend {backend!r} (expected 'torch' "
+                         "or 'process')")
     t = 10.0 if tick is None else float(tick)
     impl = "torch" if tick_impl is None else str(tick_impl)
     if impl == "torch":
@@ -418,7 +462,8 @@ def _require_uniform(name: str, values: Sequence[Any]) -> Any:
     if len(distinct) > 1:
         raise ValueError(
             f"the batched program requires a uniform {name!r} across the grid "
-            f"(lanes share one tick/array layout), got {sorted(distinct)}")
+            f"(lanes share one tick/array layout), got {sorted(distinct)}; "
+            f"backend='process' runs such grids")
     return values[0]
 
 
@@ -432,7 +477,7 @@ def pack_specs(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     per lane (the workload schedule reshapes the packed job stream, so
     workload-differing specs get distinct dynamics lanes; only pricing-only
     variants share one). ``curves`` is not supported (time series live on
-    the event engine, which this package does not include).
+    the event engine, ``backend="process"``).
 
     Catalogue and job-stream sampling is memoized per (base, seed,
     n_files, rate, workload) draw key: lanes that differ only in capacity
@@ -456,7 +501,8 @@ def pack_specs(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     _require_uniform("n_files", [s.n_files for s in specs])
     if any(s.curves for s in specs):
         raise ValueError("curves=True is not supported by the batched "
-                         "program (it records no time series)")
+                         "program (it records no time series); "
+                         "backend='process' runs it")
 
     all_cfgs = [build_config(s) for s in specs]
     _require_uniform("site count", [len(c.sites) for c in all_cfgs])
@@ -464,10 +510,12 @@ def pack_specs(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     for cfg in all_cfgs:
         if cfg.tape_latency_sigma > 0:
             raise ValueError("tape_latency_sigma > 0 is not supported "
-                             "by the batched program")
+                             "by the batched program; backend='process' "
+                             "runs it")
         if cfg.cold_deletion_policy.capacity_threshold is not None:
             raise ValueError("cold-deletion trimming is not supported "
-                             "by the batched program")
+                             "by the batched program; backend='process' "
+                             "runs it")
 
     # Deduplicate dynamics: the ``PRICING_FIELDS`` (egress choice, storage
     # price, flat egress price) feed only the cost model (``build_config``

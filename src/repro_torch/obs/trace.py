@@ -12,8 +12,9 @@ Chrome trace-event JSON format, loadable in Perfetto or
 
 The tracer is **disabled by default**: an idle span is one attribute
 check and a no-op context manager, so library code can wrap hot phases
-unconditionally. (``repro``'s ``jax_device_profile`` hook has no
-counterpart here; ``torch.profiler`` covers the device.)
+unconditionally. ``device_profile`` (``repro``'s ``jax_device_profile``)
+brackets a run in ``torch.profiler`` and writes its Chrome trace, when a
+directory is given and the tracer is on.
 """
 
 from __future__ import annotations
@@ -126,4 +127,31 @@ def get_tracer() -> Tracer:
     return _TRACER
 
 
-__all__: Iterable[str] = ["Tracer", "get_tracer"]
+@contextmanager
+def device_profile(logdir: Optional[str]):
+    """Optional ``torch.profiler`` bracket around a run (the CLIs'
+    ``--device-profile``).
+
+    Active only when ``logdir`` is set and the process-global tracer is
+    enabled; every other combination is a no-op, and torch is imported
+    only when active. Records the host and, where CUDA is available, the
+    device, and writes ``<logdir>/device_trace.<run_id>.json`` (Chrome
+    trace-event JSON) on exit.
+    """
+    if not logdir or not _TRACER.enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"device_trace.{_TRACER.run_id}.json"))
+
+
+__all__: Iterable[str] = ["Tracer", "get_tracer", "device_profile"]

@@ -1,5 +1,7 @@
 """Simulation layers of the port: the batched tick program (``batched``),
-its results and front door (``sweep``), the persistent result cache
-(``cache``), the decision layer (``decide``), and the numpy-only pieces
-they need (``cloud``, ``distributions``, ``infrastructure``, ``output``,
-``transfer``, ``workload``), copied from ``repro.sim``."""
+the event-driven reference engine (``engine``, with ``infrastructure``,
+``transfer``, ``cloud``'s bucket and ``output``'s collector), the front
+door over both (``sweep``), the persistent result cache (``cache``), the
+execution layer (``jobs``, ``faults``, ``runners``), the decision layer
+(``decide``), and the numpy-only pieces they share (``distributions``,
+``workload``), copied from ``repro.sim``."""

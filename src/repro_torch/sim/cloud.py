@@ -6,7 +6,9 @@ egress (0-1 TiB 0.12, 1-10 TiB 0.11, >10 TiB 0.08 USD/GiB/month) or a flat
 peering price (direct 0.05, interconnect 0.02), class A/B operations. The
 batched program accumulates the raw quantities per 30-day month on the
 device; ``bills_from_monthly_totals`` folds them into ``MonthlyBill``s.
-``GCSBucket`` (the event engine's storage element) is not carried over.
+``GCSBucket`` is the event engine's bucket: a ``StorageElement`` that
+integrates its stored volume over time (GB-seconds), closes a bill every
+30-day month, and books egress, ingress and deletes.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
-from repro_torch.sim.infrastructure import GiB
+from repro_torch.sim.infrastructure import GiB, Site, StorageElement
 
 MONTH_SECONDS = 30 * 24 * 3600
 
@@ -69,6 +71,10 @@ class MonthlyBill:
     network_usd: float = 0.0
     ops_usd: float = 0.0
 
+    @property
+    def total(self) -> float:
+        return self.storage_usd + self.network_usd + self.ops_usd
+
 
 def sum_bills(bills: List[MonthlyBill]) -> MonthlyBill:
     """Aggregate monthly bills into one run-total bill."""
@@ -102,3 +108,89 @@ def bills_from_monthly_totals(cost_model: GCSCostModel,
                                         int(round(float(class_b[i])))),
         ))
     return bills
+
+
+class GCSBucket(StorageElement):
+    """A cloud bucket storage element with cost tracking.
+
+    Integrates stored volume over time (GB-seconds) lazily: ``_sync(now)``
+    must be called before any volume change. Egress/ingress and operation
+    counts accumulate per calendar month (30-day months from t=0, matching
+    the paper's per-month Table 8).
+    """
+
+    def __init__(self, name: str, site: Site, limit: Optional[float] = None,
+                 cost_model: Optional[GCSCostModel] = None):
+        super().__init__(name, site, limit=limit, access_latency=0.0)
+        self.cost_model = cost_model or GCSCostModel()
+        self._last_sync: int = 0
+        self._gb_seconds_month: float = 0.0
+        self.egress_month: float = 0.0
+        self.class_a_month: int = 0
+        self.class_b_month: int = 0
+        self._month_start: int = 0
+        self.bills: List[MonthlyBill] = []
+        #: Raw per-month billing inputs, one tuple (gb_seconds,
+        #: egress_bytes, class_a, class_b) per closed month — the
+        #: pricing-independent quantities ``bills_from_monthly_totals``
+        #: turns back into ``self.bills`` under any cost model; the result
+        #: cache (``repro_torch.sim.cache``) stores these.
+        self.monthly_raw: List[Tuple[float, float, int, int]] = []
+        #: Complete 30-day months closed by ``_sync`` (always billed); a
+        #: trailing ``monthly_raw`` entry beyond this count is the partial
+        #: month ``finalize`` closed because it saw activity.
+        self.full_months_closed: int = 0
+        # storage increase/decrease tracking: (time, +/- bytes) deltas for
+        # Fig-8 style curves
+        self.volume_deltas: List[Tuple[int, float]] = []
+
+    # -- time integration ----------------------------------------------------
+    def _sync(self, now: int) -> None:
+        while now - self._month_start >= MONTH_SECONDS:
+            boundary = self._month_start + MONTH_SECONDS
+            self._gb_seconds_month += self.used / 1e9 * (boundary - self._last_sync)
+            self._close_month()
+            self.full_months_closed += 1
+            self._last_sync = boundary
+            self._month_start = boundary
+        self._gb_seconds_month += self.used / 1e9 * (now - self._last_sync)
+        self._last_sync = now
+
+    def _close_month(self) -> None:
+        self.monthly_raw.append((self._gb_seconds_month, self.egress_month,
+                                 self.class_a_month, self.class_b_month))
+        cm = self.cost_model
+        self.bills.append(
+            MonthlyBill(
+                storage_usd=cm.storage_cost(self._gb_seconds_month),
+                network_usd=cm.egress_cost(self.egress_month),
+                ops_usd=cm.ops_cost(self.class_a_month, self.class_b_month),
+            )
+        )
+        self._gb_seconds_month = 0.0
+        self.egress_month = 0.0
+        self.class_a_month = 0
+        self.class_b_month = 0
+
+    def finalize(self, now: int) -> List[MonthlyBill]:
+        """Close the current (possibly partial) month and return all bills."""
+        self._sync(now)
+        if self._gb_seconds_month > 0 or self.egress_month > 0:
+            self._close_month()
+        return self.bills
+
+    # -- tracked mutations ----------------------------------------------------
+    def record_ingress(self, now: int, nbytes: float) -> None:
+        self._sync(now)
+        self.class_a_month += 1  # write op
+        self.volume_deltas.append((now, nbytes))
+
+    def record_egress(self, now: int, nbytes: float) -> None:
+        self._sync(now)
+        self.egress_month += nbytes
+        self.class_b_month += 1  # read op
+
+    def record_delete(self, now: int, nbytes: float) -> None:
+        self._sync(now)
+        self.class_a_month += 1
+        self.volume_deltas.append((now, -nbytes))

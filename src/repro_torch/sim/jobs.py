@@ -2,7 +2,8 @@
 ``repro.sim.jobs``.
 
 Sweep work is sharded into ``Job``s — one ``PackedGrid`` lane chunk per
-job on the batched program — tracked by a ``JobRegistry`` with explicit
+job on the batched program, one scenario per job on the event engine
+(``backend="process"``) — tracked by a ``JobRegistry`` with explicit
 states::
 
     pending -> running -> done
@@ -12,7 +13,9 @@ states::
 Failed attempts retry under a deterministic exponential backoff
 (``RetryPolicy``): delays are bounded by ``max_delay_s``, monotone
 non-decreasing in the attempt number, and bitwise-reproducible for a fixed
-seed — the jitter term is a pure hash of ``(seed, job_id)``. A job that
+seed — the jitter term is a pure hash of ``(seed, job_id)``. Worker death
+(``BrokenProcessPool``) recycles the pool and requeues only the lost
+jobs; wall-clock deadlines reap hung workers the same way. A job that
 exhausts its budget is *abandoned*, not fatal: executors return whatever
 completed plus the registry, and ``run_sweep`` folds abandoned jobs into
 ``SweepResult.failures`` instead of raising.
@@ -24,24 +27,29 @@ Everything is instrumented through ``repro_torch.obs``: ``jobs.retries`` /
 (``repro_torch.sim.faults``) hooks in front of each attempt, keyed by
 ``(plan.seed, job_id, attempt)``.
 
-Two executors drain the registry: ``run_local_jobs`` (serial in-process)
-and ``repro_torch.sim.runners.run_fleet_jobs`` (a persistent worker fleet
-over a pluggable transport). The JAX package's third, the anonymous
-process pool of event-engine scenarios (``run_process_jobs``), waits for
-the port's event engine.
+Three executors drain the registry: ``run_local_jobs`` (serial
+in-process), ``run_process_jobs`` (an anonymous spawned pool of
+event-engine scenarios, recycled wholesale on a crash) and
+``repro_torch.sim.runners.run_fleet_jobs`` (a persistent worker fleet over
+a pluggable transport, with per-worker crash attribution) — all observing
+the same state machine, retry policy and fault plan, and all producing
+byte-identical results.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import time
+from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
+from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.metrics import get_registry, snapshot_and_reset
 from repro_torch.obs.trace import get_tracer
 from repro_torch.sim.faults import (FaultPlan, JobTimeout, TransientFault,
-                                    WorkerCrash, raise_local_fault,
-                                    unit_hash)
+                                    WorkerCrash, perform_in_worker,
+                                    raise_local_fault, unit_hash)
 
 #: Job lifecycle states.
 PENDING = "pending"
@@ -107,8 +115,9 @@ class Job:
     """One retryable unit of sweep work."""
 
     job_id: str
-    #: executor-defined work description (a ``(lane_start, lane_stop)``
-    #: pair of the packed grid)
+    #: executor-defined work description (a ``ScenarioSpec`` on the
+    #: process backend, a ``(lane_start, lane_stop)`` pair of the packed
+    #: grid on the batched program)
     payload: Any = None
     #: human-readable tags (spec labels); fault plans filter on these
     labels: Tuple[str, ...] = ()
@@ -249,15 +258,16 @@ class JobRegistry:
 
     def requeue_lost(self, job: Job) -> None:
         """Return an in-flight job to the queue without charging an
-        attempt — used when the job was collateral damage (its job frame
-        never reached a worker) rather than the failure itself."""
+        attempt — used when the job was collateral damage (its pool died
+        because of a *different* job, or its job frame never reached a
+        worker) rather than the failure itself."""
         job.attempts = max(job.attempts - 1, 0)
         job.state = PENDING
         job.not_before = 0.0
         job.started_at = None
         get_registry().inc(
             "jobs.requeued",
-            help="In-flight jobs requeued after losing their worker")
+            help="In-flight jobs requeued after losing their worker or pool")
         self._publish()
 
     # -- reporting ----------------------------------------------------------
@@ -281,12 +291,14 @@ def run_local_jobs(jobs: Sequence[Job],
                    ) -> Tuple[Dict[str, Any], JobRegistry]:
     """Run jobs serially in-process with retry/backoff and fault injection.
 
-    Used by the batched program's lane-chunk jobs. Returns ``(results by job_id, registry)``; abandoned
+    Used by the batched program's lane-chunk jobs and the serial process
+    backend. Returns ``(results by job_id, registry)``; abandoned
     jobs are absent from the results and reported by
     ``registry.failures()``. ``on_done`` fires after each success (the
     checkpoint-journaling hook). Wall-clock deadlines cannot preempt
     in-process work, so they apply to injected hangs only (see
-    ``repro_torch.sim.faults.raise_local_fault``); the worker fleet
+    ``repro_torch.sim.faults.raise_local_fault``); the process pool and the
+    worker fleet
     enforces real deadlines.
     """
     reg = registry or JobRegistry(policy)
@@ -335,8 +347,192 @@ def run_local_jobs(jobs: Sequence[Job],
     return results, reg
 
 
+# -- process-pool executor ----------------------------------------------------
+
+def _pool_attempt(spec: Any, directive: Optional[Dict[str, Any]]):
+    """Worker-side task: act out any injected fault, then run the
+    scenario. Returns the result plus the worker registry's snapshot
+    delta (``snapshot_and_reset``), which the parent merges, so a pooled
+    sweep's metrics match a serial run's.
+    Top-level for pickling."""
+    perform_in_worker(directive)
+    from repro_torch.sim.sweep import run_scenario
+
+    result = run_scenario(spec)
+    return result, snapshot_and_reset()
+
+
+def _kill_pool(pool: ProcessPoolExecutor) -> None:
+    """Tear a pool down *now*: running futures cannot be cancelled, so a
+    deadline overrun or unattributable crash recycles the whole pool."""
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for p in procs:
+        try:
+            p.terminate()
+        except Exception:
+            pass
+    for p in procs:
+        try:
+            p.join(timeout=2.0)
+        except Exception:
+            pass
+
+
+def run_process_jobs(jobs: Sequence[Job], *, workers: int,
+                     policy: Optional[RetryPolicy] = None,
+                     registry: Optional[JobRegistry] = None,
+                     faults: Optional[FaultPlan] = None,
+                     progress: Optional[Callable[[int, int, Any], None]]
+                     = None,
+                     on_done: Optional[Callable[[Job, Any], None]] = None,
+                     poll_s: float = 0.1,
+                     ) -> Tuple[Dict[str, Any], JobRegistry]:
+    """Run scenario jobs on a spawned process pool with crash recovery.
+
+    Each ``job.payload`` must be a picklable ``ScenarioSpec``. The pool's
+    workers are spawned, never forked (a forked child would inherit the
+    caller's CUDA context), and run the event engine only: they import
+    neither torch nor a device. The loop
+    keeps at most ``workers`` jobs in flight (so ``started_at`` measures
+    run time, not queue time), polls every ``poll_s`` seconds for
+    deadline overruns, and survives worker death: ``BrokenProcessPool``
+    fails the implicated job (when a crash directive identifies it),
+    requeues the innocent in-flight jobs without charging an attempt,
+    and respawns the pool. When no directive attributes the crash, every
+    in-flight job is charged — bounded retries keep a genuine repeat-
+    crasher from cycling the pool forever.
+
+    Returns ``(results by job_id, registry)``; abandoned jobs are
+    reported by ``registry.failures()`` instead of raising.
+    """
+    reg = registry or JobRegistry(policy)
+    for job in jobs:
+        reg.add(job)
+    total = len(reg.jobs)
+    results: Dict[str, Any] = {}
+    metrics = get_registry()
+    tracer = get_tracer()
+    ctx = multiprocessing.get_context("spawn")
+    pool: Optional[ProcessPoolExecutor] = None
+    inflight: Dict[Any, Job] = {}
+    n_done = 0
+
+    from repro_torch.sim.sweep import _worker_init  # deferred: sweep imports us
+
+    def ensure_pool() -> ProcessPoolExecutor:
+        nonlocal pool
+        if pool is None:
+            pool = ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
+                                       initializer=_worker_init)
+        return pool
+
+    def recycle_pool() -> None:
+        nonlocal pool
+        if pool is not None:
+            _kill_pool(pool)
+            pool = None
+        inflight.clear()
+
+    try:
+        while reg.unsettled():
+            now = time.monotonic()
+            overdue = [job for job in inflight.values()
+                       if job.timeout_s is not None
+                       and job.started_at is not None
+                       and now - job.started_at > job.timeout_s]
+            if overdue:
+                # A running pool future cannot be cancelled: fail the
+                # overdue jobs, requeue the innocent ones, recycle.
+                innocent = [j for j in inflight.values()
+                            if j not in overdue]
+                for job in overdue:
+                    reg.mark_failed(
+                        job, "timeout",
+                        f"exceeded the {job.timeout_s:g}s deadline")
+                for job in innocent:
+                    reg.requeue_lost(job)
+                recycle_pool()
+                continue
+            broken_on_submit = False
+            for job in reg.ready(now):
+                if len(inflight) >= workers:
+                    break
+                reg.mark_running(job)
+                job.injected = (faults.directive(job.job_id, job.labels,
+                                                 job.attempts)
+                                if faults is not None else None)
+                try:
+                    fut = ensure_pool().submit(_pool_attempt, job.payload,
+                                               job.injected)
+                except BrokenProcessPool:
+                    reg.requeue_lost(job)
+                    broken_on_submit = True
+                    break
+                inflight[fut] = job
+            if broken_on_submit:
+                for job in inflight.values():
+                    reg.requeue_lost(job)
+                recycle_pool()
+                continue
+            if not inflight:
+                wake = reg.next_wake()
+                if wake is None:
+                    break
+                time.sleep(min(max(wake - now, 0.0), poll_s))
+                continue
+            done_futs, _ = wait(set(inflight), timeout=poll_s,
+                                return_when=FIRST_COMPLETED)
+            crashed: List[Job] = []
+            for fut in done_futs:
+                job = inflight.pop(fut)
+                try:
+                    result, snap = fut.result()
+                except BrokenProcessPool:
+                    crashed.append(job)
+                    continue
+                except TransientFault as e:
+                    reg.mark_failed(job, "transient", str(e))
+                except Exception as e:
+                    reg.mark_failed(job, "error",
+                                    f"{type(e).__name__}: {e}")
+                else:
+                    metrics.merge(snap)
+                    reg.mark_done(job, result)
+                    results[job.job_id] = result
+                    n_done += 1
+                    tracer.instant("job.attempt", job=job.job_id,
+                                   attempt=job.attempts, state=DONE)
+                    if on_done is not None:
+                        on_done(job, result)
+                    if progress is not None:
+                        progress(n_done, total, result)
+            if crashed:
+                # BrokenProcessPool fails every in-flight future at once.
+                # Charge the jobs a crash directive implicates; the rest
+                # are collateral and requeue free — unless nothing is
+                # implicated, in which case everyone is charged (bounded
+                # retries stop a real repeat-crasher).
+                implicated = [j for j in crashed
+                              if (j.injected or {}).get("kind") == "crash"]
+                victims = implicated or crashed
+                for job in crashed:
+                    if job in victims:
+                        reg.mark_failed(job, "crash",
+                                        "worker died (BrokenProcessPool)")
+                    else:
+                        reg.requeue_lost(job)
+                for job in list(inflight.values()):
+                    reg.requeue_lost(job)
+                recycle_pool()
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    return results, reg
+
+
 __all__ = [
     "ABANDONED", "DONE", "FAILED", "PENDING", "RUNNING", "STATES",
     "RETRYABLE_KINDS", "Job", "JobFailure", "JobRegistry", "RetryPolicy",
-    "run_local_jobs",
+    "run_local_jobs", "run_process_jobs",
 ]

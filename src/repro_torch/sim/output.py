@@ -1,8 +1,10 @@
-"""Export helpers of the port's sweep results, copied from
-``repro.sim.output``: atomic text commits, CSV rows, the paper's
-Table 6/7/8 mean and error across runs, and the downsampled
-``TimeSeries`` that per-tick series capture
-(``repro_torch.sim.batched.series_from_capture``) produces."""
+"""Output module (paper §4.1), copied from ``repro.sim.output``: atomic
+text commits, CSV rows, the paper's Table 6/7/8 mean and error across
+runs, the downsampled ``TimeSeries`` (the event engine's Fig. 6/8 curves,
+and what per-tick series capture, ``repro_torch.sim.batched.
+series_from_capture``, produces), and the event engine's metric sink
+(``OutputCollector``: counters, series, and the ``Histogram`` of the
+Fig. 7 waiting times)."""
 
 from __future__ import annotations
 
@@ -96,3 +98,48 @@ class TimeSeries:
             "max": float(a.max()),
             "last": float(a[-1]),
         }
+
+
+@dataclass
+class Histogram:
+    name: str
+    samples: List[float] = field(default_factory=list)
+
+    def record(self, x: float) -> None:
+        self.samples.append(x)
+
+    def counts(self, bins: int = 30):
+        return np.histogram(np.asarray(self.samples), bins=bins)
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.samples)) if self.samples else 0.0
+
+
+class OutputCollector:
+    """Scenario-level metric sink of the event engine."""
+
+    def __init__(self) -> None:
+        self.counters: Dict[str, float] = {}
+        self.series: Dict[str, TimeSeries] = {}
+        self.hists: Dict[str, Histogram] = {}
+
+    def count(self, name: str, inc: float = 1.0) -> None:
+        self.counters[name] = self.counters.get(name, 0.0) + inc
+
+    def ts(self, name: str) -> TimeSeries:
+        if name not in self.series:
+            self.series[name] = TimeSeries(name)
+        return self.series[name]
+
+    def hist(self, name: str) -> Histogram:
+        if name not in self.hists:
+            self.hists[name] = Histogram(name)
+        return self.hists[name]
+
+    def summary(self) -> Dict[str, float]:
+        out = dict(self.counters)
+        for name, h in self.hists.items():
+            out[f"{name}.mean"] = h.mean
+            out[f"{name}.n"] = float(len(h.samples))
+        return out

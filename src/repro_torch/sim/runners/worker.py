@@ -5,13 +5,15 @@ Run as ``python -m repro_torch.sim.runners.worker`` with frames on
 stdin/stdout (``repro_torch.sim.runners.transport``). Protocol, in order:
 
 1. ``{"op": "init", "ctx": {...}}`` — the shared job context, sent
-   once. ``ctx["kind"]`` picks the runner: ``"lanes"`` executes
-   packed-grid lane-chunk payloads on the port's tick program
+   once. ``ctx["kind"]`` picks the runner: ``"scenario"`` executes
+   ``ScenarioSpec`` payloads on the event engine through
+   ``repro_torch.sim.sweep.run_scenario`` (host code: such a worker
+   imports neither torch nor a device); ``"lanes"`` executes packed-grid
+   lane-chunk payloads on the port's tick program
    (``repro_torch.sim.batched.lane_chunk_runner``), on the device and
    with the tick implementation the context names — the dispatcher
    resolved both, a worker never picks its own. The grid's shared tick
-   arrays ship once here, never per job. ``"scenario"`` (event-engine
-   specs) raises ``ValueError``: the port has no event engine yet.
+   arrays ship once here, never per job.
 2. ``{"op": "ready", "startup_s": ...}`` back — import + runner-build
    time, observed into the ``workers.startup_s`` histogram.
 3. Job frames ``{"op": "job", "job_id", "payload", "directive"}``,
@@ -59,13 +61,14 @@ def build_runner(ctx: Dict[str, Any]) -> Callable[[Any], Any]:
     """Build the payload runner for one init context (shared with
     ``LocalTransport``, which runs it inline in the dispatcher)."""
     kind = ctx.get("kind", "scenario")
+    if kind == "scenario":
+        from repro_torch.sim.sweep import run_scenario
+
+        return lambda payload: run_scenario(payload)
     if kind == "lanes":
         from repro_torch.sim.batched import lane_chunk_runner
 
         return lane_chunk_runner(ctx)
-    if kind == "scenario":
-        raise ValueError("scenario jobs run on the event engine, which the "
-                         "port does not have yet")
     raise ValueError(f"unknown worker context kind {kind!r}")
 
 

@@ -1,13 +1,18 @@
 """Sweep results and the port's sweep front door (paper §5.3 decision
-workflow), copied from ``repro.sim.sweep`` for ``backend="torch"``.
+workflow), copied from ``repro.sim.sweep``.
 
 - ``ScenarioResult`` / ``SweepResult``: the same records, metric keys and
   exports (CSV/JSON, Pareto front, seed aggregation in the paper's Table
   6/7/8 mean/sd% presentation) as the JAX package's;
-- ``run_sweep(specs, cache=...)``: one grid on the port's batched program
-  (``repro_torch.sim.batched.run_sweep_torch``), get-or-compute through
-  the persistent result cache (``repro_torch.sim.cache``) when one is
-  given;
+- ``run_scenario(spec)``: one spec on the event-driven reference engine
+  (``repro_torch.core.hcdc.HCDCScenario``), the unit of work of
+  ``backend="process"``;
+- ``run_sweep(specs, backend=...)``: a grid on the port's batched program
+  (``backend="torch"``, the default; ``repro_torch.sim.batched.
+  run_sweep_torch``) or on the event engine, one job per spec
+  (``backend="process"``: serial, a spawned process pool with crash
+  recovery, or the worker fleet), get-or-compute through the persistent
+  result cache (``repro_torch.sim.cache``) when one is given;
 - ``SweepDriver``: the iterative front end the decision layer
   (``repro_torch.sim.decide``) calls in a loop — memo -> cache ->
   simulate, with its books in the metrics registry.
@@ -15,23 +20,35 @@ workflow), copied from ``repro.sim.sweep`` for ``backend="torch"``.
 Both take the JAX package's execution knobs with its meaning: series
 capture (``record_series``), lane chunks and device round-robin
 (``lane_chunk``, ``devices``), the resilient job path (``retry``,
-``faults``, ``job_timeout``; completed chunks journaled into the cache as
-they land) and the worker fleet (``transport``, ``workers``). ``shard``
-(the JAX package's ``shard_map`` lane mesh) has no counterpart in the
-port and raises ``ValueError``.
+``faults``, ``job_timeout``; completed jobs journaled into the cache as
+they land) and the worker fleet (``transport``, ``workers``). The batched
+program's knobs (``tick_impl``, ``device``, ``record_series``,
+``lane_chunk``, ``devices``) raise on ``backend="process"``, as they do in
+the JAX package. ``shard`` (the JAX package's ``shard_map`` lane mesh) has
+no counterpart in the port and raises ``ValueError``.
+
+The event engine is host code: this module, the engine and the process
+backend's workers import neither torch nor a device (the batched program
+is imported where it runs), so a spawned worker never holds a CUDA
+context.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from repro_torch.core.scenarios import ScenarioSpec, cache_key, dynamics_key
-from repro_torch.kernels.registry import resolve_tick_impl
 from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import get_tracer
+from repro_torch.sim.cloud import sum_bills
 from repro_torch.sim.output import atomic_write_text, mean_and_error, write_csv
+
+#: The engines ``run_sweep`` and ``SweepDriver`` take.
+BACKENDS = ("torch", "process")
 
 
 @dataclass
@@ -91,6 +108,58 @@ class ScenarioResult:
             events=self.events,
         )
         return r
+
+
+def _worker_init() -> None:
+    """Initializer of the process backend's spawned workers: a fresh
+    baseline for the worker's process-global metrics registry, so the
+    per-task snapshot deltas it returns hold only its own work. The
+    workers need numpy only; nothing here touches CUDA or hides a card."""
+    get_registry().reset()
+
+
+def run_scenario(spec: ScenarioSpec) -> ScenarioResult:
+    """Build and run one configuration on the event engine; the process
+    backend's unit of work.
+
+    Top-level (not a closure) so a process pool can pickle it; all
+    randomness derives from ``spec.seed``, so the result does not depend on
+    which process runs it.
+    """
+    from repro_torch.core.hcdc import HCDCScenario
+    from repro_torch.core.scenarios import build_config
+
+    cfg = build_config(spec)
+    t0 = time.perf_counter()
+    with get_tracer().span("run_scenario", label=spec.label):
+        scenario = HCDCScenario(cfg)
+        metrics = scenario.run()
+    wall = time.perf_counter() - t0
+    reg = get_registry()
+    reg.inc("scenario.runs", help="Event-engine scenario executions")
+    reg.observe("scenario.wall_s", wall,
+                help="Per-scenario event-engine wall time (s)")
+    bill = sum_bills(scenario.gcs.bills)
+    series = {name: ts.summary() for name, ts in scenario.out.series.items()}
+    raw = scenario.gcs.monthly_raw
+    monthly = {
+        "gb_seconds": [float(r[0]) for r in raw],
+        "egress_bytes": [float(r[1]) for r in raw],
+        "class_a": [int(r[2]) for r in raw],
+        "class_b": [int(r[3]) for r in raw],
+        "full_months": int(scenario.gcs.full_months_closed),
+    }
+    return ScenarioResult(
+        spec=spec,
+        metrics=metrics,
+        storage_usd=bill.storage_usd,
+        network_usd=bill.network_usd,
+        ops_usd=bill.ops_usd,
+        wall_s=wall,
+        events=scenario.sim.events_executed,
+        series=series,
+        monthly=monthly,
+    )
 
 
 def pareto_indices(costs: Sequence[float],
@@ -208,20 +277,45 @@ class SweepResult:
 
 
 def _check_backend(backend: str, shard: bool) -> None:
-    if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r} (the port runs "
-                         "backend='torch' only)")
-    from repro_torch.sim.batched import _check_shard  # imports this module
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected 'torch' "
+                         "or 'process')")
+    if shard:
+        from repro_torch.sim.batched import _check_shard  # imports us
 
-    _check_shard(shard)
+        _check_shard(shard)
 
 
-def _jobs_engaged(retry: Any, faults: Any, transport: Any) -> bool:
-    """Whether this call routes through the ``repro_torch.sim.jobs`` layer:
-    only when resilience or fleet execution was asked for
-    (``retry``/``faults``/``transport``); the plain path runs the whole
-    grid as one program and stays untouched otherwise."""
-    return retry is not None or faults is not None or transport is not None
+def _check_process_knobs(backend: str, tick_impl: str, device, devices,
+                         lane_chunk, record_series) -> None:
+    """The batched program's knobs raise on the event engine, as in the
+    JAX package's ``run_sweep``."""
+    if backend != "process":
+        return
+    if tick_impl != "auto":
+        raise ValueError("tick_impl applies to backend='torch' only")
+    if device is not None:
+        raise ValueError("device applies to backend='torch' only (the "
+                         "event engine runs on the host)")
+    if record_series not in (None, False):
+        raise ValueError("record_series applies to backend='torch' only "
+                         "(the process backend records curves via "
+                         "spec.curves)")
+    if lane_chunk is not None or devices is not None:
+        raise ValueError("lane_chunk/devices apply to backend='torch' only")
+
+
+def _jobs_engaged(backend: str, retry: Any, faults: Any,
+                  transport: Any) -> bool:
+    """Whether this call routes through the ``repro_torch.sim.jobs`` layer.
+
+    The process backend always does: crash recovery and partial results
+    cost it nothing. The batched program engages only when resilience or
+    fleet execution was asked for (``retry``/``faults``/``transport``);
+    its plain path runs the whole grid as one program and stays untouched
+    otherwise."""
+    return (backend == "process" or retry is not None or faults is not None
+            or transport is not None)
 
 
 def _journal_to_cache(cache: Any, backend: str, tick: float,
@@ -269,52 +363,84 @@ def run_sweep(specs: Sequence[ScenarioSpec],
               shard: bool = False,
               device=None,
               _journal: Optional[Callable] = None) -> SweepResult:
-    """Run a spec grid on the port's batched program; results keep the
-    input order. The JAX package's signature, and ``device``.
+    """Run a spec grid; results keep the input order. The JAX package's
+    signature, and ``device``.
 
-    ``backend`` must be ``"torch"``; ``tick`` is the clock step in seconds,
-    ``tick_impl`` the kernel implementation (``repro_torch.kernels.
-    registry``), ``device`` where it runs (``cuda`` when None).
+    ``backend`` selects the engine:
+
+    - ``"torch"`` (default): the port's batched fixed-tick program.
+      ``tick`` is its clock step in seconds, ``tick_impl`` the kernel
+      implementation (``repro_torch.kernels.registry``), ``device`` where
+      it runs (``cuda`` when None). It needs uniform ``days``/``n_files``
+      across the grid and agrees with the event engine statistically
+      (Table 2 tolerance), not bitwise.
+    - ``"process"``: the event-driven reference engine
+      (``repro_torch.core.hcdc``), one job per distinct spec, bitwise
+      ``repro``'s ``"process"`` backend. ``workers``: ``None`` uses all
+      CPUs (capped at the batch size), ``0``/``1`` runs serially in this
+      process, more runs a spawned process pool with crash recovery
+      (``repro_torch.sim.jobs.run_process_jobs``). It always runs through
+      the job layer: a worker crash costs retries, not the sweep.
+      ``tick_impl``, ``device``, ``record_series``, ``lane_chunk`` and
+      ``devices`` raise.
 
     ``cache`` (a ``repro_torch.sim.cache.ResultCache`` or a directory)
     turns the call into get-or-compute: specs whose dynamics entry is
     stored are served from it (re-billed for their pricing fields,
     bit-identical to a fresh run on the same engine), only the misses are
     simulated, and their results are stored back. ``tick_impl`` is
-    resolved before keying, so the plain tick's and the kernels' entries
-    never serve each other. ``SweepResult.lanes_simulated``/``cache_hits``
-    report the split.
+    resolved before keying, so the plain tick's, the kernels' and the
+    event engine's entries never serve each other.
+    ``SweepResult.lanes_simulated``/``cache_hits`` report the split.
 
     ``lane_chunk``/``devices``: chunked execution in bounded device
     memory, dealt round-robin over devices; ``record_series``: per-tick
     series capture, each result carrying its digests in ``.series`` (see
-    ``repro_torch.sim.batched``). ``retry``/``faults``/``job_timeout``:
-    the lane chunks as retryable jobs (``repro_torch.sim.jobs``, faults
-    from ``repro_torch.sim.faults``); work that exhausts its retries is
-    dropped, not fatal, and reported in ``SweepResult.failures``. With
-    ``cache`` set, completed chunks are journaled into it as they land, so
-    a re-run recomputes only the unfinished ones; ``faults`` with
-    ``corrupt > 0`` reads the cache through a ``FaultyBackend``.
-    ``transport``/``workers``: the chunk jobs on a worker fleet
-    (``repro_torch.sim.runners``; ``"subprocess"``, ``"local"`` or a
-    factory). ``shard=True`` raises ``ValueError``.
+    ``repro_torch.sim.batched``; the process backend records curves via
+    ``spec.curves``). ``retry``/``faults``/``job_timeout``: the jobs (lane
+    chunks, or specs on the process backend) as retryable jobs
+    (``repro_torch.sim.jobs``, faults from ``repro_torch.sim.faults``);
+    work that exhausts its retries is dropped, not fatal, and reported in
+    ``SweepResult.failures``. With ``cache`` set, completed jobs are
+    journaled into it as they land, so a re-run recomputes only the
+    unfinished ones; ``faults`` with ``corrupt > 0`` reads the cache
+    through a ``FaultyBackend``. ``transport``/``workers``: the jobs on a
+    worker fleet (``repro_torch.sim.runners``; ``"subprocess"``,
+    ``"local"`` or a factory). ``shard=True`` raises ``ValueError``.
     """
     _check_backend(backend, shard)
-    # deferred: batched and cache import this module
-    from repro_torch.sim.batched import _resolve_devices, run_sweep_torch
+    _check_process_knobs(backend, tick_impl, device, devices, lane_chunk,
+                         record_series)
     from repro_torch.sim.faults import as_faults
 
     faults = as_faults(faults)
-    impl = resolve_tick_impl(tick_impl,
-                             _resolve_devices(device, devices)[0]).name
-    engaged = _jobs_engaged(retry, faults, transport)
-    knobs = dict(progress=progress, lane_chunk=lane_chunk, devices=devices,
-                 record_series=record_series, retry=retry, faults=faults,
-                 job_timeout=job_timeout, workers=workers,
-                 transport=transport, device=device)
+    engaged = _jobs_engaged(backend, retry, faults, transport)
+    if backend == "process":
+        impl = None
+
+        def simulate(todo, journal) -> SweepResult:
+            return _run_process(todo, workers=workers, progress=progress,
+                                retry=retry, faults=faults,
+                                job_timeout=job_timeout,
+                                transport=transport, journal=journal)
+    else:
+        # deferred: batched imports this module, and the registry imports
+        # torch, which the process backend's workers never need
+        from repro_torch.kernels.registry import resolve_tick_impl
+        from repro_torch.sim.batched import _resolve_devices, run_sweep_torch
+
+        impl = resolve_tick_impl(tick_impl,
+                                 _resolve_devices(device, devices)[0]).name
+        knobs = dict(progress=progress, lane_chunk=lane_chunk,
+                     devices=devices, record_series=record_series,
+                     retry=retry, faults=faults, job_timeout=job_timeout,
+                     workers=workers, transport=transport, device=device)
+
+        def simulate(todo, journal) -> SweepResult:
+            return run_sweep_torch(todo, tick=tick, tick_impl=impl,
+                                   journal=journal, **knobs)
     if cache is None:
-        return run_sweep_torch(specs, tick=tick, tick_impl=impl,
-                               journal=_journal, **knobs)
+        return simulate(specs, _journal)
     from repro_torch.sim.cache import ResultCache, as_cache
 
     cache = as_cache(cache)
@@ -334,8 +460,7 @@ def run_sweep(specs: Sequence[ScenarioSpec],
     if miss:
         journal = (_journal_to_cache(cache, backend, tick, impl)
                    if engaged else None)
-        res = run_sweep_torch(miss, tick=tick, tick_impl=impl,
-                              journal=journal, **knobs)
+        res = simulate(miss, journal)
         # Key by result spec, not input order: a partial result has
         # fewer entries than ``miss``.
         computed = {r.spec: r for r in res.results}
@@ -352,6 +477,58 @@ def run_sweep(specs: Sequence[ScenarioSpec],
         failures=failures)
 
 
+def _run_process(specs: Sequence[ScenarioSpec], *, workers: Optional[int],
+                 progress, retry, faults, job_timeout, transport,
+                 journal: Optional[Callable]) -> SweepResult:
+    """The process backend: one job per distinct spec (duplicates in the
+    request are answered from the same result), executed through the job
+    registry so a worker failure costs retries — never the completed part
+    of the sweep."""
+    from repro_torch.sim import jobs as joblib
+
+    specs = list(specs)
+    if workers is None:
+        workers = min(len(specs), os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    unique = list(dict.fromkeys(specs))
+    policy = retry if retry is not None else joblib.RetryPolicy()
+    jobs_list = [joblib.Job(job_id=f"spec{i:04d}", payload=s,
+                            labels=(s.label,), timeout_s=job_timeout)
+                 for i, s in enumerate(unique)]
+    on_done = None
+    if journal is not None:
+        def on_done(job, result):
+            journal([(job.payload, result)])
+    if transport is not None:
+        from repro_torch.sim.runners import run_fleet_jobs
+
+        _res, registry = run_fleet_jobs(
+            jobs_list, workers=max(1, min(workers, len(unique))),
+            transport=transport, ctx={"kind": "scenario"},
+            policy=policy, faults=faults,
+            progress=progress, on_done=on_done)
+    elif workers <= 1 or len(unique) <= 1:
+        def run_one(job):
+            return run_scenario(job.payload)
+
+        _res, registry = joblib.run_local_jobs(
+            jobs_list, run_one, policy=policy, faults=faults,
+            progress=progress, on_done=on_done)
+    else:
+        # A spawned (not forked) pool: the caller may hold a CUDA context,
+        # which a forked child must not inherit; the workers need numpy
+        # only, so spawn startup stays cheap.
+        _res, registry = joblib.run_process_jobs(
+            jobs_list, workers=workers, policy=policy, faults=faults,
+            progress=progress, on_done=on_done)
+    by_spec = {job.payload: job.result for job in registry.jobs.values()
+               if job.state == joblib.DONE}
+    return SweepResult(
+        results=[by_spec[s] for s in specs if s in by_spec],
+        wall_s=time.perf_counter() - t0,
+        failures=registry.failures())
+
+
 class SweepDriver:
     """Iterative ``run_sweep`` front end with cross-round memoization.
 
@@ -362,7 +539,9 @@ class SweepDriver:
     call a round, so new specs still pack into one grid) and answers the
     rest from memory.
 
-    ``tick_impl`` is resolved for ``device`` once, here
+    ``backend`` is ``"torch"`` (default) or ``"process"`` (the event
+    engine; its driver has no device and ``tick_impl`` is None). On
+    ``"torch"``, ``tick_impl`` is resolved for ``device`` once, here
     (``repro_torch.kernels.registry.resolve_tick_impl``), and pinned for
     the driver's lifetime; ``self.tick_impl`` is the resolved name
     (``"torch"`` or ``"cuda"``) and keys the cache.
@@ -386,8 +565,8 @@ class SweepDriver:
     ``progress``, ``record_series``, ``retry``, ``faults``,
     ``job_timeout``, ``transport``) pass through to every ``run_sweep``
     call, as :func:`run_sweep` takes them; with a cache and the job path
-    engaged, each round's completed chunks are journaled into the cache as
-    they land. ``failures`` accumulates every round's ``JobFailure``
+    engaged (always on ``"process"``), each round's completed jobs are
+    journaled into the cache as they land. ``failures`` accumulates every round's ``JobFailure``
     reports, which the decision layer reads to degrade its claims.
     ``shard=True`` raises ``ValueError``.
     """
@@ -408,14 +587,21 @@ class SweepDriver:
                  shard: bool = False,
                  device=None):
         _check_backend(backend, shard)
-        from repro_torch.sim.batched import _resolve_devices
+        _check_process_knobs(backend, tick_impl, device, devices,
+                             lane_chunk, record_series)
         from repro_torch.sim.faults import as_faults
 
         self.backend = backend
         self.tick = tick
         self.devices = devices
-        self.device = _resolve_devices(device, devices)[0]
-        self.tick_impl = resolve_tick_impl(tick_impl, self.device).name
+        self.device = None
+        self.tick_impl: Optional[str] = None
+        if backend == "torch":
+            from repro_torch.kernels.registry import resolve_tick_impl
+            from repro_torch.sim.batched import _resolve_devices
+
+            self.device = _resolve_devices(device, devices)[0]
+            self.tick_impl = resolve_tick_impl(tick_impl, self.device).name
         self.workers = workers
         self.lane_chunk = lane_chunk
         self.progress = progress
@@ -463,14 +649,16 @@ class SweepDriver:
         lanes_before = len(self._lane_keys)
         round_failures: List[Any] = []
         if new:
-            engaged = _jobs_engaged(self.retry, self.faults, self.transport)
+            engaged = _jobs_engaged(self.backend, self.retry, self.faults,
+                                    self.transport)
             journal = None
             if self.cache is not None and engaged:
                 journal = _journal_to_cache(self.cache, self.backend,
                                             self.tick, self.tick_impl)
             res = run_sweep(new, workers=self.workers,
                             progress=self.progress, backend=self.backend,
-                            tick=self.tick, tick_impl=self.tick_impl,
+                            tick=self.tick,
+                            tick_impl=self.tick_impl or "auto",
                             lane_chunk=self.lane_chunk, devices=self.devices,
                             record_series=self.record_series,
                             retry=self.retry, faults=self.faults,

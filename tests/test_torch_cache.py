@@ -114,9 +114,12 @@ def test_cache_key_is_the_reference_document_with_the_port_engine(
 
 
 def test_engine_fingerprint_rejects_other_engines_and_auto():
-    for backend in ("jax", "process", "cuda"):
+    for backend in ("jax", "cuda"):
         with pytest.raises(ValueError, match="backend"):
             engine_fingerprint(backend, 60.0)
+    # the port's event engine keeps repro's fingerprint (bitwise the same
+    # engine), and no tick or implementation enters it
+    assert engine_fingerprint("process", 60.0) == "process"
     for impl in ("auto", "jnp", "pallas"):
         with pytest.raises(ValueError, match="resolve"):
             engine_fingerprint("torch", 60.0, impl)

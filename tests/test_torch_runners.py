@@ -100,8 +100,9 @@ def test_resolve_transport():
 
 
 def test_worker_kinds():
-    with pytest.raises(ValueError, match="event engine"):
-        worker.build_runner({"kind": "scenario"})
+    # scenario jobs run on the port's event engine (tests/test_torch_process.py
+    # holds them bitwise to repro's)
+    assert callable(worker.build_runner({"kind": "scenario"}))
     with pytest.raises(ValueError, match="unknown worker context kind"):
         worker.build_runner({"kind": "nope"})
 
