@@ -9,6 +9,28 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 2. build the CUDA kernels from the sources in this checkout (``nvcc`` into
    ``build/repro_torch/``), print the build seconds and each kernel's
    registers and spill bytes from ``ptxas``;
+   then the serve phase: hymba_1_5b at its published widths and depth (32
+   layers, d_model 1,600, 25 heads, 5 kv heads, hd 64, window 1,024 but
+   layers 0, 15 and 31 global, state 16, d_inner 3,200; about 1.66 B
+   parameters from a seeded generator) served through the port's
+   ``ServeLoop(batch_slots=4, max_len=2048)``: 8 requests of 1,280-1,536
+   seeded tokens in 2 waves (each left-padded to its longest, so every
+   local layer's ring buffer is shorter than the prompt), 32 new tokens
+   each; in float32 (the ``tf32x3`` attention kernel) and in bf16 (the
+   ``wgmma`` one, TMA loader), each once through the kernels
+   (``impl="cuda"``) and once through their plain versions on the card:
+   every float32 token equal and the prefill logits within
+   ``SERVE_LOGIT_BARS``, ``flash_attention`` and ``mamba_scan`` each
+   launched once a layer a wave (counts set to 0 just before each run);
+   the inputs the served prefill gave layer 0 (global) and layer 1
+   (windowed) attention and layer 0's scan, held to the plain versions at
+   the kernel bars (the scan's final state too), timed beside SDPA and
+   the bound; prefill ms a wave and decode ms a step (CUDA events),
+   tokens/s, the prefill's device time by kernel (``torch.profiler``:
+   attention, scan, matrix products, the rest), the weights' and caches'
+   bytes and the peak device memory, each beside the card; then ``python
+   -m repro_torch.launch.serve --arch hymba-1.5b`` as a subprocess (exit
+   0, its tok/s line);
 3. kernel phase: each hand-written kernel against its plain PyTorch version
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
    files; both candidate windows of a tick, the grid's K and W = 4, in
@@ -160,10 +182,12 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
     version at 1e-4 atol/rtol;
 13. the ``kernels`` JSON line: one entry per kernel and case (``case``
-    names it), each with its launches on its own path (counts reset just
-    before the path runs, read just after each case; the lane-tick and
-    glue entries also with ``launches_decide``, their launches in the
-    cold decide run); the glue kernels,
+    names it; the serve phase adds bf16 and float32 attention at served
+    layer 1 and the scan at served layer 0, each with its 64 launches on
+    the served path), each with its launches on its own path (counts
+    reset just before the path runs, read just after each case; the
+    lane-tick and glue entries also with ``launches_decide``, their
+    launches in the cold decide run); the glue kernels,
     which replace no Pallas kernel, name the lines of ``repro``'s tick
     that XLA fuses as what they replace; attention entries
     also name their route (``variant``: ``wgmma`` or ``tf32x3``, each at
@@ -2016,6 +2040,90 @@ def sdpa(torch, q, k, v, causal: bool, window: int):
                                                   **gqa)
 
 
+def attention_numbers(torch, label: str, q, k, v, kw: dict, out,
+                      route: str, loader) -> dict:
+    """One attention case's kernel output ``out`` against the plain
+    version on the same inputs at ``ATTENTION_BARS`` (and, in bf16, at
+    most ``BF16_UNEQUAL_SHARE`` of the elements unequal), then its times:
+    the kernel by CUDA events, replayed in a graph and under the profiler,
+    the plain version, SDPA (the yardstick) and the bound. Returns the
+    kernels line's numbers."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, nh, T, hd = q.shape
+    dt_name = str(q.dtype).removeprefix("torch.")
+    causal, window = kw["causal"], kw["window"]
+    want = ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(out.dtype == q.dtype and out.shape == q.shape,
+          f"attention {label}: output {out.dtype} {tuple(out.shape)}")
+    atol, rtol = ATTENTION_BARS[dt_name]
+    err = (out.float() - want.float()).abs()
+    bad = n_outside(out, want, atol, rtol)
+    check(bad == 0, f"attention {label}: {bad} elements outside atol "
+                    f"{atol} rtol {rtol}, max abs err {float(err.max())}")
+    lib = sdpa(torch, q, k, v, causal, window)
+    lib_out = lib()
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    lib_bad = n_outside(lib_out, want, atol, rtol)
+    # elements not equal to the plain version at all: the kernel differs
+    # only where its float32 value sits next to an output rounding
+    # boundary, SDPA also where its low-precision products move it
+    ne, lib_ne = int((out != want).sum()), int((lib_out != want).sum())
+    del lib_out
+    check(dt_name != "bfloat16" or ne <= BF16_UNEQUAL_SHARE * out.numel(),
+          f"attention {label}: {ne} of {out.numel()} elements differ "
+          f"from the plain version")
+    pairs = B * nh * unmasked_pairs(T, k.shape[2], causal, window)
+    n_bytes = out.element_size() * (2 * q.numel() + 2 * k.numel())
+    fa = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+    g_ms = graph_ms(torch, fa, n=10)
+    # the profiler loses some or all of a profile's kernels (late in
+    # this run every one, in a process of its own at times): a reading
+    # more than 5% off the graph replay's device time is not a
+    # measurement, None
+    prof_us = device_us(torch, fa, n=10)
+    dev_us = prof_us if abs(prof_us - 1e3 * g_ms) <= 50 * g_ms else None
+    r = dict(max_abs_err=float(err.max()), ms=time_ms(torch, fa, n=10),
+             graph_ms=g_ms, device_us=dev_us,
+             plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw),
+                              n=5),
+             library_ms=time_ms(torch, lib, n=10),
+             variant=route, source=ATTENTION_SOURCE[route])
+    if loader is not None:
+        r["loader"] = loader
+    if dt_name == "bfloat16":
+        flops = 4 * hd * pairs
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
+                                                BF16_OPS_PER_S)
+        bounds = f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
+    else:
+        # three TF32 products per multiply on the tensor cores, beside
+        # the one float32 product any SIMT design is held to
+        flops = 12 * hd * pairs
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
+                                                TF32_OPS_PER_S)
+        r["bound_ms_simt"] = bound_ms(n_bytes, 4 * hd * pairs)[0]
+        bounds = (f"bound_ms {r['bound_ms']:.4f} (3xTF32 at 495 "
+                  f"TFLOP/s, {r['bound_by']}), SIMT bound_ms "
+                  f"{r['bound_ms_simt']:.4f} (67 TFLOP/s")
+    dev_txt = (f"{dev_us:.1f}" if dev_us is not None else
+               f"not measured (profiler read {prof_us:.1f})")
+    log(f"attention {label} (B={B} nh={nh} nkv={k.shape[1]} hd={hd} "
+        f"T={T} S={k.shape[2]} {dt_name} causal={causal} window={window}, "
+        f"{route} kernel"
+        f"{'' if loader is None else f', {loader} loader'}): "
+        f"max abs err "
+        f"{r['max_abs_err']:.3g} (bar atol {atol} rtol {rtol}; SDPA's "
+        f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
+        f"the bar); elements not equal to the plain version: kernel "
+        f"{ne}, SDPA {lib_ne}; ms "
+        f"{r['ms']:.4f} graph_ms {g_ms:.4f} device_us {dev_txt} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+        f"{bounds}, {flops / 1e9:.2f} GFLOP)")
+    return r
+
+
 def attention_phase(torch):
     """The attention path: ``flash_attention`` once per case of
     ``ATTENTION_CASES`` through the kernel, then each result against the
@@ -2023,7 +2131,7 @@ def attention_phase(torch):
     of the kernel, the plain version and PyTorch's
     ``scaled_dot_product_attention`` (the yardstick; the port never calls
     it). Returns one (case, launches, result) per case."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops
 
     # the plain version's products in full float32, as the kernel's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2064,77 +2172,53 @@ def attention_phase(torch):
     for case, (q, k, v, kw), out, n_launch, (route, loader) in zip(
             ATTENTION_CASES, inputs, outs, launches, routes):
         label, B, nh, nkv, hd, T, dt_name, causal, window = case
-        want = ref.attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        check(out.dtype == q.dtype and out.shape == q.shape,
-              f"attention {label}: output {out.dtype} {tuple(out.shape)}")
-        atol, rtol = ATTENTION_BARS[dt_name]
-        err = (out.float() - want.float()).abs()
-        bad = n_outside(out, want, atol, rtol)
-        check(bad == 0, f"attention {label}: {bad} elements outside atol "
-                        f"{atol} rtol {rtol}, max abs err {float(err.max())}")
-        lib = sdpa(torch, q, k, v, causal, window)
-        lib_out = lib()
-        lib_err = float((lib_out.float() - want.float()).abs().max())
-        lib_bad = n_outside(lib_out, want, atol, rtol)
-        # elements not equal to the plain version at all: the kernel differs
-        # only where its float32 value sits next to an output rounding
-        # boundary, SDPA also where its low-precision products move it
-        ne, lib_ne = int((out != want).sum()), int((lib_out != want).sum())
-        del lib_out
-        check(dt_name != "bfloat16" or ne <= BF16_UNEQUAL_SHARE * out.numel(),
-              f"attention {label}: {ne} of {out.numel()} elements differ "
-              f"from the plain version")
-        pairs = B * nh * unmasked_pairs(T, T, causal, window)
-        n_bytes = out.element_size() * (2 * q.numel() + 2 * k.numel())
-        fa = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
-        g_ms = graph_ms(torch, fa, n=10)
-        # the profiler loses some or all of a session's kernels (late in
-        # this run every one, in a process of its own at times): a reading
-        # more than 5% off the graph replay's device time is not a
-        # measurement, None
-        prof_us = device_us(torch, fa, n=10)
-        dev_us = prof_us if abs(prof_us - 1e3 * g_ms) <= 50 * g_ms else None
-        r = dict(max_abs_err=float(err.max()), ms=time_ms(torch, fa, n=10),
-                 graph_ms=g_ms, device_us=dev_us,
-                 plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw),
-                                  n=5),
-                 library_ms=time_ms(torch, lib, n=10),
-                 variant=route, source=ATTENTION_SOURCE[route])
-        if loader is not None:
-            r["loader"] = loader
-        if dt_name == "bfloat16":
-            flops = 4 * hd * pairs
-            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
-                                                    BF16_OPS_PER_S)
-            bounds = f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
-        else:
-            # three TF32 products per multiply on the tensor cores, beside
-            # the one float32 product any SIMT design is held to
-            flops = 12 * hd * pairs
-            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
-                                                    TF32_OPS_PER_S)
-            r["bound_ms_simt"] = bound_ms(n_bytes, 4 * hd * pairs)[0]
-            bounds = (f"bound_ms {r['bound_ms']:.4f} (3xTF32 at 495 "
-                      f"TFLOP/s, {r['bound_by']}), SIMT bound_ms "
-                      f"{r['bound_ms_simt']:.4f} (67 TFLOP/s")
+        r = attention_numbers(torch, label, q, k, v, kw, out, route, loader)
         per_case.append((f"{label} (nh {nh} nkv {nkv} hd {hd} T=S {T} "
                          f"{dt_name} window {window})", n_launch, r))
-        dev_txt = (f"{dev_us:.1f}" if dev_us is not None else
-                   f"not measured (profiler read {prof_us:.1f})")
-        log(f"attention {label} (B={B} nh={nh} nkv={nkv} hd={hd} T=S={T} "
-            f"{dt_name} causal={causal} window={window}, {route} kernel"
-            f"{'' if loader is None else f', {loader} loader'}): "
-            f"max abs err "
-            f"{r['max_abs_err']:.3g} (bar atol {atol} rtol {rtol}; SDPA's "
-            f"{lib_err:.3g}, {lib_bad} of {out.numel()} elements outside "
-            f"the bar); elements not equal to the plain version: kernel "
-            f"{ne}, SDPA {lib_ne}; ms "
-            f"{r['ms']:.4f} graph_ms {g_ms:.4f} device_us {dev_txt} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"{bounds}, {flops / 1e9:.2f} GFLOP)")
-        del want
     return per_case
+
+
+def scan_numbers(torch, label: str, dA, dBu, C, y, h=None) -> dict:
+    """The scan kernel's ``y`` (and final state ``h``, where given) against
+    the plain version on the same inputs at 1e-4 atol/rtol, then its
+    times: the kernel by CUDA events, the plain version and the bound.
+    Returns the kernels line's numbers."""
+    from repro_torch.kernels.mamba_scan import ops, ref
+
+    B, T, D, N = dA.shape
+    state = h is not None
+    want = ref.mamba_scan(dA, dBu, C, return_state=state)
+    torch.cuda.synchronize()
+    got = (y, h) if state else (y,)
+    want = want if state else (want,)
+    errs = []
+    for what, g, w in zip(("y", "h"), got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"mamba_scan {label}: {what} shape or finiteness")
+        err = (g - w).abs()
+        bad = int((err > 1e-4 + 1e-4 * w.abs()).sum())
+        check(bad == 0, f"mamba_scan {label}: {bad} elements of {what} "
+                        f"outside 1e-4 atol/rtol, max abs err "
+                        f"{float(err.max())}")
+        errs.append(float(err.max()))
+    # dA and dBu read once, C read once, y (and h) written once; 4 flops
+    # per state and step (multiply, add, multiply by C, sum)
+    n_bytes = 4 * (2 * dA.numel() + C.numel() + y.numel()
+                   + (h.numel() if state else 0))
+    nb, kind = bound_ms(n_bytes, 4 * dA.numel())
+    r = dict(max_abs_err=max(errs),
+             ms=time_ms(torch, lambda: ops.mamba_scan(
+                 dA, dBu, C, return_state=state), n=10),
+             plain_ms=time_ms(torch, lambda: ref.mamba_scan(
+                 dA, dBu, C, return_state=state), n=2, warm=1),
+             bound_ms=nb, bound_by=kind, library_ms=None)
+    log(f"mamba_scan {label} (B={B} T={T} D={D} N={N}, dA/dBu "
+        f"{dA.numel() * 4 / 1e9:.2f} GB each{', final state' if state else ''}"
+        f"): max abs err {errs[0]:.3g}"
+        f"{f' (state {errs[1]:.3g})' if state else ''} (bar 1e-4); ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {nb:.4f} "
+        f"({kind}, {n_bytes / 1e9:.3f} GB)")
+    return r
 
 
 def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
@@ -2143,7 +2227,7 @@ def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
     state 16; T = 2048): ``mamba_scan`` once through the kernel, held
     against the plain version at 1e-4 atol/rtol. Returns one (case,
     launches, result)."""
-    from repro_torch.kernels.mamba_scan import ops, ref
+    from repro_torch.kernels.mamba_scan import ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -2156,29 +2240,333 @@ def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
     torch.cuda.synchronize()
     launches = ops.launch_counts()["mamba_scan"]
     check(launches == 1, f"mamba_scan: {launches} launches on its path")
-    want = ref.mamba_scan(dA, dBu, C)
-    torch.cuda.synchronize()
-    check(tuple(y.shape) == (B, T, D) and bool(torch.isfinite(y).all()),
-          "mamba_scan: output shape or finiteness")
-    err = (y - want).abs()
-    bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
-    check(bad == 0, f"mamba_scan: {bad} elements outside 1e-4 atol/rtol, "
-                    f"max abs err {float(err.max())}")
-    # dA and dBu read once, C read once, y written once; 4 flops per state
-    # and step (multiply, add, multiply by C, sum)
-    n_bytes = 4 * (2 * dA.numel() + C.numel() + y.numel())
-    nb, kind = bound_ms(n_bytes, 4 * dA.numel())
-    r = dict(max_abs_err=float(err.max()),
-             ms=time_ms(torch, lambda: ops.mamba_scan(dA, dBu, C), n=10),
-             plain_ms=time_ms(torch, lambda: ref.mamba_scan(dA, dBu, C),
-                              n=2, warm=1),
-             bound_ms=nb, bound_by=kind, library_ms=None)
-    log(f"mamba_scan (B={B} T={T} D={D} N={N}, dA/dBu "
-        f"{dA.numel() * 4 / 1e9:.2f} GB each): max abs err "
-        f"{r['max_abs_err']:.3g} (bar 1e-4); ms {r['ms']:.4f} plain_ms "
-        f"{r['plain_ms']:.4f} bound_ms {nb:.4f} ({kind}, "
-        f"{n_bytes / 1e9:.3f} GB)")
+    r = scan_numbers(torch, "falcon_mamba_7b", dA, dBu, C, y)
     return [(f"falcon_mamba_7b (B {B} T {T} D {D} N {N})", launches, r)]
+
+
+#: The serve phase: hymba_1_5b at its published widths and depth, its
+#: weights from a seeded generator; 8 requests on 4 slots (2 waves), prompts
+#: of 1,280-1,536 seeded tokens, each wave left-padded to its longest (so
+#: every local layer's 1,024-slot ring buffer is shorter than the prompt),
+#: 32 new tokens each, caches of 2,048 positions.
+SERVE_ARCH = "hymba_1_5b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 2048, 8, 32
+SERVE_PROMPT = (1280, 1536)
+#: Largest difference of the prefill logits between the kernels and their
+#: plain versions on the card. float32: the attention kernel is within
+#: 2e-5 and the scan within 1e-4 of the plain versions at each of the 32
+#: layers. bfloat16: every activation is rounded to bf16 (one ulp 2**-8 of
+#: the value), and the attention kernel may differ by one ulp on up to 1%
+#: of its outputs; the bar is set from the first float32 and bfloat16 runs
+#: on the card (PERF.md).
+SERVE_LOGIT_BARS = {"float32": 1e-3, "bfloat16": 0.25}
+#: Calls of a served prefill whose kernel inputs the phase keeps: layer 0
+#: (global attention) and layer 1 (a 1,024-key window), the scan of layer 0.
+SERVE_KEEP = {"flash_attention": (0, 1), "mamba_scan": (0,)}
+
+
+def serve_requests(torch, vocab: int):
+    from repro_torch.serve.engine import Request
+
+    gen = torch.Generator().manual_seed(2828)
+    lo, hi = SERVE_PROMPT
+    lens = torch.randint(lo, hi + 1, (SERVE_REQUESTS,), generator=gen)
+    lens[0] = hi  # the first wave reaches the longest prompt
+    return [Request(rid=i, prompt=torch.randint(0, vocab, (int(n),),
+                                                generator=gen),
+                    max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
+
+
+@contextlib.contextmanager
+def served_kernel_inputs(keep: dict):
+    """Keep the arguments of the model's kernel calls whose index (in call
+    order, one call a layer in a prefill) is in ``keep``, while the calls
+    go on to the kernels as before."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    mods = {"flash_attention": attn_mod, "mamba_scan": ssm_mod}
+    orig = {name: getattr(mod, name) for name, mod in mods.items()}
+    kept = {name: {} for name in mods}
+    calls = dict.fromkeys(mods, 0)
+
+    def recorder(name):
+        def call(*args, **kw):
+            if calls[name] in keep[name]:
+                kept[name][calls[name]] = (args, kw)
+            calls[name] += 1
+            return orig[name](*args, **kw)
+        return call
+
+    for name, mod in mods.items():
+        setattr(mod, name, recorder(name))
+    try:
+        yield kept
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, orig[name])
+
+
+def serve_run(torch, cfg, params, requests, impl: str, keep=None):
+    """``ServeLoop(...).run(requests)`` with ``impl``: every wave's prefill
+    and decode step timed by CUDA events (the loop's step functions
+    wrapped; the timing synchronises after each), the prefill logits kept,
+    both kernels' launch counts set to 0 just before and read just after,
+    the peak device memory. ``keep``: see :func:`served_kernel_inputs`."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.serve.engine import ServeLoop
+
+    loop = ServeLoop(cfg, params, batch_slots=SERVE_SLOTS,
+                     max_len=SERVE_MAX_LEN, impl=impl)
+    rec = {"prefill_ms": [], "decode_ms": [], "logits": []}
+
+    def timed(fn, key, keep_logits):
+        def step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            rec[key].append(start.elapsed_time(stop))
+            if keep_logits:
+                rec["logits"].append(out[0].float())
+            return out
+        return step
+
+    loop.prefill = timed(loop.prefill, "prefill_ms", True)
+    loop.decode = timed(loop.decode, "decode_ms", False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launch_counts()
+    ms_ops.reset_launch_counts()
+    with (served_kernel_inputs(keep) if keep else
+          contextlib.nullcontext({})) as kept:
+        t0 = time.perf_counter()
+        out = loop.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec.update(out=out, wall=wall, kept=kept,
+               launches={**fa_ops.launch_counts(), **ms_ops.launch_counts()},
+               peak=torch.cuda.max_memory_allocated())
+    return rec
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def profiled_kernels(torch, fn):
+    """``(name, device ms, calls)`` of every kernel one call of ``fn``
+    runs (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def serve_profile(torch, cfg, params, requests) -> dict:
+    """The first wave's prefill and one decode step after it, each after
+    a warm-up call: by CUDA events without the profiler, then under
+    ``torch.profiler``: the prefill's device time by kernel group
+    (attention, scan, matrix products, the rest; the top kernels by name
+    printed), the decode step's device time and kernel launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    wave = requests[:SERVE_SLOTS]
+    T = max(r.prompt.shape[0] for r in wave)
+    toks = torch.stack([F.pad(r.prompt, (T - r.prompt.shape[0], 0))
+                        for r in wave]).cuda()
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(
+            cfg, params, {"tokens": toks},
+            init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN))
+
+    def run_decode():
+        decode_step(cfg, params, state["logits"].argmax(-1)[:, None],
+                    state["cache"], T)
+
+    out = {}
+    for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
+        out[f"{name}_ms"] = time_ms(torch, fn, n=1, warm=1)
+        out[f"{name}_kernels"] = profiled_kernels(torch, fn)
+    groups = dict.fromkeys(("attention", "scan", "matmul", "rest"), 0.0)
+    for name, ms, _ in out["prefill_kernels"]:
+        low = name.lower()
+        group = ("attention" if "fa_wgmma" in low or "fa_tf32x3" in low else
+                 "scan" if "ms_kernel" in low else
+                 "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                                    "cutlass")) else "rest")
+        groups[group] += ms
+    for name, ms, n in sorted(out["prefill_kernels"], key=lambda k: -k[1])[:8]:
+        log(f"  prefill kernel {ms:9.3f} ms {n:5d} calls  {name[:110]}")
+    out["prefill_groups"] = groups
+    return out
+
+
+def serve_phase(torch, card: str):
+    """hymba_1_5b served at full width through ``ServeLoop`` (see the
+    module notes). Returns the kernels line's cases: attention (float32,
+    bf16) and the scan at the served shapes, with their launches on the
+    served path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import init_cache, init_params
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_config(SERVE_ARCH)
+    n_layers = base.n_layers
+    requests = serve_requests(torch, base.vocab_size)
+    log(f"serve: {base.name} ({base.n_layers} layers, d_model "
+        f"{base.d_model}, {base.n_heads} heads, {base.n_kv_heads} kv heads, "
+        f"hd {base.hd}, d_ff {base.d_ff}, vocab {base.vocab_size}, window "
+        f"{base.sliding_window}, global layers {base.global_layers}, state "
+        f"{base.ssm_state}, d_inner {base.d_inner}; "
+        f"{base.param_count() / 1e9:.3f} B parameters); {len(requests)} "
+        f"requests, prompts {[r.prompt.shape[0] for r in requests]} tokens, "
+        f"{SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, {SERVE_MAX_NEW} new "
+        f"tokens each [{card}]")
+    n_waves = -(-len(requests) // SERVE_SLOTS)
+    want_launches = n_waves * n_layers
+    cases = []
+    for dt_name in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=getattr(torch, dt_name))
+        gen = torch.Generator(device="cuda").manual_seed(1515)
+        params = init_params(cfg, gen, "cuda")
+        runs = {}
+        for impl in ("cuda", "torch"):
+            runs[impl] = r = serve_run(torch, cfg, params, requests, impl,
+                                       SERVE_KEEP if impl == "cuda" else None)
+            toks = sum(len(v) for v in r["out"].values())
+            log(f"serve {dt_name} {impl}: {r['wall']:.2f} s wall, {toks} "
+                f"tokens, {toks / r['wall']:.1f} tok/s; prefill ms a wave "
+                f"{[round(x, 2) for x in r['prefill_ms']]}, decode ms a step "
+                f"mean {np.mean(r['decode_ms']):.3f} (min "
+                f"{min(r['decode_ms']):.3f}, max {max(r['decode_ms']):.3f}, "
+                f"{len(r['decode_ms'])} steps); launches flash_attention "
+                f"{r['launches']['flash_attention']} mamba_scan "
+                f"{r['launches']['mamba_scan']}; peak device memory "
+                f"{r['peak'] / 1e9:.3f} GB [{card}]")
+            for logits in r["logits"]:
+                check(bool(torch.isfinite(logits).all()),
+                      f"serve {dt_name} {impl}: non-finite logits")
+        cu, pl = runs["cuda"], runs["torch"]
+        route = fa_ops._route(cfg.dtype, cfg.hd)
+        for key, n in (("flash_attention", want_launches),
+                       (f"flash_attention_{route}", want_launches),
+                       ("mamba_scan", want_launches)):
+            check(cu["launches"][key] == n,
+                  f"serve {dt_name}: {key} launched {cu['launches'][key]} "
+                  f"times, not {n} ({n_waves} waves x {n_layers} layers)")
+            check(pl["launches"][key] == 0,
+                  f"serve {dt_name}: the plain run launched {key}")
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(cu["logits"], pl["logits"]))
+        same = sum(a == b for rid in cu["out"]
+                   for a, b in zip(cu["out"][rid], pl["out"][rid]))
+        total = sum(len(v) for v in cu["out"].values())
+        top = max(float(a.abs().max()) for a in pl["logits"])
+        log(f"serve {dt_name}: prefill logits kernels vs plain max abs diff "
+            f"{diff:.6g} (bar {SERVE_LOGIT_BARS[dt_name]}; largest |logit| "
+            f"{top:.4g}); tokens equal {same} of {total} "
+            f"({same / total:.4f})")
+        check(diff <= SERVE_LOGIT_BARS[dt_name],
+              f"serve {dt_name}: prefill logits {diff} from the plain path")
+        if dt_name == "float32":
+            check(cu["out"] == pl["out"],
+                  "serve float32: the kernel path's tokens differ from the "
+                  "plain path's")
+        weights = tree_bytes(params)
+        cache = tree_bytes(init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN))
+        log(f"serve {dt_name}: weights {weights / 1e9:.3f} GB, cache "
+            f"{cache / 1e6:.1f} MB ({SERVE_SLOTS} slots x {SERVE_MAX_LEN}), "
+            f"peak device memory cuda {cu['peak'] / 1e9:.3f} GB, plain "
+            f"{pl['peak'] / 1e9:.3f} GB [{card}]")
+        prof = serve_profile(torch, cfg, params, requests)
+        groups = prof["prefill_groups"]
+        busy = sum(groups.values())
+        log(f"serve {dt_name} prefill device ms by kernel (one wave, "
+            f"profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                       groups.items())
+            + f"; total {busy:.3f}, the same wave {prof['prefill_ms']:.3f} "
+              f"ms by events (idle share "
+              f"{1 - busy / prof['prefill_ms']:.3f}) [{card}]")
+        dec_busy = sum(ms for _, ms, _ in prof["decode_kernels"])
+        dec_n = sum(n for _, _, n in prof["decode_kernels"])
+        log(f"serve {dt_name} decode step: {prof['decode_ms']:.3f} ms by "
+            f"events, device {dec_busy:.3f} ms in {dec_n} kernels "
+            f"(profiler; idle share {1 - dec_busy / prof['decode_ms']:.3f})"
+            f" [{card}]")
+        # one served layer's own kernel inputs against the plain versions
+        kept = cu["kept"]
+        check(set(kept["flash_attention"]) == set(SERVE_KEEP[
+            "flash_attention"]) and set(kept["mamba_scan"]) == set(
+            SERVE_KEEP["mamba_scan"]), "serve: kernel inputs not kept")
+        loader = fa_ops._loader(cfg.hd) if route == "wgmma" else None
+        for i in SERVE_KEEP["flash_attention"]:
+            (q, k, v), kw = kept["flash_attention"][i]
+            kw = {key: kw[key] for key in ("causal", "window")}
+            layer = ("global" if kw["window"] == 0 else
+                     f"window {kw['window']}")
+            out = fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
+            r = attention_numbers(torch, f"served layer {i} {dt_name}",
+                                  q, k, v, kw, out, route, loader)
+            if kw["window"]:
+                cases.append(("flash_attention",
+                              f"{base.name} served layer {i} ({layer}; B "
+                              f"{q.shape[0]} nh {q.shape[1]} nkv "
+                              f"{k.shape[1]} hd {q.shape[3]} T=S "
+                              f"{q.shape[2]} {dt_name})",
+                              cu["launches"]["flash_attention"], r))
+        if dt_name == "bfloat16":
+            (dA, dBu, C), _ = kept["mamba_scan"][0]
+            y, h = ms_ops.mamba_scan(dA, dBu, C, return_state=True,
+                                     impl="cuda")
+            r = scan_numbers(torch, "served layer 0", dA, dBu, C, y, h)
+            cases.append(("mamba_scan",
+                          f"{base.name} served layer 0 (B {dA.shape[0]} T "
+                          f"{dA.shape[1]} D {dA.shape[2]} N {dA.shape[3]}, "
+                          f"final state)", cu["launches"]["mamba_scan"], r))
+        del params, runs, cu, pl, kept
+        torch.cuda.empty_cache()
+    # the launch command, as a user runs it, on the card
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", "hymba-1.5b"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"serve launch: python -m repro_torch.launch.serve --arch hymba-1.5b:"
+        f" exit {proc.returncode}, {time.perf_counter() - t0:.2f} s wall: "
+        f"{line} [{card}]")
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+    check(proc.returncode == 0 and "tok/s" in line,
+          "serve launch: the command failed or printed no tok/s line")
+    log(f"serve phase: {time.perf_counter() - t_phase:.2f} s")
+    return cases
 
 
 def main(argv=None) -> int:
@@ -2221,6 +2609,9 @@ def main(argv=None) -> int:
                 f"stores/loads")
         for w in _build.ptxas_warnings(lib):
             log(f"  ptxas {lib}: {w}")
+
+    served = serve_phase(torch, card)
+    torch.cuda.empty_cache()  # the phase's weights and activations
 
     days, n_files = args.days, 1_000_000
     specs = pricing_specs(days, n_files)
@@ -2323,6 +2714,7 @@ def main(argv=None) -> int:
     for name, phase in (("flash_attention", attention_phase),
                         ("mamba_scan", mamba_phase)):
         cases += [(name, *c) for c in phase(torch)]
+    cases += served
 
     kernels = [dict(name=name, case=case, route="cuda",
                     source=r.get("source", KERNEL_SOURCE[name]),

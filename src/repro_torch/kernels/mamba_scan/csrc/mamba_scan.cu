@@ -7,6 +7,10 @@
 //
 //   ms_scan -> ms_kernel
 //
+// With a final-state pointer it also writes h_T [B, D, N], the state after
+// the last step, which prefill keeps as the SSM cache (repro's ssm_scan_y,
+// src/repro/models/ssm.py:94).
+//
 // On the TPU a sequential grid of 256-step time chunks carries h in VMEM
 // scratch from one chunk to the next. Here one thread owns one state
 // (b, d, n) and walks all of T itself, the carry in a register: no chunk
@@ -40,8 +44,9 @@ constexpr int kMaxState = 32;
 
 __global__ void __launch_bounds__(kThreads)
 ms_kernel(const float* __restrict__ dA, const float* __restrict__ dBu,
-          const float* __restrict__ C, float* __restrict__ y, int T, int D,
-          int N, long long BD, int log2g) {
+          const float* __restrict__ C, float* __restrict__ y,
+          float* __restrict__ h_final, int T, int D, int N, long long BD,
+          int log2g) {
   const long long gid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int G = 1 << log2g;
@@ -77,6 +82,7 @@ ms_kernel(const float* __restrict__ dA, const float* __restrict__ dBu,
       if (writer) py[static_cast<long long>(t0 + k) * D] = yv;
     }
   }
+  if (h_final != nullptr && live) h_final[bd * N + n] = h;
 }
 
 }  // namespace
@@ -90,9 +96,10 @@ const char* ms_error_string(int code) {
 }
 
 // dA, dBu: f32 [B, T, D, N]; C: f32 [B, T, N]; y: f32 [B, T, D]; all
-// contiguous; 1 <= N <= 32.
+// contiguous; 1 <= N <= 32. h_final: f32 [B, D, N], the state after step
+// T - 1, or null to write none.
 int ms_scan(const void* dA, const void* dBu, const void* C, void* y, int B,
-            int T, int D, int N, void* stream) {
+            int T, int D, int N, void* h_final, void* stream) {
   if (N < 1 || N > kMaxState) return static_cast<int>(cudaErrorInvalidValue);
   int log2g = 0;
   while ((1 << log2g) < N) ++log2g;
@@ -103,8 +110,8 @@ int ms_scan(const void* dA, const void* dBu, const void* C, void* y, int B,
     ms_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(dA), static_cast<const float*>(dBu),
-        static_cast<const float*>(C), static_cast<float*>(y), T, D, N, BD,
-        log2g);
+        static_cast<const float*>(C), static_cast<float*>(y),
+        static_cast<float*>(h_final), T, D, N, BD, log2g);
   }
   return static_cast<int>(cudaGetLastError());
 }

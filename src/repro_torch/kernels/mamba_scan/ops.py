@@ -31,7 +31,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ms_max_state": ([], _I),
     "ms_error_string": ([_I], ctypes.c_char_p),
-    "ms_scan": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "ms_scan": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
 }
 
 _LIB = _build.KernelLib("mamba_scan", _SIGNATURES, "ms_error_string",
@@ -40,7 +40,7 @@ launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
 
 
-def _scan_kernel(dA, dBu, C):
+def _scan_kernel(dA, dBu, C, return_state: bool):
     """Launch ``csrc/mamba_scan.cu`` on CUDA tensors (contract of
     ``ref.mamba_scan``)."""
     dev = dA.device
@@ -57,14 +57,22 @@ def _scan_kernel(dA, dBu, C):
     if not 1 <= N <= max_n:
         raise ValueError(f"state width N = {N} outside 1..{max_n}")
     y = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    # the kernel writes the final state only where it is asked for; with
+    # no step there is none to write, and the state stays h_{-1} = 0
+    h = (None if not return_state else
+         torch.empty((B, D, N), dtype=torch.float32, device=dev) if T else
+         torch.zeros((B, D, N), dtype=torch.float32, device=dev))
     _LIB.launch("mamba_scan", "ms_scan", dev,
-                *(t.data_ptr() for t in (dA, dBu, C, y)), B, T, D, N)
-    return y
+                *(t.data_ptr() for t in (dA, dBu, C, y)), B, T, D, N,
+                None if h is None else h.data_ptr())
+    return (y, h) if return_state else y
 
 
-def mamba_scan(dA, dBu, C, *, impl: str = "auto"):
+def mamba_scan(dA, dBu, C, *, return_state: bool = False,
+               impl: str = "auto"):
     """``dA, dBu [B, T, D, N] float32``, ``C [B, T, N] float32`` ->
-    ``y [B, T, D] float32``; see ``ref.mamba_scan``."""
+    ``y [B, T, D] float32``, or ``(y, h_T [B, D, N])`` with
+    ``return_state``; see ``ref.mamba_scan``."""
     if resolve_tick_impl(impl, dA.device).use_kernel:
-        return _scan_kernel(dA, dBu, C)
-    return ref.mamba_scan(dA, dBu, C)
+        return _scan_kernel(dA, dBu, C, return_state)
+    return ref.mamba_scan(dA, dBu, C, return_state=return_state)

@@ -1,0 +1,28 @@
+"""Model zoo for serving, the port's counterpart of ``repro.models``.
+
+Families dense (command-r, qwen3, gemma3, mistral-large), SSM
+(falcon-mamba) and hybrid attn+SSM (hymba) built from one config.
+Functional style: ``init_params(cfg, generator, device)`` -> dictionary of
+tensors, ``forward(cfg, params, batch)`` -> logits, plus prefill/decode
+entry points with per-layer KV/SSM caches. Prefill runs the port's
+attention and Mamba-scan kernels. MoE, the vision and audio front ends,
+enc-dec backbones and training are not ported.
+"""
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_cache",
+]

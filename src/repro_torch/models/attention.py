@@ -1,0 +1,148 @@
+"""GQA attention: prefill through the attention kernel, KV-cache decode in
+plain PyTorch; the port's counterpart of ``repro.models.attention``.
+
+Variants handled by flags: qk-norm (qwen3), sliding-window masks
+(gemma3 5:1 local:global, hymba local+3-global), attention bias. Prefill
+(:func:`attention_core`) hands the projected heads to
+``repro_torch.kernels.flash_attention`` (the hand-written Hopper kernel on
+the card, its plain version on the CPU or with ``impl="torch"``), which
+masks by index and never builds the ``[T, S]`` scores: it takes the place
+of both ``repro``'s masked full-score path and its chunked one, so their
+thresholds have no counterpart here. The kernel has no logit softcap, so a
+config that sets one raises in prefill. Decode
+(:func:`decode_attention`) attends one query position against a length-S
+cache, ring-buffered for local layers, as ``repro`` does.
+
+Layouts are ``repro``'s at every function: activations ``[B, T, heads,
+hd]``, ``wq`` ``[d, nh, hd]``, ``wo`` ``[nh, hd, d]``, caches ``[B, S, nkv,
+hd]``. Cross-attention (enc-dec) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import apply_rope, dense_init, init_rms_norm, rms_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    dev = generator.device
+    p = {
+        "wq": dense_init(generator, (d, nh, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wk": dense_init(generator, (d, nkv, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wv": dense_init(generator, (d, nkv, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wo": dense_init(generator, (nh, hd, d), in_axis_size=nh * hd, dtype=cfg.dtype),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((nh, hd), dtype=cfg.dtype, device=dev)
+        p["bk"] = torch.zeros((nkv, hd), dtype=cfg.dtype, device=dev)
+        p["bv"] = torch.zeros((nkv, hd), dtype=cfg.dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(hd, dev)
+        p["k_norm"] = init_rms_norm(hd, dev)
+    return p
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("btd,dhk->bthk", x, w)`` as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bthk,hkd->btd", out, wo)`` as one matrix product."""
+    h, k, d = wo.shape
+    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def attention_core(p: Params, cfg: ModelConfig, q, k, v,
+                   window: Optional[int] = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """Causal attention from projected q/k/v ([B, T, h, hd], positions
+    0..T-1); returns [B, T, d]. ``window`` None or 0: every earlier key;
+    else keys less than ``window`` positions back. The heads go to
+    ``flash_attention`` as ``[B, h, T, hd]`` contiguous (``impl`` picks
+    the kernel or its plain version, ``kernels.registry``)."""
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            "attn_logit_softcap: the attention kernel has no logit softcap")
+    out = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                          causal=True, window=int(window or 0), impl=impl)
+    return _out_proj(out.transpose(1, 2), p["wo"])
+
+
+def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, window: Optional[int] = None,
+              impl: str = "auto") -> torch.Tensor:
+    """Prefill attention. x: [B, T, d]; positions [B, T] = 0..T-1 (RoPE);
+    window: see :func:`attention_core`."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    return attention_core(p, cfg, q, k, v, window, impl)
+
+
+# ----------------------------------------------------------------- decode
+def init_kv_cache(cfg: ModelConfig, batch: int, length: int,
+                  device=None) -> Dict[str, torch.Tensor]:
+    shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+    }
+
+
+def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], t: int,
+                     window: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. x: [B, 1, d]; cache k/v: [B, S, nkv, hd]; t: current
+    position. Ring-buffer addressing: slot = t mod S (exact for local
+    layers with S == window; for global layers S >= max positions). The
+    new key and value are written into the cache in place; the scores,
+    softmax and sum over the values are float32, each query head reading
+    its group's kv head in place (``repro``'s ``_expand_kv`` copies the
+    cache once per query head instead)."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    pos = torch.full((B, 1), t, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos)
+    slot = t % S
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    k, v = cache["k"], cache["v"]
+    nkv, hd = k.shape[2], k.shape[3]
+    qg = q[:, 0].reshape(B, nkv, cfg.n_heads // nkv, hd).float()
+    scores = torch.einsum("bgrk,bsgk->bgrs", qg, k.float()) * cfg.hd ** -0.5
+    if cfg.attn_logit_softcap:
+        c = cfg.attn_logit_softcap
+        scores = torch.tanh(scores / c) * c
+    # Valid slots: written positions within the causal window.
+    s_idx = torch.arange(S, device=x.device)
+    # Position stored in slot s (ring): the latest p <= t with p mod S == s.
+    stored_pos = t - torch.remainder(t - s_idx, S)
+    valid = stored_pos >= 0
+    if window:
+        valid &= (t - stored_pos) < window
+    scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bsgk->bgrk", w, v.float()).to(x.dtype)
+    return _out_proj(out.reshape(B, 1, cfg.n_heads, hd), p["wo"]), cache

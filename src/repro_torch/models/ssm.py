@@ -1,0 +1,117 @@
+"""Mamba-1 selective SSM block (falcon-mamba; hymba's SSM heads), the
+port's counterpart of ``repro.models.ssm``.
+
+Structure: in_proj -> (x, z); causal depthwise conv1d + silu on x;
+x -> (dt_low, B, C); dt = softplus(dt_proj(dt_low)); A = -exp(A_log);
+recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t; y_t = C_t . h_t + D x_t;
+out = (y * silu(z)) @ out_proj.
+
+The recurrence over the prompt runs in ``repro_torch.kernels.mamba_scan``
+(the hand-written Hopper kernel on the card, its plain version on the CPU
+or with ``impl="torch"``), which also returns the final state that
+prefill keeps as the cache (what ``repro``'s ``ssm_scan_y`` returns beside
+y). Decode keeps h as explicit state ([B, d_inner, N]) and applies one
+recurrence step in plain PyTorch, as ``repro`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import dense_init
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_ssm(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    d, di, n, dtr, kc = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dtr, cfg.ssm_conv
+    dev = generator.device
+    # S4D-real initialisation for A: A[d, n] = -(1..n)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None, :].repeat(di, 1)
+    return {
+        "in_proj": dense_init(generator, (d, 2 * di), in_axis_size=d, dtype=cfg.dtype),
+        "conv_w": dense_init(generator, (kc, di), in_axis_size=kc, dtype=cfg.dtype),
+        "conv_b": torch.zeros((di,), dtype=cfg.dtype, device=dev),
+        "x_proj": dense_init(generator, (di, dtr + 2 * n), in_axis_size=di, dtype=cfg.dtype),
+        "dt_proj_w": dense_init(generator, (dtr, di), in_axis_size=dtr, dtype=cfg.dtype),
+        "dt_proj_b": torch.full((di,), -4.6, dtype=torch.float32, device=dev),  # softplus ~= 0.01
+        "A_log": torch.log(a),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(generator, (di, d), in_axis_size=di, dtype=cfg.dtype),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: [B, T, di]; w: [K, di]."""
+    K = w.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):  # K is tiny (4): unrolled taps
+        out = out + xp[:, k: k + x.shape[1], :] * w[k]
+    return out + b
+
+
+def _ssm_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor):
+    """u: [B, T, di] (post conv+silu). Returns dA [B,T,di,N] decay, dBu, C."""
+    n = cfg.ssm_state
+    dbc = u @ p["x_proj"]
+    dt_low, Bm, Cm = torch.split(dbc, [cfg.dtr, n, n], dim=-1)
+    dt = F.softplus((dt_low @ p["dt_proj_w"]).float() + p["dt_proj_b"])  # [B, T, di] f32
+    A = -torch.exp(p["A_log"])  # [di, N] f32
+    dA = torch.exp(dt[..., None] * A)  # [B, T, di, N]
+    dBu = (dt * u.float())[..., None] * Bm.float()[..., None, :]
+    return dA, dBu, Cm
+
+
+def gated_scan(u: torch.Tensor, z: torch.Tensor, p: Params, cfg: ModelConfig,
+               dtype, impl: str = "auto"):
+    """The block from the conv's output on: ``u`` [B, T, di] (post
+    conv+silu), ``z`` the gate. Returns the gated ``y`` [B, T, di] in
+    ``dtype`` and the final state ``h`` [B, di, N] (float32)."""
+    dA, dBu, Cm = _ssm_inputs(p, cfg, u)
+    y, h = mamba_scan(dA, dBu, Cm.float().contiguous(), return_state=True,
+                      impl=impl)
+    y = y + p["D"] * u.float()
+    return (y * F.silu(z.float())).to(dtype), h
+
+
+def ssm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
+    """x: [B, T, d] -> [B, T, d]."""
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    u = F.silu(_causal_conv1d(u, p["conv_w"], p["conv_b"]))
+    y, _ = gated_scan(u, z, p, cfg, x.dtype, impl)
+    return y @ p["out_proj"]
+
+
+# ----------------------------------------------------------------- decode
+def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=cfg.dtype,
+                            device=device),
+    }
+
+
+def ssm_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """x: [B, 1, d]; cache h: [B, di, N], conv: [B, K-1, di]."""
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)  # [B, 1, di]
+    # conv over the last K inputs
+    hist = torch.cat([cache["conv"], u], dim=1)  # [B, K, di]
+    u_c = (hist * p["conv_w"]).sum(1) + p["conv_b"]
+    u_c = F.silu(u_c)[:, None, :]  # [B, 1, di]
+    new_conv = hist[:, 1:, :]
+    dA, dBu, Cm = _ssm_inputs(p, cfg, u_c)
+    h = dA[:, 0] * cache["h"] + dBu[:, 0]  # [B, di, N]
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
+    y = y + p["D"] * u_c[:, 0].float()
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    out = (y @ p["out_proj"])[:, None, :]
+    return out, {"h": h, "conv": new_conv}

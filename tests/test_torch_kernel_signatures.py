@@ -133,3 +133,12 @@ def test_wgmma_entry_points_are_declared():
     assert entry["fa_wgmma_tile_check"] == ([P] * 5 + [I, P], I)
     for fn in ("fa_wgmma_forward", "fa_wgmma_tile_check"):
         assert fa_ops._WGMMA_SIGNATURES[fn] == entry[fn]
+
+
+def test_scan_entry_point_is_declared():
+    """The scan's entry point: dA, dBu, C and y, the four sizes, then the
+    final state's pointer (null: none written) and the stream."""
+    entry = c_entry_points(_build.SOURCES["mamba_scan"])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert entry["ms_scan"] == ([P] * 4 + [I] * 4 + [P, P], I)
+    assert ms_ops._SIGNATURES["ms_scan"] == entry["ms_scan"]

@@ -32,12 +32,12 @@ differs on about 40%), each case through the kernel its dtype routes to
 and, in bfloat16, the loader its width needs (TMA at a multiple of 8,
 else the producer's threads), and the wgmma kernel's pieces with each
 loader and the tf32x3 kernel's bitwise on integer inputs; the
-Mamba scan at 1e-4 (the sum over
-the state runs in another order); the execution layer on the ``cuda``
-sweep: lane chunks, a device list, retryable chunk jobs under injected
-faults and a fleet of two worker processes, each bitwise to the unchunked
-run, and series capture with the replayed tick's series bitwise to the
-eager tick's and one launch of each kernel a tick.
+Mamba scan and its final state at 1e-4 (the sum over the state runs in
+another order); the execution layer on the ``cuda`` sweep: lane chunks,
+a device list, retryable chunk jobs under injected faults and a fleet of
+two worker processes, each bitwise to the unchunked run, and series
+capture with the replayed tick's series bitwise to the eager tick's and
+one launch of each kernel a tick.
 """
 
 import numpy as np
@@ -1286,3 +1286,25 @@ def test_cuda_mamba_scan_matches_plain(cuda_device, B, T, D, N):
     torch.cuda.synchronize()
     assert ms_ops.launch_counts()["mamba_scan"] == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N", [(2, 300, 130, 16), (1, 1001, 64, 5),
+                                     (3, 7, 33, 32), (1, 1, 8, 1)])
+def test_cuda_mamba_scan_final_state(cuda_device, B, T, D, N):
+    """The kernel's final state at ragged T and N <= 32, against the plain
+    version's, and y unchanged by asking for it."""
+    g = torch.Generator().manual_seed(B * T + N)
+    dA = torch.exp(-torch.rand(B, T, D, N, generator=g)).to(cuda_device)
+    dBu = (0.1 * torch.randn(B, T, D, N, generator=g)).to(cuda_device)
+    C = torch.randn(B, T, N, generator=g).to(cuda_device)
+    before = ms_ops.launch_counts()["mamba_scan"]
+    y, h = ms_ops.mamba_scan(dA, dBu, C, return_state=True)
+    y_only = ms_ops.mamba_scan(dA, dBu, C)
+    want_y, want_h = ms_ref.mamba_scan(dA, dBu, C, return_state=True)
+    torch.cuda.synchronize()
+    assert ms_ops.launch_counts()["mamba_scan"] == before + 2
+    assert h.shape == (B, D, N) and h.dtype == torch.float32
+    torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, y_only)

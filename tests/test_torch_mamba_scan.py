@@ -16,7 +16,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.mamba_scan.ops import mamba_scan as jx_scan
-from repro_torch.kernels.mamba_scan import ops
+from repro.models.ssm import ssm_scan_y
+from repro_torch.kernels.mamba_scan import ops, ref
 
 
 def scan_inputs(B, T, D, N, seed):
@@ -40,6 +41,26 @@ def test_scan_matches_repro(B, T, D, N, use_pallas):
     assert got.dtype == torch.float32 and got.shape == (B, T, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,D,N", [(2, 300, 130, 16), (1, 2048, 16, 4)])
+def test_final_state_matches_repro(B, T, D, N):
+    """``return_state`` gives the state after the last step, ``repro``'s
+    ``ssm_scan_y(...)[1]`` (the prefill's SSM cache): by its associative
+    scan, and at T = 2048 by its chunked scan (``force_chunk``)."""
+    arrays = scan_inputs(B, T, D, N, 11 * T)
+    want_y, want_h = ssm_scan_y(*map(jnp.asarray, arrays),
+                                force_chunk=T >= 2048)
+    got_y, got_h = ref.mamba_scan(*map(torch.as_tensor, arrays),
+                                  return_state=True)
+    assert got_h.shape == (B, D, N) and got_h.dtype == torch.float32
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-4,
+                               rtol=1e-4)
+    y, h = ops.mamba_scan(*map(torch.as_tensor, arrays), return_state=True)
+    assert torch.equal(y, got_y) and torch.equal(h, got_h)
+    assert torch.equal(ops.mamba_scan(*map(torch.as_tensor, arrays)), got_y)
 
 
 def test_scan_carry_across_chunks():
