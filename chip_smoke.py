@@ -20,12 +20,14 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``wgmma`` one, TMA loader), each once through the kernels
    (``impl="cuda"``) and once through their plain versions on the card:
    every float32 token equal and the prefill logits within
-   ``SERVE_LOGIT_BARS``, ``flash_attention`` and ``mamba_scan`` each
-   launched once a layer a wave (counts set to 0 just before each run);
+   ``SERVE_LOGIT_BARS``, ``flash_attention`` and the scan's fused entry
+   ``selective_scan`` each launched once a layer a wave and its contract
+   entry ``mamba_scan`` never (counts set to 0 just before each run);
    the inputs the served prefill gave layer 0 (global) and layer 1
    (windowed) attention and layer 0's scan, held to the plain versions at
-   the kernel bars (the scan's final state too), timed beside SDPA and
-   the bound; prefill ms a wave and decode ms a step (CUDA events),
+   the kernel bars (the scan's final state too; the scan also through
+   ``mamba_scan`` on the dA and dBu its plain version forms), timed
+   beside SDPA and the bound; prefill ms a wave and decode ms a step (CUDA events),
    tokens/s, the prefill's device time by kernel (``torch.profiler``:
    attention, scan, matrix products, the rest), the weights' and caches'
    bytes and the peak device memory, each beside the card; then ``python
@@ -178,13 +180,23 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    12*hd flops per unmasked pair at dense TF32's 495 TFLOP/s (the split
    design's own least time), printed beside the SIMT ceiling, 4*hd flops
    at 67 TFLOP/s (``bound_ms_simt``);
-12. Mamba phase: ``mamba_scan`` at falcon_mamba_7b widths (B 1, T 2048,
-    d_inner 8192, state 16; dA and dBu 1.07 GB each) against the plain
-    version at 1e-4 atol/rtol;
+12. Mamba phase: both scan entries at falcon_mamba_7b widths (B 1, T
+    2048, d_inner 8192, state 16) with the final state, against the plain
+    versions at 1e-4 atol/rtol: ``mamba_scan`` on seeded dA and dBu (1.07
+    GB each), ``selective_scan`` on seeded bf16 u, B and C (slices of a
+    projection at dt rank 256), float32 dt and A; each with its ms (CUDA
+    events), in a graph of 10 calls, device us (profiler), the plain
+    version's ms and the bound: bytes for ``mamba_scan``, for
+    ``selective_scan`` the larger of its bytes and its state-steps times
+    the operations a state-step needs, the float32 and ``MUFU``
+    instructions of the recurrence and its ``expf`` in the built kernel's
+    hot loop (SASS, ``cuobjdump``), at one a lane and clock (the loop's
+    whole count a state-step is printed beside it);
 13. the ``kernels`` JSON line: one entry per kernel and case (``case``
     names it; the serve phase adds bf16 and float32 attention at served
-    layer 1 and the scan at served layer 0, each with its 64 launches on
-    the served path), each with its launches on its own path (counts
+    layer 1 and ``selective_scan`` at served layer 0, each with its 64
+    launches on the served path, and ``mamba_scan`` on that layer's dA and
+    dBu with its 1), each with its launches on its own path (counts
     reset just before the path runs, read just after each case; the
     lane-tick and glue entries also with ``launches_decide``, their
     launches in the cold decide run); the glue kernels,
@@ -211,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -229,6 +242,10 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
+#: Thread instructions a second: one a lane and clock on 132 SMs x 128
+#: lanes at 1.98 GHz (the float32 peak over two, since it counts an FMA as
+#: two operations); the fused scan's instructions are held to it.
+INSTR_PER_S = F32_OPS_PER_S / 2
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
@@ -250,6 +267,8 @@ KERNEL_SOURCE = {
         "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention_wgmma.cu",
     "mamba_scan": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+    "selective_scan":
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
 }
 #: The attention kernel each route launches (``flash_attention.ops._route``:
 #: float32 -> ``tf32x3``, bfloat16 -> ``wgmma``).
@@ -281,6 +300,9 @@ REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:28",
     "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:29",
+    # the same Pallas kernel, with the lines that form its dA and dBu
+    # (src/repro/models/ssm.py:67-69) fused into it
+    "selective_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:29",
 }
 
 
@@ -2178,55 +2200,154 @@ def attention_phase(torch):
     return per_case
 
 
-def scan_numbers(torch, label: str, dA, dBu, C, y, h=None) -> dict:
-    """The scan kernel's ``y`` (and final state ``h``, where given) against
-    the plain version on the same inputs at 1e-4 atol/rtol, then its
-    times: the kernel by CUDA events, the plain version and the bound.
-    Returns the kernels line's numbers."""
+@functools.lru_cache(maxsize=None)
+def scan_sass_count(bf16: bool, N: int) -> dict:
+    """Instructions a state-step of the fused scan's kernel instance for
+    ``N`` (``bf16`` inputs, else float32), from its SASS (``cuobjdump``):
+    the loop that holds the most ``MUFU.EX2`` (each state-step's ``expf``
+    has one), its instructions, and over its ``MUFU.EX2`` count: all of
+    them (``per_state_step``, a diagnostic: it grows with the kernel's own
+    overheads), its float32 ones and the float32 and ``MUFU`` ones, which
+    are the function's work (``operations_per_state_step``: the products
+    and sums of dA, dBu, the recurrence and y, and ``expf``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import ops
+
+    name = (f"ms_scan_kernel<1,{'__nv_bfloat16' if bf16 else 'f'},"
+            f"{ops.group_log2(N)},{int(N % ops.STATES_PER_THREAD == 0)}>")
+    funcs = _build.sass_functions(_build.sass("mamba_scan"))
+    check(name in funcs, f"selective_scan: no SASS of {name} in "
+                         f"{sorted(funcs)}")
+    loop = _build.hot_loop(funcs[name], "MUFU.EX2")
+    n = loop.get("MUFU.EX2", 0)
+    check(n > 0, f"selective_scan: no loop of {name} holds MUFU.EX2")
+    fp32 = sum(v for k, v in loop.items()
+               if k.split(".")[0] in ("FADD", "FMUL", "FFMA", "FSETP",
+                                      "FSEL", "FMNMX", "FRND"))
+    mufu = sum(v for k, v in loop.items() if k.split(".")[0] == "MUFU")
+    return dict(kernel=name, loop_instructions=sum(loop.values()),
+                mufu_ex2=n, per_state_step=sum(loop.values()) / n,
+                fp32_per_state_step=fp32 / n,
+                operations_per_state_step=(fp32 + mufu) / n)
+
+
+def scan_bound(torch, entry: str, args, y, h) -> dict:
+    """The least time of one scan call (``entry`` and ``args`` as in
+    :func:`scan_numbers`, ``y`` and ``h`` its outputs): its bytes, each
+    input read once and y and h written once, at the memory rate, against
+    its operations at their peak. ``mamba_scan``: 4 float32 operations a
+    state and step (multiply, add, multiply by C, sum).
+    ``selective_scan``: its state-steps times the operations a state-step
+    of :func:`scan_sass_count`, at one instruction a lane and clock.
+    Returns ``bound_ms``, ``bound_by``, ``n_bytes``, ``sass`` (None for
+    ``mamba_scan``) and ``what``, a note for the log."""
+    B, T, D = y.shape
+    N = h.shape[2]
+    out_bytes = 4 * (y.numel() + h.numel())
+    sass = None
+    if entry == "mamba_scan":
+        dA, dBu, C = args
+        n_bytes = (dA.numel() * dA.element_size()
+                   + dBu.numel() * dBu.element_size()
+                   + C.numel() * C.element_size() + out_bytes)
+        nb, kind = bound_ms(n_bytes, 4 * dA.numel())
+        what = f"dA/dBu {dA.numel() * dA.element_size() / 1e9:.2f} GB each"
+    else:
+        u, dt, A, Bm, Cm = args
+        n_bytes = sum(x.numel() * x.element_size() for x in args) + out_bytes
+        sass = scan_sass_count(u.dtype == torch.bfloat16, N)
+        steps = B * T * D * N
+        ops_each = sass["operations_per_state_step"]
+        nb, kind = bound_ms(n_bytes, steps * ops_each, INSTR_PER_S)
+        what = (f"u {str(u.dtype).split('.')[-1]}, {steps / 1e6:.1f} M "
+                f"state-steps at {ops_each:.2f} "
+                f"operations each (float32 and MUFU; "
+                f"{sass['fp32_per_state_step']:.2f} float32) at "
+                f"{INSTR_PER_S / 1e12:.2f} T/s; the hot loop of "
+                f"{sass['kernel']} runs {sass['per_state_step']:.2f} "
+                f"instructions a state-step ({sass['loop_instructions']} "
+                f"with {sass['mufu_ex2']} MUFU.EX2, SASS)")
+    return dict(bound_ms=nb, bound_by=kind, n_bytes=n_bytes, sass=sass,
+                what=what)
+
+
+def scan_numbers(torch, label: str, entry: str, args, y, h) -> dict:
+    """One scan entry's ``y`` and final state ``h`` (``entry``:
+    ``"mamba_scan"``, args dA, dBu, C; or ``"selective_scan"``, args u, dt,
+    A, Bm, Cm) against its plain version on the same inputs at 1e-4
+    atol/rtol, then its times with the state: the kernel by CUDA events,
+    in a CUDA graph of 10 calls and by the profiler, the plain version and
+    the bound (:func:`scan_bound`). Returns the kernels line's numbers."""
     from repro_torch.kernels.mamba_scan import ops, ref
 
-    B, T, D, N = dA.shape
-    state = h is not None
-    want = ref.mamba_scan(dA, dBu, C, return_state=state)
+    kernel, plain = getattr(ops, entry), getattr(ref, entry)
+    want = plain(*args, return_state=True)
     torch.cuda.synchronize()
-    got = (y, h) if state else (y,)
-    want = want if state else (want,)
     errs = []
-    for what, g, w in zip(("y", "h"), got, want):
+    for what, g, w in zip(("y", "h"), (y, h), want):
         check(g.shape == w.shape and bool(torch.isfinite(g).all()),
-              f"mamba_scan {label}: {what} shape or finiteness")
+              f"{entry} {label}: {what} shape or finiteness")
         err = (g - w).abs()
         bad = int((err > 1e-4 + 1e-4 * w.abs()).sum())
-        check(bad == 0, f"mamba_scan {label}: {bad} elements of {what} "
+        check(bad == 0, f"{entry} {label}: {bad} elements of {what} "
                         f"outside 1e-4 atol/rtol, max abs err "
                         f"{float(err.max())}")
         errs.append(float(err.max()))
-    # dA and dBu read once, C read once, y (and h) written once; 4 flops
-    # per state and step (multiply, add, multiply by C, sum)
-    n_bytes = 4 * (2 * dA.numel() + C.numel() + y.numel()
-                   + (h.numel() if state else 0))
-    nb, kind = bound_ms(n_bytes, 4 * dA.numel())
-    r = dict(max_abs_err=max(errs),
-             ms=time_ms(torch, lambda: ops.mamba_scan(
-                 dA, dBu, C, return_state=state), n=10),
-             plain_ms=time_ms(torch, lambda: ref.mamba_scan(
-                 dA, dBu, C, return_state=state), n=2, warm=1),
+    del want
+    B, T, D = y.shape
+    N = h.shape[2]
+    bound = scan_bound(torch, entry, args, y, h)
+    nb, kind, sass = bound["bound_ms"], bound["bound_by"], bound["sass"]
+    fn = lambda: kernel(*args, return_state=True)  # noqa: E731
+    g_ms = graph_ms(torch, fn, n=10)
+    # a profiler reading more than 5% off the graph replay's device time
+    # is not a measurement (see attention_numbers)
+    prof_us = device_us(torch, fn, n=10)
+    dev_us = prof_us if abs(prof_us - 1e3 * g_ms) <= 50 * g_ms else None
+    r = dict(max_abs_err=max(errs), ms=time_ms(torch, fn, n=10),
+             graph_ms=g_ms, device_us=dev_us,
+             plain_ms=time_ms(torch, lambda: plain(*args, return_state=True),
+                              n=2, warm=1),
              bound_ms=nb, bound_by=kind, library_ms=None)
-    log(f"mamba_scan {label} (B={B} T={T} D={D} N={N}, dA/dBu "
-        f"{dA.numel() * 4 / 1e9:.2f} GB each{', final state' if state else ''}"
-        f"): max abs err {errs[0]:.3g}"
-        f"{f' (state {errs[1]:.3g})' if state else ''} (bar 1e-4); ms "
-        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {nb:.4f} "
-        f"({kind}, {n_bytes / 1e9:.3f} GB)")
+    if sass is not None:
+        r["operations_per_state_step"] = sass["operations_per_state_step"]
+        r["instructions_per_state_step"] = sass["per_state_step"]
+    dev_txt = (f"{dev_us:.1f}" if dev_us is not None else
+               f"not measured (profiler read {prof_us:.1f})")
+    log(f"{entry} {label} (B={B} T={T} D={D} N={N}, {bound['what']}, final "
+        f"state): max abs err {errs[0]:.3g} (state {errs[1]:.3g}; bar "
+        f"1e-4); ms {r['ms']:.4f} graph_ms {g_ms:.4f} device_us {dev_txt} "
+        f"plain_ms {r['plain_ms']:.4f} bound_ms {nb:.4f} ({kind}, "
+        f"{bound['n_bytes'] / 1e9:.3f} GB); {100 * nb / g_ms:.1f}% of the "
+        f"bound")
     return r
 
 
+def selective_inputs(torch, B: int, T: int, D: int, N: int, dtr: int,
+                     dtype, gen):
+    """Seeded inputs of the fused scan on the card: u, dt a softplus of
+    normal values about the model's -4.6 bias, A = -(1..N) on every row,
+    and B and C as the column slices ``models.ssm`` takes of one
+    ``[B, T, dtr + 2N]`` projection."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    u = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((B, T, D), generator=gen, device=dev) - 4.6)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(D, 1)
+    dbc = torch.randn((B, T, dtr + 2 * N), generator=gen,
+                      device=dev).to(dtype)
+    return u, dt, A, dbc[..., dtr:dtr + N], dbc[..., dtr + N:]
+
+
 def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
-                N: int = 16):
-    """The selective-scan path at falcon_mamba_7b's widths (d_inner 8192,
-    state 16; T = 2048): ``mamba_scan`` once through the kernel, held
-    against the plain version at 1e-4 atol/rtol. Returns one (case,
-    launches, result)."""
+                N: int = 16, dtr: int = 256):
+    """The selective scan at falcon_mamba_7b's widths (d_inner 8192, state
+    16, dt rank 256; T = 2048), both entries with the final state, each
+    once through the kernel (counts reset just before) and held against
+    the plain version at 1e-4 atol/rtol: ``mamba_scan`` on seeded dA and
+    dBu, ``selective_scan`` on seeded bf16 u, B and C and float32 dt and A.
+    Returns (kernel, case, launches, result) of each."""
     from repro_torch.kernels.mamba_scan import ops
 
     dev = torch.device("cuda")
@@ -2235,13 +2356,21 @@ def mamba_phase(torch, B: int = 1, T: int = 2048, D: int = 8192,
     dA = torch.rand((B, T, D, N), generator=gen, device=dev).neg_().exp_()
     dBu = torch.randn((B, T, D, N), generator=gen, device=dev).mul_(0.1)
     C = torch.randn((B, T, N), generator=gen, device=dev)
-    ops.reset_launch_counts()
-    y = ops.mamba_scan(dA, dBu, C)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()["mamba_scan"]
-    check(launches == 1, f"mamba_scan: {launches} launches on its path")
-    r = scan_numbers(torch, "falcon_mamba_7b", dA, dBu, C, y)
-    return [(f"falcon_mamba_7b (B {B} T {T} D {D} N {N})", launches, r)]
+    fused = selective_inputs(torch, B, T, D, N, dtr, torch.bfloat16, gen)
+    cases = []
+    for entry, args, what in (
+            ("mamba_scan", (dA, dBu, C), "dA and dBu"),
+            ("selective_scan", fused, "bf16 u, B and C")):
+        ops.reset_launch_counts()
+        y, h = getattr(ops, entry)(*args, return_state=True)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check(launches[entry] == 1 and sum(launches.values()) == 1,
+              f"{entry}: launches {launches} on its path")
+        r = scan_numbers(torch, "falcon_mamba_7b", entry, args, y, h)
+        cases.append((entry, f"falcon_mamba_7b (B {B} T {T} D {D} N {N}, "
+                             f"{what}, final state)", launches[entry], r))
+    return cases
 
 
 #: The serve phase: hymba_1_5b at its published widths and depth, its
@@ -2261,8 +2390,9 @@ SERVE_PROMPT = (1280, 1536)
 #: on the card (PERF.md).
 SERVE_LOGIT_BARS = {"float32": 1e-3, "bfloat16": 0.25}
 #: Calls of a served prefill whose kernel inputs the phase keeps: layer 0
-#: (global attention) and layer 1 (a 1,024-key window), the scan of layer 0.
-SERVE_KEEP = {"flash_attention": (0, 1), "mamba_scan": (0,)}
+#: (global attention) and layer 1 (a 1,024-key window), the scan of layer 0
+#: (its fused entry, which ``models.ssm.gated_scan`` calls).
+SERVE_KEEP = {"flash_attention": (0, 1), "selective_scan": (0,)}
 
 
 def serve_requests(torch, vocab: int):
@@ -2285,7 +2415,7 @@ def served_kernel_inputs(keep: dict):
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
 
-    mods = {"flash_attention": attn_mod, "mamba_scan": ssm_mod}
+    mods = {"flash_attention": attn_mod, "selective_scan": ssm_mod}
     orig = {name: getattr(mod, name) for name, mod in mods.items()}
     kept = {name: {} for name in mods}
     calls = dict.fromkeys(mods, 0)
@@ -2410,7 +2540,8 @@ def serve_profile(torch, cfg, params, requests) -> dict:
     for name, ms, _ in out["prefill_kernels"]:
         low = name.lower()
         group = ("attention" if "fa_wgmma" in low or "fa_tf32x3" in low else
-                 "scan" if "ms_kernel" in low else
+                 "scan" if "ms_scan_kernel" in low or "ms_kernel" in low
+                 else
                  "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma",
                                                     "cutlass")) else "rest")
         groups[group] += ms
@@ -2428,6 +2559,7 @@ def serve_phase(torch, card: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
     from repro_torch.models import init_cache, init_params
 
     t_phase = time.perf_counter()
@@ -2462,7 +2594,8 @@ def serve_phase(torch, card: str):
                 f"mean {np.mean(r['decode_ms']):.3f} (min "
                 f"{min(r['decode_ms']):.3f}, max {max(r['decode_ms']):.3f}, "
                 f"{len(r['decode_ms'])} steps); launches flash_attention "
-                f"{r['launches']['flash_attention']} mamba_scan "
+                f"{r['launches']['flash_attention']} selective_scan "
+                f"{r['launches']['selective_scan']} mamba_scan "
                 f"{r['launches']['mamba_scan']}; peak device memory "
                 f"{r['peak'] / 1e9:.3f} GB [{card}]")
             for logits in r["logits"]:
@@ -2472,7 +2605,7 @@ def serve_phase(torch, card: str):
         route = fa_ops._route(cfg.dtype, cfg.hd)
         for key, n in (("flash_attention", want_launches),
                        (f"flash_attention_{route}", want_launches),
-                       ("mamba_scan", want_launches)):
+                       ("selective_scan", want_launches), ("mamba_scan", 0)):
             check(cu["launches"][key] == n,
                   f"serve {dt_name}: {key} launched {cu['launches'][key]} "
                   f"times, not {n} ({n_waves} waves x {n_layers} layers)")
@@ -2517,9 +2650,8 @@ def serve_phase(torch, card: str):
             f" [{card}]")
         # one served layer's own kernel inputs against the plain versions
         kept = cu["kept"]
-        check(set(kept["flash_attention"]) == set(SERVE_KEEP[
-            "flash_attention"]) and set(kept["mamba_scan"]) == set(
-            SERVE_KEEP["mamba_scan"]), "serve: kernel inputs not kept")
+        check(all(set(kept[k]) == set(v) for k, v in SERVE_KEEP.items()),
+              "serve: kernel inputs not kept")
         loader = fa_ops._loader(cfg.hd) if route == "wgmma" else None
         for i in SERVE_KEEP["flash_attention"]:
             (q, k, v), kw = kept["flash_attention"][i]
@@ -2537,14 +2669,32 @@ def serve_phase(torch, card: str):
                               f"{q.shape[2]} {dt_name})",
                               cu["launches"]["flash_attention"], r))
         if dt_name == "bfloat16":
-            (dA, dBu, C), _ = kept["mamba_scan"][0]
+            args, _ = kept["selective_scan"][0]
+            u, dt, A, Bm, Cm = args
+            shape = (f"B {u.shape[0]} T {u.shape[1]} D {u.shape[2]} N "
+                     f"{A.shape[1]}")
+            y, h = ms_ops.selective_scan(*args, return_state=True,
+                                         impl="cuda")
+            r = scan_numbers(torch, "served layer 0", "selective_scan", args,
+                             y, h)
+            cases.append(("selective_scan",
+                          f"{base.name} served layer 0 ({shape}, bf16 u, B "
+                          f"and C, final state)",
+                          cu["launches"]["selective_scan"], r))
+            # the contract entry on the same layer's dA and dBu, driven on
+            # its own (the served path no longer launches it)
+            dA, dBu = ms_ref.scan_inputs(u, dt, A, Bm)
+            C = Cm.float().contiguous()
+            ms_ops.reset_launch_counts()
             y, h = ms_ops.mamba_scan(dA, dBu, C, return_state=True,
                                      impl="cuda")
-            r = scan_numbers(torch, "served layer 0", dA, dBu, C, y, h)
+            n = ms_ops.launch_counts()["mamba_scan"]
+            r = scan_numbers(torch, "served layer 0's dA and dBu",
+                             "mamba_scan", (dA, dBu, C), y, h)
             cases.append(("mamba_scan",
-                          f"{base.name} served layer 0 (B {dA.shape[0]} T "
-                          f"{dA.shape[1]} D {dA.shape[2]} N {dA.shape[3]}, "
-                          f"final state)", cu["launches"]["mamba_scan"], r))
+                          f"{base.name} served layer 0's dA and dBu "
+                          f"({shape}, final state)", n, r))
+            del dA, dBu, C, y, h
         del params, runs, cu, pl, kept
         torch.cuda.empty_cache()
     # the launch command, as a user runs it, on the card
@@ -2711,9 +2861,8 @@ def main(argv=None) -> int:
                 "launches_decide": decide_launches[f"glue_{step}"]})
               for step in GLUE_STEPS]
     cases += carousel_phase(torch)
-    for name, phase in (("flash_attention", attention_phase),
-                        ("mamba_scan", mamba_phase)):
-        cases += [(name, *c) for c in phase(torch)]
+    cases += [("flash_attention", *c) for c in attention_phase(torch)]
+    cases += mamba_phase(torch)
     cases += served
 
     kernels = [dict(name=name, case=case, route="cuda",
@@ -2724,6 +2873,8 @@ def main(argv=None) -> int:
                         "bound_by", "library_ms")},
                     **{k: r[k] for k in (
                         "variant", "loader", "device_us", "graph_ms",
+                        "operations_per_state_step",
+                        "instructions_per_state_step",
                         "bound_ms_without_rank", "bound_ms_simt",
                         "copy_device_us", "library_device_us",
                         "wall_us", "idle_share",

@@ -198,6 +198,81 @@ def ptxas_warnings(name: str) -> list:
             if "warning" in line.lower()]
 
 
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (built first if needed), as the
+    toolkit's ``cuobjdump -sass`` prints it (beside ``nvcc``)."""
+    build([name])
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def sass_functions(text: str) -> Dict[str, list]:
+    """``{kernel: [(address, opcode) or label]}`` of ``cuobjdump -sass``
+    output: each ``Function :`` section's instructions in order (the opcode
+    with its modifiers, the predicate dropped; a branch's target kept as
+    ``"BRA <target>"``) and its labels (``.L_x_<n>``), under the kernel's
+    name as :func:`_kernel_name` gives it."""
+    funcs: Dict[str, list] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            cur = funcs.setdefault(_kernel_name(m.group(1)), [])
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m:
+            ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            op = ins.split()[0] if ins else ""
+            if op.startswith("BRA"):
+                t = re.search(r"(\.L_x_\d+|0x[0-9a-f]+)", ins)
+                op = f"BRA {t.group(1) if t else ''}"
+            cur.append((int(m.group(1), 16), op))
+    return funcs
+
+
+def hot_loop(code: list, marker: str) -> Dict[str, int]:
+    """Opcode counts of the innermost loop of ``code``
+    (:func:`sass_functions`' list) that holds the most ``marker``
+    instructions: a loop is the instructions from a backward branch's
+    target to the branch, and an innermost one holds no other loop that
+    holds ``marker``. Empty where no loop holds ``marker``."""
+    where: Dict[str, int] = {}
+    ins = []
+    for item in code:
+        if isinstance(item, str):
+            where[item] = len(ins)
+        else:
+            where[f"0x{item[0]:x}"] = len(ins)
+            ins.append(item[1])
+    loops = []
+    for i, op in enumerate(ins):
+        if not op.startswith("BRA "):
+            continue
+        key = op[4:]
+        if key.startswith("0x"):
+            key = f"0x{int(key, 16):x}"
+        j = where.get(key)
+        if j is not None and j <= i and marker in ins[j:i + 1]:
+            loops.append((j, i))
+    inner = [(j, i) for j, i in loops
+             if not any((j, i) != (a, b) and j <= a and b <= i
+                        for a, b in loops)]
+    best = max(inner, key=lambda r: (ins[r[0]:r[1] + 1].count(marker),
+                                     r[0] - r[1]), default=None)
+    counts: Dict[str, int] = {}
+    for op in ins[best[0]:best[1] + 1] if best else ():
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     lib = _LOADED.get(name)

@@ -9,11 +9,25 @@ state against ``repro.models.ssm.ssm_scan_y``), and ``chip_smoke.py``
 holds the kernel against it on the card. PyTorch has no associative
 scan, so this walks T in order; the reference combines in a tree, so the
 two round differently (the tests' bar is 1e-4).
+
+:func:`scan_inputs` forms dA and dBu from the recurrence's own inputs
+(``repro.models.ssm._ssm_inputs``' last three lines, which the port's
+``models.ssm`` calls here); :func:`selective_scan`, the plain version of
+the kernel's fused entry, is it followed by :func:`mamba_scan`.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def scan_inputs(u, dt, A, Bm):
+    """``u [B, T, D]``, ``dt [B, T, D] float32``, ``A [D, N] float32``,
+    ``Bm [B, T, N]`` -> ``dA = exp(dt A)`` and ``dBu = (dt u) B``, both
+    ``[B, T, D, N] float32``."""
+    dA = torch.exp(dt[..., None] * A)
+    dBu = (dt * u.float())[..., None] * Bm.float()[..., None, :]
+    return dA, dBu
 
 
 def mamba_scan(dA, dBu, C, return_state: bool = False):
@@ -27,3 +41,11 @@ def mamba_scan(dA, dBu, C, return_state: bool = False):
         h = dA[:, t] * h + dBu[:, t]
         y[:, t] = (h * C[:, t, None, :]).sum(-1)
     return (y, h) if return_state else y
+
+
+def selective_scan(u, dt, A, Bm, Cm, return_state: bool = False):
+    """The scan of :func:`scan_inputs`' dA and dBu against ``Cm [B, T,
+    N]``: ``y [B, T, D] float32``, or ``(y, h [B, D, N])`` with
+    ``return_state``."""
+    dA, dBu = scan_inputs(u, dt, A, Bm)
+    return mamba_scan(dA, dBu, Cm.float(), return_state=return_state)

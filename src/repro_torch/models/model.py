@@ -11,7 +11,7 @@ full-length caches (``repro`` does this for sliding-window archs and
 scans stacked caches for the others).
 
 Prefill runs each layer's attention through the attention kernel and its
-SSM through the Mamba-scan kernel (``impl``: ``"auto"``, ``"cuda"`` or
+SSM through the Mamba-scan kernel's fused entry, ``selective_scan`` (``impl``: ``"auto"``, ``"cuda"`` or
 ``"torch"``, as ``repro_torch.kernels.registry`` says), decode in plain
 PyTorch, as ``repro``'s does. Families ``moe``, ``vlm`` and ``audio`` and
 enc-dec backbones are not ported: they raise ``NotImplementedError``.

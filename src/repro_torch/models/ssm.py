@@ -6,12 +6,14 @@ x -> (dt_low, B, C); dt = softplus(dt_proj(dt_low)); A = -exp(A_log);
 recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t; y_t = C_t . h_t + D x_t;
 out = (y * silu(z)) @ out_proj.
 
-The recurrence over the prompt runs in ``repro_torch.kernels.mamba_scan``
-(the hand-written Hopper kernel on the card, its plain version on the CPU
-or with ``impl="torch"``), which also returns the final state that
-prefill keeps as the cache (what ``repro``'s ``ssm_scan_y`` returns beside
-y). Decode keeps h as explicit state ([B, d_inner, N]) and applies one
-recurrence step in plain PyTorch, as ``repro`` does.
+The recurrence over the prompt runs in
+``repro_torch.kernels.mamba_scan.selective_scan`` (the hand-written Hopper
+kernel on the card, which forms dA and dBu in registers from dt, A, B and
+u; its plain version on the CPU or with ``impl="torch"``), which also
+returns the final state that prefill keeps as the cache (what ``repro``'s
+``ssm_scan_y`` returns beside y). Decode keeps h as explicit state ([B,
+d_inner, N]) and applies one recurrence step in plain PyTorch, as
+``repro`` does, on dA and dBu from ``mamba_scan.ref.scan_inputs``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import selective_scan
+from repro_torch.kernels.mamba_scan.ref import scan_inputs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import dense_init
 
@@ -56,15 +59,21 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return out + b
 
 
-def _ssm_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor):
-    """u: [B, T, di] (post conv+silu). Returns dA [B,T,di,N] decay, dBu, C."""
+def _scan_params(p: Params, cfg: ModelConfig, u: torch.Tensor):
+    """u: [B, T, di] (post conv+silu). Returns dt [B, T, di] f32, A [di, N]
+    f32 and B, C [B, T, N] (column slices of the projection, u's type)."""
     n = cfg.ssm_state
     dbc = u @ p["x_proj"]
     dt_low, Bm, Cm = torch.split(dbc, [cfg.dtr, n, n], dim=-1)
     dt = F.softplus((dt_low @ p["dt_proj_w"]).float() + p["dt_proj_b"])  # [B, T, di] f32
     A = -torch.exp(p["A_log"])  # [di, N] f32
-    dA = torch.exp(dt[..., None] * A)  # [B, T, di, N]
-    dBu = (dt * u.float())[..., None] * Bm.float()[..., None, :]
+    return dt, A, Bm, Cm
+
+
+def _ssm_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor):
+    """u: [B, T, di] (post conv+silu). Returns dA [B,T,di,N] decay, dBu, C."""
+    dt, A, Bm, Cm = _scan_params(p, cfg, u)
+    dA, dBu = scan_inputs(u, dt, A, Bm)
     return dA, dBu, Cm
 
 
@@ -73,9 +82,9 @@ def gated_scan(u: torch.Tensor, z: torch.Tensor, p: Params, cfg: ModelConfig,
     """The block from the conv's output on: ``u`` [B, T, di] (post
     conv+silu), ``z`` the gate. Returns the gated ``y`` [B, T, di] in
     ``dtype`` and the final state ``h`` [B, di, N] (float32)."""
-    dA, dBu, Cm = _ssm_inputs(p, cfg, u)
-    y, h = mamba_scan(dA, dBu, Cm.float().contiguous(), return_state=True,
-                      impl=impl)
+    dt, A, Bm, Cm = _scan_params(p, cfg, u)
+    y, h = selective_scan(u.contiguous(), dt, A, Bm, Cm, return_state=True,
+                          impl=impl)
     y = y + p["D"] * u.float()
     return (y * F.silu(z.float())).to(dtype), h
 

@@ -136,9 +136,22 @@ def test_wgmma_entry_points_are_declared():
 
 
 def test_scan_entry_point_is_declared():
-    """The scan's entry point: dA, dBu, C and y, the four sizes, then the
-    final state's pointer (null: none written) and the stream."""
+    """The scan's entry point: dA, dBu, C and y, the four sizes, the
+    launch geometry (warps a block, steps a ring stage), then the final
+    state's pointer (null: none written) and the stream."""
     entry = c_entry_points(_build.SOURCES["mamba_scan"])
     P, I = ctypes.c_void_p, ctypes.c_int
-    assert entry["ms_scan"] == ([P] * 4 + [I] * 4 + [P, P], I)
+    assert entry["ms_scan"] == ([P] * 4 + [I] * 6 + [P, P], I)
     assert ms_ops._SIGNATURES["ms_scan"] == entry["ms_scan"]
+
+
+def test_selective_scan_entry_point_is_declared():
+    """The fused entry: u, dt, A, B, C and y, the four sizes, B's and C's
+    batch and row strides (64-bit), the bf16 flag and the launch geometry,
+    then the final state's pointer and the stream."""
+    entry = c_entry_points(_build.SOURCES["mamba_scan"])
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert entry["ms_selective_scan"] == (
+        [P] * 6 + [I] * 4 + [LL] * 4 + [I] * 3 + [P, P], I)
+    assert ms_ops._SIGNATURES["ms_selective_scan"] == \
+        entry["ms_selective_scan"]

@@ -33,7 +33,8 @@ and, in bfloat16, the loader its width needs (TMA at a multiple of 8,
 else the producer's threads), and the wgmma kernel's pieces with each
 loader and the tf32x3 kernel's bitwise on integer inputs; the
 Mamba scan and its final state at 1e-4 (the sum over the state runs in
-another order); the execution layer on the ``cuda`` sweep: lane chunks,
+another order), from dA and dBu and from u, dt, A, B and C (the fused
+entry, bf16 inputs widened, B and C strided); the execution layer on the ``cuda`` sweep: lane chunks,
 a device list, retryable chunk jobs under injected faults and a fleet of
 two worker processes, each bitwise to the unchunked run, and series
 capture with the replayed tick's series bitwise to the eager tick's and
@@ -1307,4 +1308,46 @@ def test_cuda_mamba_scan_final_state(cuda_device, B, T, D, N):
     assert h.shape == (B, D, N) and h.dtype == torch.float32
     torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, y_only)
+
+
+def _selective_inputs(B, T, D, N, dtype, dtr, seed, device):
+    """u, dt (a softplus of seeded values), A = -(1..N) on every row, and
+    B and C as column slices of one seeded ``[B, T, dtr + 2N]`` projection
+    (as ``models.ssm`` takes them, at the offset ``dtr``)."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(B, T, D, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, T, D, generator=g) - 2)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(D, 1)
+    dbc = torch.randn(B, T, dtr + 2 * N, generator=g).to(dtype)
+    u, dt, A, dbc = (t.to(device) for t in (u, dt, A, dbc))
+    return u, dt, A, dbc[..., dtr:dtr + N], dbc[..., dtr + N:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N,dtype,dtr", [
+    (2, 300, 130, 16, torch.bfloat16, 100),  # hymba's offset, ragged D
+    (1, 1001, 64, 5, torch.float32, 7),
+    (3, 7, 33, 32, torch.bfloat16, 3),   # B and C at an odd bf16 offset
+    (1, 1, 8, 1, torch.bfloat16, 1),     # one step, one state
+    (2, 65, 200, 16, torch.float32, 0),
+    (1, 257, 1000, 16, torch.bfloat16, 256),
+], ids=str)
+def test_cuda_selective_scan_matches_plain(cuda_device, B, T, D, N, dtype,
+                                           dtr):
+    """The fused entry (dA and dBu formed in the kernel from u, dt, A and
+    the strided B) against its plain version at 1e-4, with its final state
+    and without; one launch each, y the same either way."""
+    args = _selective_inputs(B, T, D, N, dtype, dtr, B * T + N, cuda_device)
+    before = ms_ops.launch_counts()
+    y, h = ms_ops.selective_scan(*args, return_state=True)
+    y_only = ms_ops.selective_scan(*args)
+    want_y, want_h = ms_ref.selective_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    after = ms_ops.launch_counts()
+    assert after["selective_scan"] == before["selective_scan"] + 2
+    assert after["mamba_scan"] == before["mamba_scan"]
+    assert h.shape == (B, D, N) and h.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
     assert torch.equal(y, y_only)
