@@ -33,6 +33,31 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    bytes and the peak device memory, each beside the card; then ``python
    -m repro_torch.launch.serve --arch hymba-1.5b`` as a subprocess (exit
    0, its tok/s line);
+   then the family serve phase (``FAMILY_SERVE``): olmoe_1b_7b (MoE, 64
+   experts top-8), phi_3_vision_4_2b (256 seeded patch embeddings ahead
+   of the text, hd 96) and seamless_m4t_large_v2 (the encoder over seeded
+   frames, cross-attention) at their published widths and depth, and
+   arctic_480b (MoE, 128 experts top-2 with its dense residual MLP, a GQA
+   group of 7) at its published widths cut to 1 of its 35 layers (the
+   model does not fit one card), each in bf16 from a seeded generator on
+   the card: one wave of 4 seeded prompts (left-padded to the longest)
+   through ``prefill`` and 16 greedy ``decode_step``s, once through the
+   attention kernel and once through the plain versions, that run fed the
+   kernel run's tokens and, at each MoE layer, dispatching the kernel
+   run's expert choices (where its own router would choose otherwise is
+   counted: the share of (token, layer) top-k sets that differ, printed,
+   as is the prefill's dropped share at capacity factor 1.25; decode is
+   dropless); ``flash_attention`` launched once an attention call
+   (decoder layers, and for seamless the 24 encoder layers, bidirectional,
+   and 24 cross-attentions, T decoder queries against S frames), the scan
+   never; the prefill logits of the two runs within ``SERVE_LOGIT_BARS``;
+   the inputs the served prefill gave layer 0's attention (seamless also
+   encoder layer 0 and cross-attention 0) held to the plain version at the
+   kernel bars and timed beside SDPA and the bound; prefill ms, decode ms a
+   step, tokens/s, the weights' bytes and the peak device memory (the
+   draw's too), each config's wall seconds, each beside the card; then
+   ``python -m repro_torch.launch.serve`` for olmoe-1b-7b and
+   phi-3-vision-4.2b as subprocesses (exit 0, their tok/s lines);
 3. kernel phase: each hand-written kernel against its plain PyTorch version
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
    files; both candidate windows of a tick, the grid's K and W = 4, in
@@ -196,7 +221,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     names it; the serve phase adds bf16 and float32 attention at served
     layer 1 and ``selective_scan`` at served layer 0, each with its 64
     launches on the served path, and ``mamba_scan`` on that layer's dA and
-    dBu with its 1), each with its launches on its own path (counts
+    dBu with its 1; the family serve phase bf16 attention at olmoe's and
+    phi_3_vision's layer 0, seamless's encoder layer 0 and cross-attention
+    0 and arctic's layer 0, each with its config's launches), each with its launches on its own path (counts
     reset just before the path runs, read just after each case; the
     lane-tick and glue entries also with ``launches_decide``, their
     launches in the cold decide run); the glue kernels,
@@ -2049,12 +2076,14 @@ def sdpa(torch, q, k, v, causal: bool, window: int):
     import torch.nn.functional as F
 
     T, S = q.shape[2], k.shape[2]
+    gqa = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
+    if not causal and window == 0:  # no mask: SDPA's flash backend
+        return lambda: F.scaled_dot_product_attention(q, k, v, **gqa)
     rel = (torch.arange(T, device=q.device)[:, None]
            - torch.arange(S, device=q.device)[None, :])
     mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
     if window > 0:
         mask &= rel < window
-    gqa = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
     if causal and window == 0:
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                       **gqa)
@@ -2410,8 +2439,8 @@ def serve_requests(torch, vocab: int):
 @contextlib.contextmanager
 def served_kernel_inputs(keep: dict):
     """Keep the arguments of the model's kernel calls whose index (in call
-    order, one call a layer in a prefill) is in ``keep``, while the calls
-    go on to the kernels as before."""
+    order, one call a layer in a prefill) is in ``keep`` (a kernel it does
+    not name: none), while the calls go on to the kernels as before."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
 
@@ -2422,7 +2451,7 @@ def served_kernel_inputs(keep: dict):
 
     def recorder(name):
         def call(*args, **kw):
-            if calls[name] in keep[name]:
+            if calls[name] in keep.get(name, ()):
                 kept[name][calls[name]] = (args, kw)
             calls[name] += 1
             return orig[name](*args, **kw)
@@ -2698,6 +2727,336 @@ def serve_phase(torch, card: str):
         del params, runs, cu, pl, kept
         torch.cuda.empty_cache()
     # the launch command, as a user runs it, on the card
+    launch_serve("hymba-1.5b", card)
+    log(f"serve phase: {time.perf_counter() - t_phase:.2f} s")
+    return cases
+
+
+#: The family serve phase, after hymba: (arch, decoder layers kept, None
+#: for all; prompt tokens, lowest and highest; encoder frames, lowest and
+#: highest, for the enc-dec config). Published widths; arctic_480b's depth
+#: cut from 35 layers to 1 (28.1 GB of bf16 weights a layer's worth of
+#: experts and the rest; the whole model is some 960 GB). One wave of
+#: FAMILY_SLOTS prompts, then FAMILY_DECODE greedy decode steps.
+FAMILY_SERVE = (
+    ("olmoe_1b_7b", None, (768, 1024), None),
+    ("phi_3_vision_4_2b", None, (512, 768), None),
+    ("seamless_m4t_large_v2", None, (64, 128), (1024, 1536)),
+    ("arctic_480b", 1, (256, 384), None),
+)
+FAMILY_SLOTS, FAMILY_DECODE = 4, 16
+
+
+def family_batch(torch, cfg, prompt, frames, seed: int):
+    """One wave: FAMILY_SLOTS seeded prompts of ``prompt`` tokens (the
+    first the longest), left-padded with token 0 as ``ServeLoop`` pads;
+    the vision stub's patch embeddings or the audio stub's frames drawn
+    by ``models.multimodal`` on the card. Returns (batch, prefix tokens)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import multimodal
+
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = prompt
+    lens = torch.randint(lo, hi + 1, (FAMILY_SLOTS,), generator=gen)
+    lens[0] = hi
+    toks = torch.stack([F.pad(torch.randint(0, cfg.vocab_size, (int(n),),
+                                            generator=gen), (hi - int(n), 0))
+                        for n in lens]).cuda()
+    batch = {"tokens": toks}
+    dev_gen = torch.Generator(device="cuda").manual_seed(seed)
+    fe = 0
+    if cfg.frontend == "vision":
+        batch["frontend"] = multimodal.synthetic_frontend(cfg, dev_gen,
+                                                          FAMILY_SLOTS)
+        fe = cfg.frontend_tokens
+    if cfg.is_enc_dec:
+        n = int(torch.randint(frames[0], frames[1] + 1, (1,), generator=gen))
+        batch["enc_input"] = multimodal.synthetic_frames(cfg, dev_gen,
+                                                         FAMILY_SLOTS, n)
+    return batch, fe
+
+
+@contextlib.contextmanager
+def moe_routes(force=None):
+    """Record each MoE layer call's routing in call order: the router's
+    own top-k experts (``own``), the capacity and the slots
+    (``p_sel``). With ``force`` (an earlier run's record) each call
+    dispatches that run's experts instead of its own, with gates from its
+    own probabilities at them (``router_topk``'s renormalisation): the
+    plain run then follows the kernel run's routing, and each (token,
+    layer) where its own router would choose otherwise shows in ``own``."""
+    from repro_torch.models import moe as moe_mod
+
+    orig_router, orig_dispatch = moe_mod.router_topk, moe_mod.moe_dispatch
+    rec = []
+
+    def router(logits, k):
+        gates, idx, aux = orig_router(logits, k)
+        rec.append({"own": idx})
+        if force is not None:
+            idx = force[len(rec) - 1]["own"]
+            gates = logits.float().softmax(-1).gather(-1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return gates, idx, aux
+
+    def dispatch(x, idx, capacity, n_experts):
+        out = orig_dispatch(x, idx, capacity, n_experts)
+        rec[-1].update(capacity=capacity, p_sel=out[2])
+        return out
+
+    moe_mod.router_topk, moe_mod.moe_dispatch = router, dispatch
+    try:
+        yield rec
+    finally:
+        moe_mod.router_topk, moe_mod.moe_dispatch = orig_router, orig_dispatch
+
+
+def family_run(torch, cfg, params, batch, fe: int, impl: str, keep=None,
+               feed=None, force=None):
+    """``prefill`` then FAMILY_DECODE greedy ``decode_step``s through the
+    model's entry points with ``impl``, each step timed by CUDA events;
+    ``feed`` (an earlier run's tokens) is fed to decode in place of this
+    run's own picks, ``force`` routes its MoE layers (:func:`moe_routes`).
+    Both kernels' launch counts set to 0 just before and read just after;
+    the peak device memory of the run."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    T = batch["tokens"].shape[1]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(stop)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launch_counts()
+    ms_ops.reset_launch_counts()
+    rec = {"decode_ms": [], "picks": [], "decode_logits": []}
+    with served_kernel_inputs(keep or {}) as kept, moe_routes(force) as routes:
+        t0 = time.perf_counter()
+        cache = init_cache(cfg, FAMILY_SLOTS, fe + T + FAMILY_DECODE)
+        (logits, cache), rec["prefill_ms"] = timed(
+            lambda: prefill(cfg, params, batch, cache, impl=impl))
+        rec["logits"] = logits.float()
+        for i in range(FAMILY_DECODE):
+            pick = logits.argmax(-1)[:, None]
+            rec["picks"].append(pick)
+            cur = pick if feed is None else feed[i]
+            (logits, cache), ms = timed(
+                lambda: decode_step(cfg, params, cur, cache, fe + T + i))
+            rec["decode_ms"].append(ms)
+            rec["decode_logits"].append(logits.float())
+        rec["picks"].append(logits.argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        rec["wall"] = time.perf_counter() - t0
+    rec.update(kept=kept, routes=routes,
+               launches={**fa_ops.launch_counts(), **ms_ops.launch_counts()},
+               peak=torch.cuda.max_memory_allocated())
+    del cache
+    return rec
+
+
+def routing_numbers(cu, pl, n_layers: int) -> dict:
+    """The prefill's dropped share (assignments in the dead column) in
+    the kernel run, decode's dropped assignments, and the share of
+    (token, layer) top-k sets of the plain run's own router that differ
+    from the kernel run's, in prefill and in decode (the plain run
+    dispatched the kernel run's choices)."""
+    def share(calls, key):
+        diff = total = 0
+        for a, b in calls:
+            if key == "dropped":
+                diff += int((a["p_sel"] == a["capacity"]).sum())
+                total += a["p_sel"].numel()
+            else:
+                ne = (a["own"].sort(-1).values != b["own"].sort(-1).values)
+                diff += int(ne.any(-1).sum())
+                total += ne.shape[0]
+        return diff, total
+
+    pre = list(zip(cu["routes"][:n_layers], pl["routes"][:n_layers]))
+    dec = list(zip(cu["routes"][n_layers:], pl["routes"][n_layers:]))
+    return {"prefill_dropped": share(pre, "dropped"),
+            "by_layer": [round(d / n, 4) for d, n in
+                         (share([c], "dropped") for c in pre)],
+            "decode_dropped": share(dec, "dropped"),
+            "prefill_differ": share(pre, "own"),
+            "decode_differ": share(dec, "own"),
+            "capacity": cu["routes"][0]["capacity"]}
+
+
+def family_serve_phase(torch, card: str):
+    """The new families served at full width (see the module notes and
+    ``FAMILY_SERVE``). Returns the kernels line's cases: bf16 attention on
+    each config's kept calls, with the config's launches on the served
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_cache, init_params, prefill
+
+    t_phase = time.perf_counter()
+    cases = []
+    bar = SERVE_LOGIT_BARS["bfloat16"]
+    for n, (arch, depth, prompt, frames) in enumerate(FAMILY_SERVE):
+        t_cfg = time.perf_counter()
+        base = get_config(arch)
+        cfg = base.replace(dtype=torch.bfloat16)
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        enc = cfg.encoder_layers
+        n_attn = cfg.n_layers + 2 * enc  # self, and encoder and cross
+        # the kept calls (an enc-dec prefill calls the encoder's layers
+        # first, then self- and cross-attention a decoder layer)
+        names = ({0: "encoder layer 0 (bidirectional)",
+                  enc: "layer 0 self-attention",
+                  enc + 1: "cross-attention 0 (T decoder queries against "
+                           "S frames)"} if enc else {0: "layer 0"})
+        keep = {"flash_attention": tuple(names)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(3030 + n), "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        weights = tree_bytes(params)
+        batch, fe = family_batch(torch, cfg, prompt, frames, 3030 + n)
+        T = batch["tokens"].shape[1]
+        shape = (f"{FAMILY_SLOTS} slots x {fe + T} positions"
+                 + (f" ({fe} patch embeddings + {T} tokens)" if fe else "")
+                 + (f", {batch['enc_input'].shape[1]} encoder frames of "
+                    f"{cfg.frontend_dim}" if enc else ""))
+        cut = ("" if depth is None else
+               f"; depth cut from {base.n_layers} layers to {depth} (the "
+               f"model does not fit one card)")
+        log(f"family serve: {cfg.name} ({cfg.family}; {cfg.n_layers} "
+            f"layer{'s' if cfg.n_layers > 1 else ''}"
+            f"{f' + {enc} encoder layers' if enc else ''}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
+            f"hd {cfg.hd}, d_ff {cfg.d_ff}"
+            + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+               + (f", dense residual {cfg.moe_dense_ff}"
+                  if cfg.moe_dense_ff else "") if cfg.n_experts else "")
+            + f", vocab {cfg.vocab_size}{cut}); {cfg.param_count() / 1e9:.3f}"
+              f" B parameters, weights {weights / 1e9:.3f} GB bf16, drawn "
+              f"in {init_s:.2f} s at a peak of {init_peak / 1e9:.3f} GB; "
+              f"{shape}, {FAMILY_DECODE} decode steps [{card}]")
+        # a process's first prefill of a config pays one-off costs (the
+        # products' first shapes, lazy module loads): time it apart
+        cold = {}
+        for impl in ("cuda", "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(cfg, params, batch, init_cache(
+                cfg, FAMILY_SLOTS, fe + batch["tokens"].shape[1]), impl=impl)
+            torch.cuda.synchronize()
+            cold[impl] = 1e3 * (time.perf_counter() - t0)
+        log(f"family serve {cfg.name}: first prefill {cold['cuda']:.2f} ms "
+            f"(kernels), {cold['torch']:.2f} ms (plain), apart from the runs "
+            f"below "
+            f"[{card}]")
+        cu = family_run(torch, cfg, params, batch, fe, "cuda", keep=keep)
+        pl = family_run(torch, cfg, params, batch, fe, "torch",
+                        feed=cu["picks"],
+                        force=cu["routes"] if cfg.n_experts else None)
+        for name, r in (("cuda", cu), ("torch", pl)):
+            toks = FAMILY_SLOTS * (1 + FAMILY_DECODE)
+            log(f"family serve {cfg.name} {name}: {r['wall']:.2f} s wall, "
+                f"{toks} tokens, {toks / r['wall']:.1f} tok/s; prefill "
+                f"{r['prefill_ms']:.2f} ms, decode ms a step mean "
+                f"{np.mean(r['decode_ms']):.3f} (min {min(r['decode_ms']):.3f},"
+                f" max {max(r['decode_ms']):.3f}); launches "
+                f"flash_attention {r['launches']['flash_attention']} "
+                f"selective_scan {r['launches']['selective_scan']} "
+                f"mamba_scan {r['launches']['mamba_scan']}; peak device "
+                f"memory {r['peak'] / 1e9:.3f} GB [{card}]")
+            check(bool(torch.isfinite(r["logits"]).all())
+                  and all(bool(torch.isfinite(x).all())
+                          for x in r["decode_logits"]),
+                  f"family serve {cfg.name} {name}: non-finite logits")
+        route = fa_ops._route(cfg.dtype, cfg.hd)
+        for key, want in (("flash_attention", n_attn),
+                          (f"flash_attention_{route}", n_attn),
+                          ("selective_scan", 0), ("mamba_scan", 0)):
+            check(cu["launches"][key] == want,
+                  f"family serve {cfg.name}: {key} launched "
+                  f"{cu['launches'][key]} times, not {want} (one an "
+                  f"attention call of the prefill, none in decode)")
+            check(pl["launches"][key] == 0,
+                  f"family serve {cfg.name}: the plain run launched {key}")
+        diff = float((cu["logits"] - pl["logits"]).abs().max())
+        dec = max(float((a - b).abs().max())
+                  for a, b in zip(cu["decode_logits"], pl["decode_logits"]))
+        same = sum(int((a == b).sum()) for a, b in zip(cu["picks"],
+                                                         pl["picks"]))
+        total = FAMILY_SLOTS * len(cu["picks"])
+        top = float(pl["logits"].abs().max())
+        msg = (f"family serve {cfg.name}: prefill logits kernels vs plain "
+               f"max abs diff {diff:.6g} (bar {bar}; largest |logit| "
+               f"{top:.4g}); decode logits {dec:.6g} (the plain run fed the "
+               f"kernel run's tokens); greedy picks equal {same} of {total}")
+        if cfg.n_experts:
+            rt = routing_numbers(cu, pl, cfg.n_layers)
+            d_pre, n_pre = rt["prefill_dropped"]
+            d_dec, n_dec = rt["decode_dropped"]
+            f_pre, t_pre = rt["prefill_differ"]
+            f_dec, t_dec = rt["decode_differ"]
+            msg += (f"; MoE capacity {rt['capacity']} a prefill expert (factor "
+                    f"{cfg.capacity_factor}), prefill dropped {d_pre} of "
+                    f"{n_pre} assignments ({d_pre / n_pre:.4f}; by layer "
+                    f"{rt['by_layer']}), decode "
+                    f"dropped {d_dec} of {n_dec}; (token, layer) top-k sets "
+                    f"of the plain run's own router that differ from the "
+                    f"kernel run's: prefill {f_pre} of {t_pre} "
+                    f"({f_pre / t_pre:.6f}), decode {f_dec} of {t_dec} "
+                    f"({f_dec / max(t_dec, 1):.6f}); the plain run "
+                    f"dispatched the kernel run's")
+            check(d_dec == 0, f"family serve {cfg.name}: decode dropped "
+                              f"{d_dec} assignments")
+        log(msg)
+        check(diff <= bar, f"family serve {cfg.name}: prefill logits {diff} "
+                           f"from the plain path")
+        # the served prefill's own attention inputs against the plain
+        # version, timed beside SDPA and the bound
+        kept = cu["kept"]["flash_attention"]
+        check(set(kept) == set(keep["flash_attention"]),
+              f"family serve {cfg.name}: kernel inputs not kept")
+        loader = fa_ops._loader(cfg.hd)
+        for i in keep["flash_attention"]:
+            (q, k, v), kw = kept[i]
+            kw = {key: kw[key] for key in ("causal", "window")}
+            out = fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
+            label = f"{cfg.name} served {names[i]}"
+            r = attention_numbers(torch, label, q, k, v, kw, out, route,
+                                  loader)
+            cases.append(("flash_attention",
+                          f"{label} (B {q.shape[0]} nh {q.shape[1]} nkv "
+                          f"{k.shape[1]} hd {q.shape[3]} T {q.shape[2]} S "
+                          f"{k.shape[2]} bf16 causal {kw['causal']}{cut})",
+                          cu["launches"]["flash_attention"], r))
+        del params, cu, pl, kept, batch
+        torch.cuda.empty_cache()
+        log(f"family serve {cfg.name}: {time.perf_counter() - t_cfg:.2f} s "
+            f"wall [{card}]")
+    # the launch command, as a user runs it, on the card
+    for arch in ("olmoe-1b-7b", "phi-3-vision-4.2b"):
+        launch_serve(arch, card)
+    log(f"family serve phase: {time.perf_counter() - t_phase:.2f} s")
+    return cases
+
+
+def launch_serve(arch: str, card: str) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch>`` as a
+    subprocess, as a user runs it: exit 0 and its tok/s line."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2705,18 +3064,16 @@ def serve_phase(torch, card: str):
                                else []))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--arch", "hymba-1.5b"], cwd=ROOT, env=env,
+                           "--arch", arch], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-    log(f"serve launch: python -m repro_torch.launch.serve --arch hymba-1.5b:"
+    log(f"serve launch: python -m repro_torch.launch.serve --arch {arch}:"
         f" exit {proc.returncode}, {time.perf_counter() - t0:.2f} s wall: "
         f"{line} [{card}]")
     if proc.returncode != 0:
         log(proc.stderr[-6000:])
     check(proc.returncode == 0 and "tok/s" in line,
-          "serve launch: the command failed or printed no tok/s line")
-    log(f"serve phase: {time.perf_counter() - t_phase:.2f} s")
-    return cases
+          f"serve launch {arch}: the command failed or printed no tok/s line")
 
 
 def main(argv=None) -> int:
@@ -2762,6 +3119,7 @@ def main(argv=None) -> int:
 
     served = serve_phase(torch, card)
     torch.cuda.empty_cache()  # the phase's weights and activations
+    served += family_serve_phase(torch, card)
 
     days, n_files = args.days, 1_000_000
     specs = pricing_specs(days, n_files)

@@ -4,7 +4,7 @@
 One module per assigned architecture with the exact published config, plus
 ``smoke_config()`` — a reduced same-family config for CPU tests. The data
 is ``repro``'s (``tests/test_torch_models.py`` holds every field equal);
-the port serves the ``dense``, ``ssm`` and ``hybrid`` ones.
+the port serves all ten.
 """
 
 from __future__ import annotations

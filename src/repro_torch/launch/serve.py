@@ -6,7 +6,10 @@ port's counterpart of ``repro.launch.serve``.
 Serves the arch's smoke config with random weights (a generator seeded 0)
 and random 16-token prompts (request ``i`` from a generator seeded ``i``)
 on the CUDA device, through the attention and Mamba-scan kernels;
-``--device cpu`` runs the plain PyTorch path on the CPU.
+``--device cpu`` runs the plain PyTorch path on the CPU. Every decoder
+arch serves (a vision one on its text alone, as ``ServeLoop`` feeds tokens
+only); the enc-dec one (seamless-m4t) needs encoder frames, which
+``ServeLoop`` has no place for, and exits with its ``ValueError``.
 """
 
 from __future__ import annotations

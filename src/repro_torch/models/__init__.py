@@ -1,12 +1,12 @@
 """Model zoo for serving, the port's counterpart of ``repro.models``.
 
-Families dense (command-r, qwen3, gemma3, mistral-large), SSM
-(falcon-mamba) and hybrid attn+SSM (hymba) built from one config.
+Families dense (command-r, qwen3, gemma3, mistral-large), MoE (olmoe,
+arctic), SSM (falcon-mamba), hybrid attn+SSM (hymba), vision (phi-3-vision)
+and the enc-dec audio backbone (seamless-m4t) built from one config.
 Functional style: ``init_params(cfg, generator, device)`` -> dictionary of
 tensors, ``forward(cfg, params, batch)`` -> logits, plus prefill/decode
 entry points with per-layer KV/SSM caches. Prefill runs the port's
-attention and Mamba-scan kernels. MoE, the vision and audio front ends,
-enc-dec backbones and training are not ported.
+attention and Mamba-scan kernels. Training is not ported.
 """
 
 from repro_torch.models.config import ModelConfig

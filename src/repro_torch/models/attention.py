@@ -13,9 +13,16 @@ config that sets one raises in prefill. Decode
 (:func:`decode_attention`) attends one query position against a length-S
 cache, ring-buffered for local layers, as ``repro`` does.
 
+Cross-attention (enc-dec) reads keys and values projected once from the
+encoder's output (:func:`encode_cross_kv`, no RoPE): with T decoder
+queries against S encoder keys and no mask, through the attention kernel
+in prefill (:func:`cross_attention`), in plain PyTorch for decode's one
+query (:func:`decode_cross_attention`). The encoder's self-attention is
+:func:`attention` with ``causal=False``.
+
 Layouts are ``repro``'s at every function: activations ``[B, T, heads,
 hd]``, ``wq`` ``[d, nh, hd]``, ``wo`` ``[nh, hd, d]``, caches ``[B, S, nkv,
-hd]``. Cross-attention (enc-dec) is not ported.
+hd]``.
 """
 
 from __future__ import annotations
@@ -78,27 +85,28 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def attention_core(p: Params, cfg: ModelConfig, q, k, v,
                    window: Optional[int] = None,
-                   impl: str = "auto") -> torch.Tensor:
-    """Causal attention from projected q/k/v ([B, T, h, hd], positions
-    0..T-1); returns [B, T, d]. ``window`` None or 0: every earlier key;
-    else keys less than ``window`` positions back. The heads go to
+                   impl: str = "auto", causal: bool = True) -> torch.Tensor:
+    """Attention from projected q ([B, T, h, hd], positions 0..T-1) and
+    k/v ([B, S, nkv, hd]); returns [B, T, d]. ``causal``: query t sees
+    keys up to t (``window`` None or 0: every earlier key; else keys less
+    than ``window`` positions back); else every key. The heads go to
     ``flash_attention`` as ``[B, h, T, hd]`` contiguous (``impl`` picks
     the kernel or its plain version, ``kernels.registry``)."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
             "attn_logit_softcap: the attention kernel has no logit softcap")
     out = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
-                          causal=True, window=int(window or 0), impl=impl)
+                          causal=causal, window=int(window or 0), impl=impl)
     return _out_proj(out.transpose(1, 2), p["wo"])
 
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, window: Optional[int] = None,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto", causal: bool = True) -> torch.Tensor:
     """Prefill attention. x: [B, T, d]; positions [B, T] = 0..T-1 (RoPE);
-    window: see :func:`attention_core`."""
+    window and causal: see :func:`attention_core`."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    return attention_core(p, cfg, q, k, v, window, impl)
+    return attention_core(p, cfg, q, k, v, window, impl, causal)
 
 
 # ----------------------------------------------------------------- decode
@@ -109,6 +117,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int,
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
     }
+
+
+def _attend_one(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                softcap: Optional[float] = None) -> torch.Tensor:
+    """One query position against S keys in float32: q [B, nh, hd], k/v
+    [B, S, nkv, hd] read in place by each query head's group, ``valid``
+    [S] the keys it may see (None: all). Returns [B, nh, hd] in q's
+    type."""
+    B, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, nkv, nh // nkv, hd).float()
+    scores = torch.einsum("bgrk,bsgk->bgrs", qg, k.float()) * cfg.hd ** -0.5
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    if valid is not None:
+        scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bsgk->bgrk", w, v.float())
+    return out.reshape(B, nh, hd).to(q.dtype)
 
 
 def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -128,13 +156,6 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     slot = t % S
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
-    k, v = cache["k"], cache["v"]
-    nkv, hd = k.shape[2], k.shape[3]
-    qg = q[:, 0].reshape(B, nkv, cfg.n_heads // nkv, hd).float()
-    scores = torch.einsum("bgrk,bsgk->bgrs", qg, k.float()) * cfg.hd ** -0.5
-    if cfg.attn_logit_softcap:
-        c = cfg.attn_logit_softcap
-        scores = torch.tanh(scores / c) * c
     # Valid slots: written positions within the causal window.
     s_idx = torch.arange(S, device=x.device)
     # Position stored in slot s (ring): the latest p <= t with p mod S == s.
@@ -142,7 +163,44 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     valid = stored_pos >= 0
     if window:
         valid &= (t - stored_pos) < window
-    scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrs,bsgk->bgrk", w, v.float()).to(x.dtype)
-    return _out_proj(out.reshape(B, 1, cfg.n_heads, hd), p["wo"]), cache
+    out = _attend_one(cfg, q[:, 0], cache["k"], cache["v"], valid,
+                      cfg.attn_logit_softcap)
+    return _out_proj(out[:, None], p["wo"]), cache
+
+
+# ------------------------------------------------------------ cross-attn
+def init_cross_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": dense_init(generator, (d, nh, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wk": dense_init(generator, (d, nkv, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wv": dense_init(generator, (d, nkv, hd), in_axis_size=d, dtype=cfg.dtype),
+        "wo": dense_init(generator, (nh, hd, d), in_axis_size=nh * hd, dtype=cfg.dtype),
+    }
+
+
+def encode_cross_kv(p: Params, cfg: ModelConfig, enc_out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys and values [B, S, nkv, hd] of the encoder's output [B, S, d]."""
+    return _heads(enc_out, p["wk"]), _heads(enc_out, p["wv"])
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    impl: str = "auto") -> torch.Tensor:
+    """x: [B, T, d] against the encoder's (k, v) [B, S, nkv, hd], every key
+    seen (no mask, no RoPE), through the attention kernel (``impl``);
+    returns [B, T, d]."""
+    k, v = enc_kv
+    return attention_core(p, cfg, _heads(x, p["wq"]), k, v, impl=impl,
+                          causal=False)
+
+
+def decode_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """:func:`cross_attention` for decode's one query (x [B, 1, d]), in
+    plain PyTorch like :func:`decode_attention`."""
+    k, v = enc_kv
+    out = _attend_one(cfg, _heads(x, p["wq"])[:, 0], k, v)
+    return _out_proj(out[:, None], p["wo"])

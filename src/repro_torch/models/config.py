@@ -1,8 +1,8 @@
 """Unified model configuration, the port's copy of ``repro.models.config``.
 
 One frozen dataclass covers every family ``repro`` defines (dense, moe,
-ssm, hybrid, vlm, audio); the port serves ``dense``, ``ssm`` and
-``hybrid`` (``repro_torch.models.model``). ``dtype`` is a
+ssm, hybrid, vlm, audio), and the port serves them all
+(``repro_torch.models.model``). ``dtype`` is a
 ``torch.dtype`` (``repro``'s is a ``jnp`` type); every other field and
 helper is ``repro``'s, and ``tests/test_torch_models.py`` holds each
 config's fields and ``param_count()`` equal to ``repro``'s.

@@ -1,32 +1,40 @@
-"""Decoder LMs for serving (dense, SSM, hybrid), the port's counterpart of
-``repro.models.model``.
+"""Decoder LMs (dense, MoE, SSM, hybrid, vision) and the enc-dec backbone
+for serving, the port's counterpart of ``repro.models.model``.
 
 Parameters are plain dictionaries of tensors in ``repro``'s layouts, with
-one difference: ``params["layers"]`` is a list of per-layer dictionaries
-(``repro`` stacks them on a leading ``[L]`` axis for its scans;
-``repro_torch.models.convert`` splits them). Every function walks the
-layers in a Python loop, and every arch keeps a per-layer cache list:
-local-attention layers keep ring buffers of window length, global layers
-full-length caches (``repro`` does this for sliding-window archs and
-scans stacked caches for the others).
+one difference: ``params["layers"]`` (and ``params["encoder"]["layers"]``)
+is a list of per-layer dictionaries (``repro`` stacks them on a leading
+``[L]`` axis for its scans; ``repro_torch.models.convert`` splits them).
+Every function walks the layers in a Python loop, and every arch keeps a
+per-layer cache list: local-attention layers keep ring buffers of window
+length, global layers full-length caches (``repro`` does this for
+sliding-window archs and scans stacked caches for the others); an enc-dec
+cache also holds one ``(k, v)`` of the encoder's output a layer
+(``cross_kv``, filled by prefill).
 
-Prefill runs each layer's attention through the attention kernel and its
-SSM through the Mamba-scan kernel's fused entry, ``selective_scan`` (``impl``: ``"auto"``, ``"cuda"`` or
-``"torch"``, as ``repro_torch.kernels.registry`` says), decode in plain
-PyTorch, as ``repro``'s does. Families ``moe``, ``vlm`` and ``audio`` and
-enc-dec backbones are not ported: they raise ``NotImplementedError``.
-Training (``loss_fn``) is not ported either.
+Prefill runs every attention through the attention kernel (the decoder's
+causal self-attention, the encoder's bidirectional one and
+cross-attention, T decoder queries against S encoder keys) and each SSM
+through the Mamba-scan kernel's fused entry, ``selective_scan``
+(``impl``: ``"auto"``, ``"cuda"`` or ``"torch"``, as
+``repro_torch.kernels.registry`` says); decode runs in plain PyTorch, as
+``repro``'s does. The MoE layer is ``models.moe``. The vision stub's patch
+embeddings (``batch["frontend"]``) are projected ahead of the text; the
+audio stub's frames (``batch["enc_input"]``) are projected into the
+encoder. Training (``loss_fn``) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.registry import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (
@@ -40,18 +48,15 @@ from repro_torch.models.modules import (
 
 Params = Dict[str, Any]
 
-#: Families the port serves.
-FAMILIES = ("dense", "ssm", "hybrid")
+#: Families ``ModelConfig.family`` may name.
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve."""
-    if cfg.family not in FAMILIES or cfg.is_enc_dec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (MoE, the "
-            f"vision and audio front ends and enc-dec backbones are "
-            f"ROADMAP.md queue 1 item 6b); the port serves "
-            f"{', '.join(FAMILIES)}")
+    """Raise ``ValueError`` for a family no config defines."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(expected one of {', '.join(FAMILIES)})")
 
 
 # --------------------------------------------------------------------- init
@@ -62,13 +67,29 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
         p["attn"] = attn_mod.init_attention(generator, cfg)
     if cfg.has_ssm:
         p["ssm"] = ssm_mod.init_ssm(generator, cfg)
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "hybrid", "vlm", "audio"):
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.dtype)
+    elif cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(generator, cfg)
+    if cfg.family != "ssm":
         p["norm2"] = init_rms_norm(cfg.d_model, dev)
     if cfg.family == "hybrid":
         p["norm_attn_out"] = init_rms_norm(cfg.d_model, dev)
         p["norm_ssm_out"] = init_rms_norm(cfg.d_model, dev)
+    if cfg.is_enc_dec:
+        p["cross"] = attn_mod.init_cross_attention(generator, cfg)
+        p["norm_cross"] = init_rms_norm(cfg.d_model, dev)
     return p
+
+
+def _init_encoder_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    dev = generator.device
+    return {
+        "norm1": init_rms_norm(cfg.d_model, dev),
+        "attn": attn_mod.init_attention(generator, cfg),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.dtype),
+        "norm2": init_rms_norm(cfg.d_model, dev),
+    }
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -90,6 +111,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                                   in_axis_size=cfg.d_model, dtype=cfg.dtype)
+    if cfg.is_enc_dec:
+        p["encoder"] = {
+            "layers": [_init_encoder_layer(generator, cfg)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_rms_norm(cfg.d_model, dev),
+        }
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init(
+            generator, (cfg.frontend_dim, cfg.d_model),
+            in_axis_size=cfg.frontend_dim, dtype=cfg.dtype)
     return p
 
 
@@ -101,9 +132,12 @@ def layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 # ------------------------------------------------------------------ forward
-def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out):
+def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out,
+         cross: Optional[Callable] = None):
     """The block after its attention and SSM halves (``repro``'s
-    ``_layer_apply`` from the mix on)."""
+    ``_layer_apply`` from the mix on): the residual, then ``cross`` (the
+    layer's cross-attention of its normed input, enc-dec only), then the
+    MLP or the MoE layer."""
     if cfg.family == "ssm":
         return x + ssm_out
     if cfg.family == "hybrid":
@@ -111,15 +145,65 @@ def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out):
                        + rms_norm(ssm_out, lp["norm_ssm_out"], cfg.norm_eps))
     else:
         x = x + attn_out
+    if cross is not None:
+        x = x + cross(rms_norm(x, lp["norm_cross"], cfg.norm_eps))
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_mod.moe_layer(lp["moe"], cfg, h2)[0]
     return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
 
 
+def _prefill_cross(cfg: ModelConfig, lp: Params, ekv, impl: str):
+    """The layer's cross-attention for prefill and ``forward`` (None
+    without an encoder)."""
+    if ekv is None:
+        return None
+    return functools.partial(attn_mod.cross_attention, lp["cross"], cfg,
+                             enc_kv=ekv, impl=impl)
+
+
+def _encode(cfg: ModelConfig, params: Params, enc_in: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """Bidirectional encoder over [B, S, d] inputs: every layer's
+    self-attention sees every position (``causal=False``)."""
+    positions = torch.arange(enc_in.shape[1], device=enc_in.device).expand(
+        enc_in.shape[:2])
+    x = enc_in
+    for lp in params["encoder"]["layers"]:
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attn_mod.attention(lp["attn"], cfg, h, positions, impl=impl,
+                                   causal=False)
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+def _encoder_output(cfg: ModelConfig, params: Params,
+                    batch: Dict[str, torch.Tensor], impl: str):
+    """The encoder's output over ``batch["enc_input"]`` (the audio stub's
+    frames, projected to d_model) for an enc-dec config, else None."""
+    if not cfg.is_enc_dec:
+        return None
+    if "enc_input" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: the batch "
+                         f"needs 'enc_input' (the encoder's frames, [B, S, "
+                         f"{cfg.frontend_dim or cfg.d_model}])")
+    enc_in = batch["enc_input"]
+    if cfg.frontend == "audio":
+        enc_in = enc_in.to(cfg.dtype) @ params["frontend_proj"]
+    return _encode(cfg, params, enc_in, impl)
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """Token embedding. Returns (x [B, T, d], positions [B, T])."""
+    """Token embedding, behind the vision stub's projected patch
+    embeddings when the batch has ``"frontend"``. Returns (x [B, T, d],
+    positions [B, T] over prefix and text)."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.frontend is not None and cfg.frontend != "audio" and "frontend" in batch:
+        fe = batch["frontend"].to(cfg.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     return x, positions
 
@@ -132,15 +216,19 @@ def _logits(cfg: ModelConfig, params: Params, x):
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             impl: str = "auto") -> torch.Tensor:
-    """Logits [B, T, V] of the whole sequence, layer by layer: the port's
-    own reference for :func:`prefill` and :func:`decode_step`."""
+    """Logits [B, T, V] of the whole sequence (the vision prefix
+    included), layer by layer: the port's own reference for
+    :func:`prefill` and :func:`decode_step`."""
     x, positions = embed_inputs(cfg, params, batch)
+    enc_out = _encoder_output(cfg, params, batch, impl)
     for lp, w in zip(params["layers"], layer_windows(cfg)):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         a = (attn_mod.attention(lp["attn"], cfg, h, positions, w, impl=impl)
              if cfg.has_attention else None)
         s = ssm_mod.ssm_block(lp["ssm"], cfg, h, impl) if cfg.has_ssm else None
-        x = _mix(cfg, lp, x, a, s)
+        ekv = (attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
+               if enc_out is not None else None)
+        x = _mix(cfg, lp, x, a, s, _prefill_cross(cfg, lp, ekv, impl))
     return _logits(cfg, params, x)
 
 
@@ -150,7 +238,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Per-layer caches (``{"layers": [entry, ...]}``) on ``device``
     (``cuda`` unless the caller asks for the CPU): ``kv`` of ``max_len``
     for a global layer and of ``min(window, max_len)`` for a local one
-    (a ring buffer), ``ssm`` state and conv history."""
+    (a ring buffer), ``ssm`` state and conv history; an enc-dec cache
+    also ``"cross_kv"``, None until prefill."""
     check_family(cfg)
     dev = resolve_device(device)
     layers: List[Dict[str, Any]] = []
@@ -165,18 +254,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if cfg.has_ssm:
             entry["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, device=dev)
         layers.append(entry)
-    return {"layers": layers}
+    cache: Dict[str, Any] = {"layers": layers}
+    if cfg.is_enc_dec:
+        cache["cross_kv"] = None
+    return cache
 
 
 def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
-                   entry: Dict[str, Any], impl: str = "auto"):
+                   entry: Dict[str, Any], enc_out=None, impl: str = "auto"):
     """One FUSED layer of prefill: the block output and the cache entry in
     a single pass (q/k/v projected once, the SSM scan run once). The
-    entry's k/v are written in place. Returns (x_out, new_cache_entry)."""
+    entry's k/v are written in place. Returns (x_out, new_cache_entry,
+    the layer's cross (k, v) or None)."""
     T = x.shape[1]
     new_entry: Dict[str, Any] = {}
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    attn_out = ssm_out = None
+    attn_out = ssm_out = ekv = None
     if cfg.has_attention:
         q, k, v = attn_mod._project_qkv(lp["attn"], cfg, h, positions)
         ck, cv = entry["kv"]["k"], entry["kv"]["v"]
@@ -198,48 +291,69 @@ def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
         new_entry["ssm"] = {"h": h_final,
                             "conv": u[:, -(cfg.ssm_conv - 1):, :].contiguous()}
         ssm_out = y @ sp["out_proj"]
-    return _mix(cfg, lp, x, attn_out, ssm_out), new_entry
+    if enc_out is not None:
+        ekv = attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
+    x = _mix(cfg, lp, x, attn_out, ssm_out, _prefill_cross(cfg, lp, ekv, impl))
+    return x, new_entry, ekv
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache: Dict[str, Any], impl: str = "auto"
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the full prompt, filling caches. Returns (last-token logits
-    [B, V], cache)."""
+    """Run the full prompt (the vision prefix ahead of it, the encoder
+    over ``batch["enc_input"]`` first), filling caches. Returns
+    (last-token logits [B, V], cache)."""
     x, positions = embed_inputs(cfg, params, batch)
-    new_list = []
+    enc_out = _encoder_output(cfg, params, batch, impl)
+    new_list, cross = [], []
     for lp, w, entry in zip(params["layers"], layer_windows(cfg), cache["layers"]):
-        x, new_entry = _prefill_layer(cfg, lp, x, positions, w, entry, impl)
+        x, new_entry, ekv = _prefill_layer(cfg, lp, x, positions, w, entry,
+                                           enc_out, impl)
         new_list.append(new_entry)
-    return _logits(cfg, params, x[:, -1]), {"layers": new_list}
+        cross.append(ekv)
+    new_cache: Dict[str, Any] = {"layers": new_list}
+    if cfg.is_enc_dec:
+        new_cache["cross_kv"] = cross
+    return _logits(cfg, params, x[:, -1]), new_cache
 
 
 def _decode_layer(cfg: ModelConfig, lp: Params, x, entry: Dict[str, Any],
-                  t: int, window: int):
+                  t: int, window: int, cross_kv=None):
     """One layer of single-token decode: returns (x_out, new_entry)."""
     new_entry: Dict[str, Any] = {}
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    a_out = s_out = None
+    a_out = s_out = cross = None
     if cfg.has_attention:
         a_out, new_entry["kv"] = attn_mod.decode_attention(
             lp["attn"], cfg, h, entry["kv"], t, window=window)
     if cfg.has_ssm:
         s_out, new_entry["ssm"] = ssm_mod.ssm_decode_step(
             lp["ssm"], cfg, h, entry["ssm"])
-    return _mix(cfg, lp, x, a_out, s_out), new_entry
+    if cross_kv is not None:
+        cross = functools.partial(attn_mod.decode_cross_attention,
+                                  lp["cross"], cfg, enc_kv=cross_kv)
+    return _mix(cfg, lp, x, a_out, s_out, cross), new_entry
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Dict[str, Any], t: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step (plain PyTorch, no kernel). tokens: [B, 1]; t:
-    current position (an int; a 0-d tensor is read to the host). The
-    cache's k/v are written in place."""
+    current position, the vision prefix included (an int; a 0-d tensor is
+    read to the host). The cache's k/v are written in place."""
     check_family(cfg)
     t = int(t)
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.is_enc_dec and cache["cross_kv"] is None:
+        raise ValueError(f"{cfg.name}: decode needs the encoder's keys and "
+                         f"values, which prefill puts in the cache")
+    cross = cache.get("cross_kv") or [None] * cfg.n_layers
     new_list: List[Dict[str, Any]] = []
-    for lp, w, entry in zip(params["layers"], layer_windows(cfg), cache["layers"]):
-        x, new_entry = _decode_layer(cfg, lp, x, entry, t, w)
+    for lp, w, entry, ckv in zip(params["layers"], layer_windows(cfg),
+                                 cache["layers"], cross):
+        x, new_entry = _decode_layer(cfg, lp, x, entry, t, w, ckv)
         new_list.append(new_entry)
-    return _logits(cfg, params, x)[:, -1], {"layers": new_list}
+    new_cache: Dict[str, Any] = {"layers": new_list}
+    if cfg.is_enc_dec:
+        new_cache["cross_kv"] = cache["cross_kv"]
+    return _logits(cfg, params, x)[:, -1], new_cache

@@ -7,7 +7,12 @@ local-attention layers) through the attention and Mamba-scan kernels;
 decode advances one token for the whole batch (greedy ``argmax``).
 ``ServeLoop`` is the batched request loop: greedy sampling in waves of
 ``batch_slots`` requests, as ``repro``'s. It runs eagerly on the device
-that holds the parameters.
+that holds the parameters. It feeds tokens only, as ``repro``'s does: a
+vision config is served on its text alone (no patch embeddings), and an
+enc-dec config, whose prefill needs the encoder's ``enc_input``, is
+refused there with a ``ValueError`` (``repro``'s raises ``KeyError``);
+serve those through :func:`make_prefill_step` with the batch's
+``"frontend"`` or ``"enc_input"``.
 """
 
 from __future__ import annotations

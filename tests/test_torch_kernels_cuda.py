@@ -30,7 +30,11 @@ and round once, so they differ by at most one ulp and only next to a
 rounding boundary; SDPA, which rounds its probabilities to bfloat16,
 differs on about 40%), each case through the kernel its dtype routes to
 and, in bfloat16, the loader its width needs (TMA at a multiple of 8,
-else the producer's threads), and the wgmma kernel's pieces with each
+else the producer's threads), the served families' uses among the
+cases (non-causal T = S and T != S at hd 64, hd 96, a GQA group of 7);
+the new families served at their smoke widths in float32 through the
+kernel and through the plain versions (logits at 1e-3, tokens equal,
+one launch an attention call), and the wgmma kernel's pieces with each
 loader and the tf32x3 kernel's bitwise on integer inputs; the
 Mamba scan and its final state at 1e-4 (the sum over the state runs in
 another order), from dA and dBu and from u, dt, A, B and C (the fused
@@ -1090,6 +1094,15 @@ ATTENTION_CASES = [
     (1, 2, 1, 70, 150, 100, torch.bfloat16, False, 0),
     (1, 2, 1, 70, 150, 97, torch.bfloat16, False, 0),
     (2, 8, 2, 160, 160, 100, torch.bfloat16, True, 0),
+    # the served families' uses: seamless's encoder (non-causal, T = S)
+    # and its cross-attention (T decoder queries against S frames, both
+    # ways) at hd 64; phi_3_vision's hd 96 (the 128 bucket) with nkv = nh;
+    # arctic's 56 query heads on 8 kv heads (a group of 7) at hd 128
+    (2, 4, 4, 150, 150, 64, torch.bfloat16, False, 0),
+    (2, 4, 4, 70, 190, 64, torch.bfloat16, False, 0),
+    (2, 4, 4, 190, 70, 64, torch.bfloat16, False, 0),
+    (1, 4, 4, 200, 200, 96, torch.bfloat16, True, 0),
+    (1, 56, 8, 130, 130, 128, torch.bfloat16, True, 0),
 ]
 
 
@@ -1351,3 +1364,56 @@ def test_cuda_selective_scan_matches_plain(cuda_device, B, T, D, N, dtype,
     torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
     assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "arctic_480b",
+                                  "phi_3_vision_4_2b",
+                                  "seamless_m4t_large_v2"])
+def test_cuda_served_families_match_plain(cuda_device, arch):
+    """Each new family's smoke config in float32 on the card: prefill
+    (the vision prefix, the encoder over frames) and 4 greedy decode
+    steps through the attention kernel and through the plain versions,
+    the kernel launched once an attention call (decoder layers, and the
+    encoder's and cross-attention's), the scan never; logits within 1e-3
+    (the f32 kernel is within 2e-5 of the plain version a call) and the
+    greedy tokens equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    multimodal, prefill)
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(cuda_device).manual_seed(3),
+                         cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    B, T = 2, 40
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     generator=gen, device=cuda_device)}
+    fe = 0
+    if cfg.frontend == "vision":
+        batch["frontend"] = multimodal.synthetic_frontend(cfg, gen, B)
+        fe = cfg.frontend_tokens
+    if cfg.is_enc_dec:
+        batch["enc_input"] = multimodal.synthetic_frames(cfg, gen, B, 30)
+    want_launches = cfg.n_layers + 2 * cfg.encoder_layers
+    runs = {}
+    for impl in ("cuda", "torch"):
+        fa_ops.reset_launch_counts()
+        ms_ops.reset_launch_counts()
+        logits, cache = prefill(cfg, params, batch,
+                                init_cache(cfg, B, fe + T + 4, cuda_device),
+                                impl=impl)
+        out = [logits]
+        for i in range(4):
+            logits, cache = decode_step(cfg, params,
+                                        logits.argmax(-1)[:, None], cache,
+                                        fe + T + i)
+            out.append(logits)
+        torch.cuda.synchronize()
+        n = fa_ops.launch_counts()["flash_attention"]
+        assert n == (want_launches if impl == "cuda" else 0), (impl, n)
+        assert ms_ops.launch_counts()["selective_scan"] == 0
+        runs[impl] = out
+    for got, want in zip(runs["cuda"], runs["torch"]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -7,7 +7,12 @@ Modules in float32: the same numpy inputs and ``repro``'s own weights
 function and the port's. The port's attention runs the kernel's plain
 version on the CPU, which masks by index; ``repro``'s the masked
 full-score path. Both compute in float32 in other orders, so the bar is
-1e-4 (atol and rtol). What the port does not serve raises.
+1e-4 (atol and rtol). The same for the encoder's bidirectional
+attention, cross-attention (prefill and decode's one query) and the
+vision prefix of ``embed_inputs``; ``repro``'s bf16 weights, the encoder,
+MoE, cross-attention and front-end projection included, carried over
+exactly; every family builds, and an enc-dec batch without its encoder
+input is refused.
 """
 
 import dataclasses
@@ -21,15 +26,20 @@ import jax.numpy as jnp
 
 from repro import configs as jx_configs
 from repro.models import attention as jx_attn
+from repro.models import model as jx_model
 from repro.models import modules as jx_mod
 from repro.models import ssm as jx_ssm
 from repro.models.model import init_params as jx_init_params
 from repro_torch import configs
-from repro_torch.models import attention, modules, ssm
+from repro_torch.models import attention, modules, multimodal, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import (
+    FAMILIES,
     check_family,
+    decode_step,
+    embed_inputs,
+    forward,
     init_cache,
     init_params,
     layer_windows,
@@ -237,17 +247,166 @@ def test_params_from_numpy_carries_bf16_exactly():
                                   params["layers"][0])
 
 
-@pytest.mark.parametrize("arch", ["arctic_480b", "olmoe_1b_7b",
+def test_encoder_attention_is_bidirectional_like_repro():
+    """The encoder's self-attention (``causal=False``, RoPE on q and k, GQA
+    2:1 at gemma3's smoke widths) against ``repro``'s unmasked path."""
+    jcfg, cfg = f32_configs("gemma3_27b")
+    p = jx_attn.init_attention(jax.random.PRNGKey(7), jcfg)
+    rng = np.random.default_rng(6)
+    S = 19
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (2, S)).astype(np.int32)
+    want = jx_attn.attention(p, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                             causal=False)
+    got = attention.attention(to_torch(p), cfg, torch.from_numpy(x),
+                              torch.from_numpy(pos), causal=False)
+    close(got, want)
+    causal = attention.attention(to_torch(p), cfg, torch.from_numpy(x),
+                                 torch.from_numpy(pos))
+    assert not torch.allclose(causal[:, :-1], got[:, :-1], atol=1e-3)
+
+
+@pytest.mark.parametrize("T,S", [(7, 19), (21, 5), (1, 11)])
+def test_cross_attention_matches_repro(T, S):
+    """``encode_cross_kv`` (no RoPE) and cross-attention, T decoder
+    queries against S encoder keys both ways and decode's one query (the
+    plain ``decode_cross_attention`` too), at seamless's smoke widths."""
+    jcfg, cfg = f32_configs("seamless_m4t_large_v2")
+    p = jx_attn.init_cross_attention(jax.random.PRNGKey(8), jcfg)
+    tp = to_torch(p)
+    rng = np.random.default_rng(T * S)
+    x = rng.normal(size=(2, T, cfg.d_model)).astype(np.float32)
+    enc = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    want_kv = jx_attn.encode_cross_kv(p, jcfg, jnp.asarray(enc))
+    got_kv = attention.encode_cross_kv(tp, cfg, torch.from_numpy(enc))
+    for g, w in zip(got_kv, want_kv):
+        assert g.shape == (2, S, cfg.n_kv_heads, cfg.hd)
+        close(g, w)
+    want = jx_attn.cross_attention(p, jcfg, jnp.asarray(x), want_kv)
+    close(attention.cross_attention(tp, cfg, torch.from_numpy(x), got_kv),
+          want)
+    if T == 1:
+        close(attention.decode_cross_attention(tp, cfg, torch.from_numpy(x),
+                                                got_kv), want)
+
+
+def test_vision_embed_inputs_matches_repro():
+    """Patch embeddings projected ahead of the text, positions over both."""
+    jcfg, cfg = f32_configs("phi_3_vision_4_2b")
+    rng = np.random.default_rng(9)
+    fe = rng.normal(size=(2, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+        np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 5)).astype(np.int32)
+    params = {"embed": rng.normal(size=(cfg.vocab_size, cfg.d_model)),
+              "frontend_proj": rng.normal(size=(cfg.frontend_dim,
+                                                cfg.d_model)) * 0.1}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    want_x, want_pos = jx_model.embed_inputs(
+        jcfg, jax.tree.map(jnp.asarray, params),
+        {"tokens": jnp.asarray(tokens), "frontend": jnp.asarray(fe)})
+    x, pos = embed_inputs(
+        cfg, {k: torch.from_numpy(v) for k, v in params.items()},
+        {"tokens": torch.from_numpy(tokens), "frontend": torch.from_numpy(fe)})
+    assert x.shape == (2, cfg.frontend_tokens + 5, cfg.d_model)
+    close(x, want_x)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos))
+    # text alone (ServeLoop feeds tokens only): no prefix
+    x, pos = embed_inputs(cfg, {k: torch.from_numpy(v)
+                                for k, v in params.items()},
+                          {"tokens": torch.from_numpy(tokens)})
+    assert x.shape == (2, 5, cfg.d_model) and int(pos.max()) == 4
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "arctic_480b",
                                   "phi_3_vision_4_2b",
                                   "seamless_m4t_large_v2"])
-def test_unported_families_raise(arch):
+def test_params_from_numpy_carries_every_family_bf16_exactly(arch):
+    """``repro``'s bf16 tree of each new family: the encoder's layers
+    split like the decoder's, the MoE experts, router (float32) and
+    arctic's dense residual MLP, cross-attention and the front-end
+    projection, each leaf bit for bit and of the port's own init's
+    shapes."""
+    jcfg = jx_configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
+    tree = jax.tree.map(np.asarray, jax.jit(jx_init_params, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(0)))
+    params = params_from_numpy(cfg, tree, device="cpu")
+    mine = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = lambda t: jax.tree.map(lambda a: (tuple(a.shape), a.dtype), t)  # noqa: E731
+    assert shapes(params) == shapes(mine)
+    stacks = [(params["layers"], tree["layers"])]
+    if cfg.is_enc_dec:
+        assert "cross" in params["layers"][0]
+        stacks.append((params["encoder"]["layers"],
+                       tree["encoder"]["layers"]))
+    for layers, stacked in stacks:
+        for i, layer in enumerate(layers):
+            for path, leaf in jax.tree_util.tree_flatten_with_path(layer)[0]:
+                want = stacked
+                for key in path:
+                    want = want[key.key]
+                np.testing.assert_array_equal(leaf.float().numpy(),
+                                              want[i].astype(np.float32))
+    if cfg.frontend is not None:
+        np.testing.assert_array_equal(
+            params["frontend_proj"].float().numpy(),
+            tree["frontend_proj"].astype(np.float32))
+    if cfg.family == "moe":
+        moe_p = params["layers"][0]["moe"]
+        assert moe_p["router"].dtype == torch.float32
+        assert moe_p["w_gate"].dtype == torch.bfloat16
+        assert ("dense_mlp" in moe_p) == bool(cfg.moe_dense_ff)
+
+
+@pytest.mark.parametrize("arch", jx_configs.ARCHITECTURES)
+def test_every_family_builds_on_the_cpu(arch):
+    """Weights, a cache, prefill and a decode step for every config's
+    smoke widths (the front ends' inputs from ``models.multimodal``)."""
     cfg = configs.get_smoke_config(arch).replace(dtype=torch.float32)
-    for fn in (lambda: check_family(cfg),
-               lambda: init_params(cfg, device="cpu"),
-               lambda: init_cache(cfg, 1, 8, device="cpu"),
-               lambda: prefill(cfg, {}, {"tokens": torch.zeros(1, 2)}, {})):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    check_family(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 6),
+                                     generator=gen)}
+    fe = 0
+    if cfg.frontend == "vision":
+        batch["frontend"] = multimodal.synthetic_frontend(cfg, gen, 2)
+        fe = cfg.frontend_tokens
+        shape, dtype = multimodal.frontend_spec(cfg, 2, fe)
+        assert batch["frontend"].shape == shape
+        assert batch["frontend"].dtype == dtype
+    if cfg.is_enc_dec:
+        batch["enc_input"] = multimodal.synthetic_frames(cfg, gen, 2, 5)
+    cache = init_cache(cfg, 2, 8 + fe, device="cpu")
+    assert ("cross_kv" in cache) == cfg.is_enc_dec
+    logits, cache = prefill(cfg, params, batch, cache)
+    assert logits.shape == (2, cfg.vocab_size)
+    if cfg.is_enc_dec:
+        assert len(cache["cross_kv"]) == cfg.n_layers
+        assert cache["cross_kv"][0][0].shape == (2, 5, cfg.n_kv_heads, cfg.hd)
+    step, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache,
+                          6 + fe)
+    assert bool(torch.isfinite(step).all())
+
+
+def test_unknown_family_and_missing_inputs_raise():
+    cfg = configs.get_smoke_config("seamless_m4t_large_v2").replace(
+        dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = {"tokens": torch.zeros(1, 3, dtype=torch.long)}
+    for fn in (lambda: prefill(cfg, params, tokens,
+                               init_cache(cfg, 1, 8, device="cpu")),
+               lambda: forward(cfg, params, tokens)):
+        with pytest.raises(ValueError, match="enc_input"):
             fn()
+    with pytest.raises(ValueError, match="prefill"):
+        decode_step(cfg, params, tokens["tokens"][:, :1],
+                    init_cache(cfg, 1, 8, device="cpu"), 0)
+    with pytest.raises(ValueError, match="unknown family"):
+        init_params(cfg.replace(family="moe-ish"), device="cpu")
+    with pytest.raises(ValueError, match="vision"):
+        multimodal.synthetic_frontend(cfg, torch.Generator(), 1)
+    assert set(FAMILIES) == {c.family for c in configs.all_configs().values()}
 
 
 def test_entry_points_default_to_cuda():

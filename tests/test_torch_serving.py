@@ -4,16 +4,22 @@
 ``repro_torch.models.convert``) and the same numpy prompts go through
 ``repro``'s ``prefill`` and four greedy ``decode_step``s and through the
 port's, on the smoke configs of qwen3_4b (dense, qk-norm), gemma3_27b
-(ring buffers shorter than the prompt), falcon_mamba_7b (ssm) and
-hymba_1_5b (hybrid). The port's prefill runs the attention and scan
-kernels' plain versions here. Bars: in float32 the logits and each
-layer's cache at 1e-4 (atol and rtol; sums in other orders) and the greedy
-tokens equal; in bfloat16 the logits within ``repro``'s own serving bar,
-0.15 (``tests/test_serving.py``): ``repro`` rounds the attention weights
-to bfloat16 before the values, the port keeps them in float32. Then the
-port's ``ServeLoop`` against ``repro``'s (tokens equal), and the launch
-command on the CPU. ``repro``'s runs are made once per arch (a
-module-scoped fixture) and shared by the float32 and bfloat16 tests.
+(ring buffers shorter than the prompt), falcon_mamba_7b (ssm), hymba_1_5b
+(hybrid), olmoe_1b_7b and arctic_480b (MoE at the default capacity
+factor; arctic with its dense residual MLP), phi_3_vision_4_2b (seeded
+patch embeddings ahead of the prompt, decode from position T plus the
+prefix) and seamless_m4t_large_v2 (the encoder over seeded frames, and
+cross-attention), as ``tests/test_serving.py`` feeds them. The port's
+prefill runs the attention and scan kernels' plain versions here. Bars:
+in float32 the logits and each layer's cache (an enc-dec layer's cross
+keys and values too) at 1e-4 (atol and rtol; sums in other orders) and
+the greedy tokens equal; in bfloat16 the logits within ``repro``'s own
+serving bar, 0.15 (``tests/test_serving.py``): ``repro`` rounds the
+attention weights to bfloat16 before the values, the port keeps them in
+float32. Then the port's ``ServeLoop`` against ``repro``'s (tokens
+equal), and the launch command on the CPU. ``repro``'s runs are made
+once per arch (a module-scoped fixture) and shared by the float32 and
+bfloat16 tests.
 """
 
 import functools
@@ -39,8 +45,12 @@ from repro_torch.models.convert import cache_to_numpy, params_from_numpy
 from repro_torch.serve import make_decode_step, make_prefill_step
 from repro_torch.serve.engine import Request, ServeLoop
 
-ARCHS = ["qwen3_4b", "gemma3_27b", "falcon_mamba_7b", "hymba_1_5b"]
+ARCHS = ["qwen3_4b", "gemma3_27b", "falcon_mamba_7b", "hymba_1_5b",
+         "olmoe_1b_7b", "arctic_480b", "phi_3_vision_4_2b",
+         "seamless_m4t_large_v2"]
 B, T, STEPS, MAX_LEN = 2, 16, 4, 24
+#: Encoder frames of the enc-dec config.
+ENC_FRAMES = 16
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_BAR = 0.15
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -53,12 +63,38 @@ def f32(a) -> np.ndarray:
 
 def repro_layers(cfg, cache):
     """``repro``'s cache as one numpy dictionary a layer (its uniform
-    archs stack the layers on a leading axis)."""
+    archs stack the layers on a leading axis), an enc-dec layer's with its
+    cross ``(k, v)`` under ``"cross_kv"``, as ``cache_to_numpy`` gives
+    the port's."""
     layers = jax.tree.map(f32, cache["layers"])
-    if isinstance(layers, list):
-        return layers
-    return [jax.tree.map(lambda a, i=i: a[i], layers)
-            for i in range(cfg.n_layers)]
+    if not isinstance(layers, list):
+        layers = [jax.tree.map(lambda a, i=i: a[i], layers)
+                  for i in range(cfg.n_layers)]
+    if cfg.is_enc_dec:
+        k, v = cache["cross_kv"]
+        for i, entry in enumerate(layers):
+            entry["cross_kv"] = (f32(k[i]), f32(v[i]))
+    return layers
+
+
+def front_inputs(cfg) -> dict:
+    """The stub front ends' inputs as ``tests/test_serving.py`` gives them
+    (seeded float32 numpy arrays; each model casts them): patch
+    embeddings for a vision config, encoder frames for an enc-dec one."""
+    rng = np.random.default_rng(cfg.frontend_dim)
+    out = {}
+    if cfg.frontend == "vision":
+        out["frontend"] = rng.normal(
+            size=(B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.is_enc_dec:
+        out["enc_input"] = rng.normal(
+            size=(B, ENC_FRAMES, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def prefix(cfg) -> int:
+    """Positions the vision prefix takes ahead of the prompt."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
 
 
 def repro_params(jcfg, f32_params):
@@ -79,18 +115,22 @@ def repro_run(arch: str, dtype: str, f32_params=None):
         repro_params(jcfg, f32_params))
     tokens = np.random.default_rng(len(arch)).integers(
         0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    front = front_inputs(jcfg)
     logits, cache = jax.jit(functools.partial(jx_prefill, jcfg))(
-        params, {"tokens": jnp.asarray(tokens)},
-        jx_init_cache(jcfg, B, MAX_LEN))
+        params, {"tokens": jnp.asarray(tokens),
+                 **jax.tree.map(jnp.asarray, front)},
+        jx_init_cache(jcfg, B, MAX_LEN + prefix(jcfg)))
     out = {"jax_params": params,
            "params": jax.tree.map(np.asarray, params), "tokens": tokens,
+           "front": front,
            "logits": [f32(logits)], "caches": [repro_layers(jcfg, cache)],
            "greedy": []}
     step = jax.jit(functools.partial(jx_decode_step, jcfg))
     for i in range(STEPS):
         nt = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
         out["greedy"].append(np.asarray(nt))
-        logits, cache = step(params, nt, cache, jnp.int32(T + i))
+        logits, cache = step(params, nt, cache,
+                             jnp.int32(T + prefix(jcfg) + i))
         out["logits"].append(f32(logits))
     out["caches"].append(repro_layers(jcfg, cache))
     return out
@@ -101,16 +141,16 @@ def port_run(arch: str, dtype: str, want: dict):
     and greedy tokens; returns logits, caches and its own greedy picks."""
     cfg = configs.get_smoke_config(arch).replace(dtype=DTYPES[dtype][1])
     params = params_from_numpy(cfg, want["params"], device="cpu")
-    cache = init_cache(cfg, B, MAX_LEN, device="cpu")
-    logits, cache = prefill(cfg, params,
-                            {"tokens": torch.from_numpy(want["tokens"])},
-                            cache)
+    cache = init_cache(cfg, B, MAX_LEN + prefix(cfg), device="cpu")
+    batch = {"tokens": torch.from_numpy(want["tokens"]),
+             **{k: torch.from_numpy(a) for k, a in want["front"].items()}}
+    logits, cache = prefill(cfg, params, batch, cache)
     out = {"logits": [logits], "caches": [cache_to_numpy(cache)],
            "greedy": []}
     for i, nt in enumerate(want["greedy"]):
         out["greedy"].append(logits.argmax(-1)[:, None].numpy())
         logits, cache = decode_step(cfg, params, torch.tensor(nt), cache,
-                                    T + i)
+                                    T + prefix(cfg) + i)
         out["logits"].append(logits)
     out["caches"].append(cache_to_numpy(cache))
     return out
@@ -163,23 +203,38 @@ def test_bf16_weights_are_repro_init():
         np.testing.assert_array_equal(f32(a), f32(b))
 
 
-@pytest.mark.parametrize("arch", ["gemma3_27b", "hymba_1_5b"])
+@pytest.mark.parametrize("arch", ["gemma3_27b", "hymba_1_5b", "olmoe_1b_7b",
+                                  "arctic_480b", "phi_3_vision_4_2b",
+                                  "seamless_m4t_large_v2"])
 def test_prefill_and_decode_match_forward(arch):
     """Within the port: prefill's last logits and a decode step against
     ``forward`` over the whole sequence, the prompt longer than the ring
-    buffers (float32, random weights of the port's own init)."""
-    from repro_torch.models import init_params
+    buffers (float32, random weights of the port's own init; MoE dropless,
+    since forward's T + 1 tokens have another capacity than prefill's T,
+    as in ``tests/test_serving.py``; the vision prefix and the encoder's
+    frames from ``models.multimodal``)."""
+    from repro_torch.models import init_params, multimodal
 
     cfg = configs.get_smoke_config(arch).replace(dtype=torch.float32)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=8.0)
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
-                           generator=torch.Generator().manual_seed(2))
-    logits, cache = prefill(cfg, params, {"tokens": tokens[:, :T]},
-                            init_cache(cfg, B, MAX_LEN, device="cpu"))
-    step, _ = decode_step(cfg, params, tokens[:, T:], cache, T)
-    full = forward(cfg, params, {"tokens": tokens})
-    torch.testing.assert_close(logits, full[:, T - 1], **F32_TOL)
-    torch.testing.assert_close(step, full[:, T], **F32_TOL)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen)
+    batch = {"tokens": tokens[:, :T]}
+    if cfg.frontend == "vision":
+        batch["frontend"] = multimodal.synthetic_frontend(cfg, gen, B)
+    if cfg.is_enc_dec:
+        batch["enc_input"] = multimodal.synthetic_frames(cfg, gen, B,
+                                                         ENC_FRAMES)
+    fe = prefix(cfg)
+    logits, cache = prefill(cfg, params, batch,
+                            init_cache(cfg, B, MAX_LEN + fe, device="cpu"))
+    step, _ = decode_step(cfg, params, tokens[:, T:], cache, T + fe)
+    full = forward(cfg, params, {**batch, "tokens": tokens})
+    assert full.shape == (B, fe + T + 1, cfg.vocab_size)
+    torch.testing.assert_close(logits, full[:, fe + T - 1], **F32_TOL)
+    torch.testing.assert_close(step, full[:, fe + T], **F32_TOL)
 
 
 def test_serve_loop_matches_repro():
@@ -230,3 +285,18 @@ def test_launch_serve_on_the_cpu(capsys):
                             "--device", "cpu"])
     assert rc == 0
     assert "served 3 requests / 12 tokens in" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi-3-vision-4.2b"])
+def test_launch_serve_new_families_on_the_cpu(capsys, arch):
+    """The MoE and the vision config through the launch command (the
+    vision one on its text alone); the enc-dec one is refused, naming
+    the input it lacks."""
+    rc = launch_serve.main(["--arch", arch, "--requests", "3",
+                            "--max-new", "4", "--slots", "2",
+                            "--device", "cpu"])
+    assert rc == 0
+    assert "served 3 requests / 12 tokens in" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="enc_input"):
+        launch_serve.main(["--arch", "seamless-m4t-large-v2", "--requests",
+                           "1", "--device", "cpu"])
