@@ -58,6 +58,31 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    draw's too), each config's wall seconds, each beside the card; then
    ``python -m repro_torch.launch.serve`` for olmoe-1b-7b and
    phi-3-vision-4.2b as subprocesses (exit 0, their tok/s lines);
+   then the train phase (``train_phase``): hymba_1_5b at its published
+   widths and depth, remat on, bf16, AdamW (``parallel.plan_for``), seeded
+   weights, batches of 2 x 2,048 tokens from ``SyntheticCorpus`` through
+   ``TokenPipeline`` on ``launch.train.make_store()``, through
+   ``train.train_step.make_train_step(impl="cuda")``: one untimed step
+   (layers 0 and 1's attention inputs and layer 0's scan inputs kept),
+   three timed by CUDA events (step ms, tokens/s, every loss and grad
+   norm finite, peak device memory beside the weights' and optimizer's
+   bytes; attention and the fused scan each launched 2 x 32 times a step,
+   the forward and remat's recompute, ``mamba_scan`` never), a
+   ``save_async`` of the state after step 2 (snapshot and write seconds);
+   then one more step profiled (the device's activity, read from the
+   profiler's own Chrome trace, ``trace_kernels``) in the two halves
+   ``make_train_step`` runs, the loss and gradients and the optimizer's
+   update, with the plain backward of one global and one windowed
+   attention layer and of one scan layer profiled alone at the kept
+   inputs: device ms by group (the two kernels, the plain backward of
+   each, the optimizer, matrix products, the rest) and the idle share;
+   the plain route from that state and batch against the profiled kernel
+   route (``TRAIN_BARS``: the loss, each gradient leaf's relative L2);
+   layer 1's attention and layer 0's scan at the kept inputs held to the
+   plain versions and timed; the checkpoint restored into a fresh state,
+   whose step 3 gives step 3's loss again (``TRAIN_RESUME_RTOL``), then
+   removed; float32 at full width cut to 4 layers, the kernel route
+   against the plain route (``TRAIN_BARS``); the store's statistics;
 3. kernel phase: each hand-written kernel against its plain PyTorch version
    on the card, at the main path's shapes (8 lanes x 2 sites x 1,000,000
    files; both candidate windows of a tick, the grid's K and W = 4, in
@@ -223,7 +248,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     launches on the served path, and ``mamba_scan`` on that layer's dA and
     dBu with its 1; the family serve phase bf16 attention at olmoe's and
     phi_3_vision's layer 0, seamless's encoder layer 0 and cross-attention
-    0 and arctic's layer 0, each with its config's launches), each with its launches on its own path (counts
+    0 and arctic's layer 0, each with its config's launches; the train
+    phase bf16 attention at layer 1 and ``selective_scan`` at layer 0 of
+    the train step, each with its 192 launches over the timed steps),
+    each with its launches on its own path (counts
     reset just before the path runs, read just after each case; the
     lane-tick and glue entries also with ``launches_decide``, their
     launches in the cold decide run); the glue kernels,
@@ -2536,6 +2564,20 @@ def profiled_kernels(torch, fn):
             and e.self_device_time_total > 0]
 
 
+def kernel_groups(kernels) -> dict:
+    """Device ms of a ``(name, ms, calls)`` list by kernel name: the
+    attention kernel, the scan kernel, matrix products, the rest."""
+    groups = dict.fromkeys(("attention", "scan", "matmul", "rest"), 0.0)
+    for name, ms, _ in kernels:
+        low = name.lower()
+        group = ("attention" if "fa_wgmma" in low or "fa_tf32x3" in low else
+                 "scan" if "ms_scan_kernel" in low else
+                 "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                                    "cutlass")) else "rest")
+        groups[group] += ms
+    return groups
+
+
 def serve_profile(torch, cfg, params, requests) -> dict:
     """The first wave's prefill and one decode step after it, each after
     a warm-up call: by CUDA events without the profiler, then under
@@ -2565,18 +2607,9 @@ def serve_profile(torch, cfg, params, requests) -> dict:
     for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
         out[f"{name}_ms"] = time_ms(torch, fn, n=1, warm=1)
         out[f"{name}_kernels"] = profiled_kernels(torch, fn)
-    groups = dict.fromkeys(("attention", "scan", "matmul", "rest"), 0.0)
-    for name, ms, _ in out["prefill_kernels"]:
-        low = name.lower()
-        group = ("attention" if "fa_wgmma" in low or "fa_tf32x3" in low else
-                 "scan" if "ms_scan_kernel" in low or "ms_kernel" in low
-                 else
-                 "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma",
-                                                    "cutlass")) else "rest")
-        groups[group] += ms
     for name, ms, n in sorted(out["prefill_kernels"], key=lambda k: -k[1])[:8]:
         log(f"  prefill kernel {ms:9.3f} ms {n:5d} calls  {name[:110]}")
-    out["prefill_groups"] = groups
+    out["prefill_groups"] = kernel_groups(out["prefill_kernels"])
     return out
 
 
@@ -3054,6 +3087,406 @@ def family_serve_phase(torch, card: str):
     return cases
 
 
+#: The train phase: hymba_1_5b at its published widths and depth (remat
+#: on, as its config says), bf16, AdamW (``parallel.plan_for``'s
+#: single-card plan), seeded weights; batches of TRAIN_BATCH x TRAIN_SEQ
+#: tokens (T twice the 1,024 window) from ``SyntheticCorpus`` through
+#: ``TokenPipeline`` on ``launch.train.make_store()``; one untimed step,
+#: then TRAIN_STEPS timed ones.
+TRAIN_ARCH = "hymba_1_5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+#: The float32 comparison's depth: layer 0 (global) and three windowed.
+TRAIN_F32_LAYERS = 4
+#: One step on the kernel route against the same step on the plain route
+#: from the same state: (relative difference of the loss, the largest
+#: per-leaf relative L2 difference of the gradients). float32: the
+#: attention kernel is within 2e-5 and the scan within 1e-4 of the plain
+#: versions, and the backward is the plain one. bfloat16: every
+#: activation rounds to bf16 and the embedding's backward accumulates
+#: with atomics; set from the first two runs on the card (PERF.md §2:
+#: loss 4.18e-6 and 1.32e-5 apart, the worst leaf 0.042 and 0.0851, a
+#: layer's SSM projection), with a margin of three.
+TRAIN_BARS = {"float32": (1e-4, 1e-3), "bfloat16": (1e-4, 0.25)}
+#: The loss of the step after a restore against the same step before the
+#: save (the restored state is bitwise the saved one; the forward has no
+#: atomics).
+TRAIN_RESUME_RTOL = 1e-6
+#: Kernel calls of the first step whose inputs the phase keeps: layer 0
+#: (global) and layer 1 (window) attention, layer 0's scan.
+TRAIN_KEEP = {"flash_attention": (0, 1), "selective_scan": (0,)}
+
+
+def grad_gap(torch, got, want):
+    """The largest per-leaf relative L2 difference ``|got - want| /
+    |want|`` (float32) and its leaf's name."""
+    from repro_torch.models.convert import tree_leaves, tree_paths
+
+    worst, where = 0.0, ""
+    for path, g, w in zip(tree_paths(want), tree_leaves(got),
+                          tree_leaves(want)):
+        num = float((g.float() - w.float()).norm())
+        den = float(w.float().norm())
+        r = num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+        if r > worst:
+            worst, where = r, "/".join(map(str, path))
+    return worst, where
+
+
+def trace_kernels(torch, fn):
+    """``(name, device ms, calls)`` of every kernel, copy and memset one
+    call of ``fn`` runs, from ``torch.profiler``'s own Chrome trace of the
+    device's activity (written under ``build/``, read, removed): a train
+    step launches some 360,000 kernels, which the profiler's per-event
+    Python processing takes minutes over."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = ROOT / "build" / f"trace_{os.getpid()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    path.unlink()
+    agg = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            ms, n = agg.get(e["name"], (0.0, 0))
+            agg[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return [(name, ms, n) for name, (ms, n) in agg.items()]
+
+
+def route_run(torch, cfg, params, batch, impl: str, trace: bool = False):
+    """``value_and_grad`` on one route (``impl``), the launch counts set
+    to 0 just before and read just after: its loss, gradients, host
+    seconds, launches and, with ``trace``, its device kernels
+    (:func:`trace_kernels`) and its ms by CUDA events."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.train.train_step import value_and_grad
+
+    fa_ops.reset_launch_counts()
+    ms_ops.reset_launch_counts()
+    out = {}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        out["vg"] = value_and_grad(cfg, params, batch, impl)
+        stop.record()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernels = trace_kernels(torch, run) if trace else run()
+    torch.cuda.synchronize()
+    loss, _, grads = out["vg"]
+    return dict(loss=float(loss), grads=grads, s=time.perf_counter() - t0,
+                ms=start.elapsed_time(stop), kernels=kernels,
+                attention=fa_ops.launch_counts()["flash_attention"],
+                scan=ms_ops.launch_counts())
+
+
+def compare_routes(torch, cfg, cu: dict, pl: dict, what: str, card: str):
+    """The kernel route's run ``cu`` against the plain route's ``pl``
+    (:func:`route_run`, one step from the same state and batch): each
+    kernel launched twice a layer on the kernel route (the forward and
+    remat's recompute) and never on the plain one; the loss's relative
+    difference and the gradients' largest per-leaf relative L2 difference
+    held to ``TRAIN_BARS``."""
+    dt_name = str(cfg.dtype).removeprefix("torch.")
+    want = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    check(cu["attention"] == cu["scan"]["selective_scan"] == want
+          and cu["scan"]["mamba_scan"] == 0,
+          f"train {what}: kernel route launched attention "
+          f"{cu['attention']} and the scan {cu['scan']} times, not {want} "
+          f"each")
+    check(pl["attention"] == pl["scan"]["selective_scan"]
+          == pl["scan"]["mamba_scan"] == 0,
+          f"train {what}: the plain route launched a kernel")
+    loss_gap = abs(cu["loss"] - pl["loss"]) / abs(pl["loss"])
+    g_gap, where = grad_gap(torch, cu["grads"], pl["grads"])
+    loss_bar, g_bar = TRAIN_BARS[dt_name]
+    log(f"train {what}: kernel route vs plain route, one step from the "
+        f"same state: loss {cu['loss']:.6f} vs {pl['loss']:.6f} (relative "
+        f"{loss_gap:.3g}, bar {loss_bar}); gradients' largest per-leaf "
+        f"relative L2 {g_gap:.3g} at {where} (bar {g_bar}); launches "
+        f"attention {cu['attention']} scan {cu['scan']['selective_scan']} "
+        f"(plain 0); host s kernel route {cu['s']:.2f}, plain route "
+        f"{pl['s']:.2f} [{card}]")
+    check(loss_gap <= loss_bar and g_gap <= g_bar,
+          f"train {what}: kernel and plain routes differ beyond the bars")
+
+
+def train_phase(torch, card: str):
+    """hymba_1_5b trained at full width and depth on the attention and
+    scan kernels (see the module notes). Returns the kernels line's cases:
+    the train step's windowed attention and scan, with their launches
+    over the timed steps."""
+    import shutil
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    from repro_torch.launch.train import make_store
+    from repro_torch.models import init_params
+    from repro_torch.parallel import plan_for
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+
+    def lap(what: str) -> None:
+        log(f"train phase: {what} at {time.perf_counter() - t_phase:.2f} s")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    plan = plan_for(cfg)
+    L = cfg.n_layers
+    check(cfg.remat and cfg.dtype == torch.bfloat16 and plan.optimizer ==
+          "adamw", f"train: {cfg.name}'s config or plan changed")
+    params, opt_state = init_train_state(
+        cfg, plan, torch.Generator(device="cuda").manual_seed(3131), "cuda")
+    w_bytes, o_bytes = tree_bytes(params), tree_bytes(opt_state)
+    step_fn = make_train_step(cfg, plan, impl="cuda")
+    opt = make_optimizer(plan.optimizer)
+    corpus = SyntheticCorpus(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                             n_shards=4 * (TRAIN_STEPS + 4))
+    pipe = TokenPipeline(corpus, store=make_store(), epochs=1)
+
+    def next_batch(p=pipe):
+        return {k: torch.from_numpy(v).cuda() for k, v in next(p).items()}
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train: {cfg.name} ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads on {cfg.n_kv_heads}, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
+        f"global layers {cfg.global_layers}, state {cfg.ssm_state}, "
+        f"remat {cfg.remat}; {cfg.param_count() / 1e9:.3f} B parameters), "
+        f"bf16, {plan.optimizer}, {plan.microbatches} microbatch, batches "
+        f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens; weights "
+        f"{w_bytes / 1e9:.3f} GB, optimizer state {o_bytes / 1e9:.3f} GB "
+        f"[{card}]")
+    # step 1, untimed, keeping layers 0 and 1's attention and layer 0's
+    # scan inputs
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with served_kernel_inputs(TRAIN_KEEP) as kept:
+        params, opt_state, m = step_fn(params, opt_state, next_batch())
+        metrics.append({k: float(v) for k, v in m.items()})
+    first_s = time.perf_counter() - t0
+    # steps 2..4 timed, the counts set to 0 just before; the state after
+    # step 2 saved asynchronously (and waited for before step 3)
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt = CheckpointManager(str(ckdir), keep=1)
+    fa_ops.reset_launch_counts()
+    ms_ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        batch = next_batch()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            t0 = time.perf_counter()
+            ckpt.save_async(2, params, opt_state,
+                            extra={"pipeline": pipe.state()})
+            snap_s = time.perf_counter() - t0
+            ckpt.wait()
+            write_s = time.perf_counter() - t0 - snap_s
+    launches = {**fa_ops.launch_counts(), **ms_ops.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    for n, m in enumerate(metrics, 1):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train: step {n} loss {m['loss']} grad norm {m['grad_norm']}")
+    want = TRAIN_STEPS * 2 * L
+    for key in ("flash_attention", "flash_attention_wgmma",
+                "selective_scan"):
+        check(launches[key] == want,
+              f"train: {key} launched {launches[key]} times in "
+              f"{TRAIN_STEPS} steps, not {want} (2 a layer a step: the "
+              f"forward and remat's recompute)")
+    check(launches["mamba_scan"] == 0, "train: mamba_scan launched")
+    mean_ms = float(np.mean(step_ms))
+    log(f"train: first step {first_s:.2f} s (untimed); steps "
+        f"{TRAIN_STEPS} timed: ms {[round(x, 2) for x in step_ms]}, mean "
+        f"{mean_ms:.2f} ms, {tokens / (mean_ms / 1e3):.1f} tokens/s; loss "
+        f"by step {[round(m['loss'], 5) for m in metrics]}, grad norm "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; launches "
+        f"attention {launches['flash_attention']} scan "
+        f"{launches['selective_scan']} mamba_scan 0; peak device memory "
+        f"{peak / 1e9:.3f} GB (weights {w_bytes / 1e9:.3f}, optimizer "
+        f"{o_bytes / 1e9:.3f}); checkpoint after step 2: host snapshot "
+        f"{snap_s:.2f} s, write {write_s:.2f} s, "
+        f"{sum(f.stat().st_size for f in ckdir.rglob('*.npy')) / 1e9:.3f} "
+        f"GB [{card}]")
+    lap("timed steps")
+
+    # step 5 profiled (the device's activity) in its two halves as
+    # make_train_step runs them: the kernel route's loss and gradients,
+    # then the optimizer's update; the plain backward of one global and
+    # one windowed attention layer and of one scan layer profiled alone at
+    # the step's kept inputs, counted per layer
+    batch = next_batch()
+    cu = route_run(torch, cfg, params, batch, "cuda", trace=True)
+    upd = {}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def update():
+        start.record()
+        upd["out"] = opt.update(cu["grads"], opt_state, params)
+        stop.record()
+
+    opt_k = trace_kernels(torch, update)
+    del upd
+    wall = cu["ms"] + start.elapsed_time(stop)
+    groups = kernel_groups(cu["kernels"] + opt_k)
+    busy = sum(groups.values())
+    n_kernels = sum(n for _, _, n in cu["kernels"] + opt_k)
+    lap("profiled step")
+
+    def alone(fn):
+        g = kernel_groups(trace_kernels(torch, fn))
+        return sum(g.values()), g["matmul"]
+
+    def detached(args, grad: bool):
+        return [a.detach().requires_grad_(grad) for a in args]
+
+    (q0, k0, v0), kw0 = kept["flash_attention"][0]
+    (q1, k1, v1), kw1 = kept["flash_attention"][1]
+    u_args, _ = kept["selective_scan"][0]
+    n_global = sum(cfg.layer_globals())
+    regions = {}
+    for name, args, fwd, n_calls in (
+            ("attention plain backward, global",
+             (q0, k0, v0), lambda *a: fa_ref.attention(
+                 *a, causal=True, window=kw0["window"]), n_global),
+            ("attention plain backward, window",
+             (q1, k1, v1), lambda *a: fa_ref.attention(
+                 *a, causal=True, window=kw1["window"]), L - n_global),
+            ("scan plain backward", u_args,
+             lambda *a: ms_ref.selective_scan(*a, return_state=True)[0], L)):
+        ins = detached(args, True)
+        gy = torch.randn_like(fwd(*detached(args, False)).float())
+        fn = lambda f=fwd, x=ins, g=gy: torch.autograd.grad(  # noqa: E731
+            f(*x).float(), x, g)
+        regions[name] = (*alone(fn), n_calls)
+    regions["optimizer"] = (sum(ms for _, ms, _ in opt_k),
+                            kernel_groups(opt_k)["matmul"], 1)
+    in_regions = sum(ms * n for ms, _, n in regions.values())
+    mm_else = max(0.0, groups["matmul"]
+                  - sum(mm * n for _, mm, n in regions.values()))
+    rest = max(0.0, busy - groups["attention"] - groups["scan"] - in_regions
+               - mm_else)
+    log(f"train profiled step (device activity; {n_kernels} kernels): "
+        f"{wall:.2f} ms by events ({cu['ms']:.2f} loss and gradients, "
+        f"{wall - cu['ms']:.2f} the update), device busy {busy:.2f} ms, "
+        f"idle share {1 - busy / wall:.4f}; by kernel name: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()) + f" [{card}]")
+    for name, (ms, mm, n) in regions.items():
+        log(f"  {name}: {ms:.3f} device ms a call ({mm:.3f} of it "
+            f"matrix products) x {n} a step = {ms * n:.2f} ms [{card}]")
+    log(f"train step device ms by group: attention kernel "
+        f"{groups['attention']:.2f}, scan kernel {groups['scan']:.2f}, "
+        + ", ".join(f"{name} {ms * n:.2f}"
+                    for name, (ms, _, n) in regions.items())
+        + f", matrix products elsewhere {mm_else:.2f}, the rest "
+          f"{rest:.2f}; idle share {1 - busy / wall:.4f} [{card}]")
+
+    # the plain route from the same state and batch (bf16, full depth)
+    compare_routes(torch, cfg, cu, route_run(torch, cfg, params, batch,
+                                             "torch"),
+                   f"bf16, {L} layers", card)
+    lap("bf16 comparison")
+
+    # the kernels line's cases: layer 1's attention and layer 0's scan at
+    # the step's inputs, against the plain versions and timed
+    cases = []
+    q, k, v = detached((q1, k1, v1), False)
+    kwd = {key: kw1[key] for key in ("causal", "window")}
+    out = fa_ops.flash_attention(q, k, v, impl="cuda", **kwd)
+    r = attention_numbers(torch, "train step layer 1 bf16", q, k, v, kwd,
+                          out, "wgmma", fa_ops._loader(cfg.hd))
+    cases.append(("flash_attention",
+                  f"{cfg.name} train step layer 1 (window {kwd['window']}; B "
+                  f"{q.shape[0]} nh {q.shape[1]} nkv {k.shape[1]} hd "
+                  f"{q.shape[3]} T=S {q.shape[2]} bf16; forward and remat "
+                  f"recompute, {TRAIN_STEPS} steps)",
+                  launches["flash_attention"], r))
+    sargs = detached(u_args, False)
+    y, h = ms_ops.selective_scan(*sargs, return_state=True, impl="cuda")
+    r = scan_numbers(torch, "train step layer 0", "selective_scan", sargs,
+                     y, h)
+    u = sargs[0]
+    cases.append(("selective_scan",
+                  f"{cfg.name} train step layer 0 (B {u.shape[0]} T "
+                  f"{u.shape[1]} D {u.shape[2]} N {sargs[2].shape[1]}, bf16 "
+                  f"u, B and C, final state; forward and remat recompute, "
+                  f"{TRAIN_STEPS} steps)", launches["selective_scan"], r))
+    del kept, q0, k0, v0, q1, k1, v1, u_args, q, k, v, out, sargs, y, h
+    del params, opt_state, batch, cu
+    torch.cuda.empty_cache()
+    lap("kernel cases")
+
+    # restore the state after step 2 into a fresh state; step 3 again
+    t0 = time.perf_counter()
+    fresh = init_train_state(cfg, plan, torch.Generator(device="cuda")
+                             .manual_seed(7), "cuda")
+    restored, at, extra = ckpt.restore({"params": fresh[0],
+                                        "opt": fresh[1]})
+    del fresh
+    restore_s = time.perf_counter() - t0
+    pipe2 = TokenPipeline(corpus, store=make_store(), epochs=1)
+    pipe2.restore(extra["pipeline"])
+    _, _, m = step_fn(restored["params"], restored["opt"], next_batch(pipe2))
+    again = float(m["loss"])
+    gap = abs(again - metrics[2]["loss"]) / abs(metrics[2]["loss"])
+    log(f"train checkpoint: restored step {at} into a fresh state in "
+        f"{restore_s:.2f} s; step 3 again: loss {again:.6f} vs "
+        f"{metrics[2]['loss']:.6f} (relative {gap:.3g}, bar "
+        f"{TRAIN_RESUME_RTOL}) [{card}]")
+    check(at == 2 and gap <= TRAIN_RESUME_RTOL,
+          "train: the step after a restore differs from the step after "
+          "the save")
+    del restored, m
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap("restore")
+
+    # float32 at full width, the depth cut to TRAIN_F32_LAYERS
+    f32 = cfg.replace(dtype=torch.float32, n_layers=TRAIN_F32_LAYERS)
+    p32 = init_params(f32, torch.Generator(device="cuda").manual_seed(3232),
+                      "cuda")
+    batch = next_batch()
+    compare_routes(torch, f32, route_run(torch, f32, p32, batch, "cuda"),
+                   route_run(torch, f32, p32, batch, "torch"),
+                   f"float32, {TRAIN_F32_LAYERS} layers (layer 0 global)",
+                   card)
+    del p32, batch
+    torch.cuda.empty_cache()
+    log(f"train store: {pipe.store.stats}, data wait "
+        f"{pipe.prefetcher.total_wait_s:.3f} s simulated")
+    log(f"train phase: {time.perf_counter() - t_phase:.2f} s")
+    return cases
+
+
 def launch_serve(arch: str, card: str) -> None:
     """``python -m repro_torch.launch.serve --arch <arch>`` as a
     subprocess, as a user runs it: exit 0 and its tok/s line."""
@@ -3120,6 +3553,8 @@ def main(argv=None) -> int:
     served = serve_phase(torch, card)
     torch.cuda.empty_cache()  # the phase's weights and activations
     served += family_serve_phase(torch, card)
+    torch.cuda.empty_cache()
+    served += train_phase(torch, card)
 
     days, n_files = args.days, 1_000_000
     specs = pricing_specs(days, n_files)

@@ -346,7 +346,8 @@ class KernelLib:
 
 def check_tensor(name: str, t, dtype, shape, device) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor of
-    ``shape`` on ``device``."""
+    ``shape`` on ``device``, and ``RuntimeError`` (:func:`refuse_grad`)
+    if it requires grad under grad mode."""
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, "
                          f"got {t.device}")
@@ -357,3 +358,20 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    refuse_grad(name, t)
+
+
+def refuse_grad(name: str, t) -> None:
+    """Raise ``RuntimeError`` if ``t`` requires grad while grad mode is on.
+    A kernel writes its outputs through raw pointers, so they would leave
+    with no ``grad_fn`` and autograd would pass around the kernel without
+    a word; the entries that have a backward (``flash_attention``,
+    ``selective_scan``) launch inside ``kernels.autograd.PlainBackward``,
+    whose forward runs with grad mode off."""
+    import torch
+
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name} requires grad, and this kernel has no backward: call "
+            f"it under torch.no_grad() or on detached inputs, or use the "
+            f"plain version (impl='torch')")

@@ -23,7 +23,10 @@ the dtype alone, never from a failure:
 The wrapper checks device, dtype, shape, contiguity and the alignment the
 loader's copies need (:func:`_copy_bytes`), launches on the current stream
 without synchronising, raises on a CUDA error and counts its launches per
-kernel and loader (:func:`launch_counts`); it has no fallback.
+kernel and loader (:func:`launch_counts`); it has no fallback. Under
+autograd the kernel route's backward is the plain version's, recomputed
+from the saved q, k and v (``kernels.autograd``; no backward kernel: the
+Pallas kernel has none either).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import kernel_with_plain_backward
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.registry import resolve_tick_impl
 
@@ -232,11 +236,23 @@ def _tf32x3_tile_check(q, k, v):
     return s, o
 
 
+def _kernel_route(q, k, v, causal: bool, window: int, launch=None):
+    """``launch`` (default: the kernel) on q, k and v; under autograd its
+    output's backward is the plain version's, recomputed
+    (``kernels.autograd``)."""
+    launch = launch or _attention_kernel
+    return kernel_with_plain_backward(
+        lambda q, k, v: launch(q, k, v, causal, window),
+        lambda q, k, v: ref.attention(q, k, v, causal=causal, window=window),
+        q, k, v)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     impl: str = "auto"):
     """``q [B, nh, T, hd]``, ``k/v [B, nkv, S, hd]`` (float32 or bfloat16)
     -> ``[B, nh, T, hd]`` in ``q.dtype``; see ``ref.attention`` for the
-    masks and the head mapping."""
+    masks and the head mapping. Differentiable on both routes: the kernel
+    route's backward is the plain version's."""
     if resolve_tick_impl(impl, q.device).use_kernel:
-        return _attention_kernel(q, k, v, causal, int(window))
+        return _kernel_route(q, k, v, causal, int(window))
     return ref.attention(q, k, v, causal=causal, window=window)

@@ -11,7 +11,10 @@ for CPU ones. The functions run where their tensors live; nothing is
 padded. The wrappers check device, dtype, shape and layout, size the
 launch to the card (:func:`scan_geometry`), launch on the current stream
 without synchronising, raise on a CUDA error and count their launches
-(:func:`launch_counts`, one name an entry); they have no fallback.
+(:func:`launch_counts`, one name an entry); they have no fallback. Under
+autograd the fused entry's backward is the plain version's, recomputed
+from its saved inputs (``kernels.autograd``); the contract entry, off the
+training path, has none and refuses inputs that require grad.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import kernel_with_plain_backward
 from repro_torch.kernels.mamba_scan import ref
 from repro_torch.kernels.registry import resolve_tick_impl
 
@@ -159,6 +163,7 @@ def _check_rows(name: str, t, dtype, shape, device) -> None:
                          f"got {tuple(t.shape)}")
     if t.stride(2) != 1 and t.shape[2] > 1:
         raise ValueError(f"{name}: expected unit stride along N")
+    _build.refuse_grad(name, t)
 
 
 def _selective_kernel(u, dt, A, Bm, Cm, return_state: bool):
@@ -203,13 +208,26 @@ def mamba_scan(dA, dBu, C, *, return_state: bool = False,
     return ref.mamba_scan(dA, dBu, C, return_state=return_state)
 
 
+def _selective_route(u, dt, A, Bm, Cm, return_state: bool, launch=None):
+    """``launch`` (default: the fused kernel) on the scan's inputs; under
+    autograd its outputs' backward is the plain version's, recomputed
+    (``kernels.autograd``), with gradients to u, dt, A, Bm and Cm (those
+    of the strided Bm and Cm come back contiguous)."""
+    launch = launch or _selective_kernel
+    return kernel_with_plain_backward(
+        lambda *a: launch(*a, return_state),
+        lambda *a: ref.selective_scan(*a, return_state=return_state),
+        u, dt, A, Bm, Cm)
+
+
 def selective_scan(u, dt, A, Bm, Cm, *, return_state: bool = False,
                    impl: str = "auto"):
     """``u [B, T, D]`` (float32 or bfloat16), ``dt [B, T, D] float32``
     (after the softplus), ``A [D, N] float32`` (``-exp(A_log)``), ``Bm,
     Cm [B, T, N]`` of ``u``'s type (column slices taken as they are) ->
     ``y [B, T, D] float32``, or ``(y, h_T [B, D, N])`` with
-    ``return_state``; see ``ref.selective_scan``."""
+    ``return_state``; see ``ref.selective_scan``. Differentiable on both
+    routes: the kernel route's backward is the plain version's."""
     if resolve_tick_impl(impl, u.device).use_kernel:
-        return _selective_kernel(u, dt, A, Bm, Cm, return_state)
+        return _selective_route(u, dt, A, Bm, Cm, return_state)
     return ref.selective_scan(u, dt, A, Bm, Cm, return_state=return_state)

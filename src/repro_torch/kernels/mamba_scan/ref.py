@@ -7,8 +7,11 @@
 ``repro.kernels.mamba_scan.ref:10`` ``mamba_scan_ref`` (and the final
 state against ``repro.models.ssm.ssm_scan_y``), and ``chip_smoke.py``
 holds the kernel against it on the card. PyTorch has no associative
-scan, so this walks T in order; the reference combines in a tree, so the
-two round differently (the tests' bar is 1e-4).
+scan, so this walks T in order (two launches a step, every ``h_t`` kept
+and read out against C at the end); the reference combines in a tree, so
+the two round differently (the tests' bar is 1e-4). Under autograd
+(training's backward of the kernel, ``kernels.autograd``) the loop is
+T steps of autograd nodes: slow, but it is the plain version.
 
 :func:`scan_inputs` forms dA and dBu from the recurrence's own inputs
 (``repro.models.ssm._ssm_inputs``' last three lines, which the port's
@@ -36,10 +39,14 @@ def mamba_scan(dA, dBu, C, return_state: bool = False):
     ``return_state``."""
     B, T, D, N = dA.shape
     h = torch.zeros((B, D, N), dtype=torch.float32, device=dA.device)
-    y = torch.empty((B, T, D), dtype=torch.float32, device=dA.device)
-    for t in range(T):
-        h = dA[:, t] * h + dBu[:, t]
-        y[:, t] = (h * C[:, t, None, :]).sum(-1)
+    hs = []
+    # unbind, not dA[:, t]: under autograd a step's slice would backprop
+    # through a zero tensor of dA's whole shape; unbind's backward stacks
+    for a, b in zip(dA.unbind(1), dBu.unbind(1)):
+        h = a * h + b
+        hs.append(h)
+    y = ((torch.stack(hs, 1) * C[:, :, None, :]).sum(-1) if hs else
+         torch.zeros((B, T, D), dtype=torch.float32, device=dA.device))
     return (y, h) if return_state else y
 
 

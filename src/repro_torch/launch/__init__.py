@@ -1,1 +1,2 @@
-"""Launch entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""Launch entry points of the port (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

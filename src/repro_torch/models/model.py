@@ -1,5 +1,5 @@
 """Decoder LMs (dense, MoE, SSM, hybrid, vision) and the enc-dec backbone
-for serving, the port's counterpart of ``repro.models.model``.
+for training and serving, the port's counterpart of ``repro.models.model``.
 
 Parameters are plain dictionaries of tensors in ``repro``'s layouts, with
 one difference: ``params["layers"]`` (and ``params["encoder"]["layers"]``)
@@ -12,16 +12,23 @@ sliding-window archs and scans stacked caches for the others); an enc-dec
 cache also holds one ``(k, v)`` of the encoder's output a layer
 (``cross_kv``, filled by prefill).
 
-Prefill runs every attention through the attention kernel (the decoder's
+Training (:func:`forward` -> ``(logits, aux)``, :func:`loss_fn`) and
+prefill run every attention through the attention kernel (the decoder's
 causal self-attention, the encoder's bidirectional one and
 cross-attention, T decoder queries against S encoder keys) and each SSM
 through the Mamba-scan kernel's fused entry, ``selective_scan``
 (``impl``: ``"auto"``, ``"cuda"`` or ``"torch"``, as
-``repro_torch.kernels.registry`` says); decode runs in plain PyTorch, as
-``repro``'s does. The MoE layer is ``models.moe``. The vision stub's patch
-embeddings (``batch["frontend"]``) are projected ahead of the text; the
-audio stub's frames (``batch["enc_input"]``) are projected into the
-encoder. Training (``loss_fn``) is not ported.
+``repro_torch.kernels.registry`` says); under autograd both kernels'
+backward is their plain version's (``kernels.autograd``). Where
+``cfg.remat`` is set, training recomputes each layer, decoder and
+encoder, in the backward (``torch.utils.checkpoint``, ``repro``'s
+``jax.checkpoint`` of its scan body), so each kernel runs twice a layer
+a step. Decode runs in plain PyTorch, as ``repro``'s does. The MoE layer
+is ``models.moe``; its load-balancing loss is summed over the layers
+into ``forward``'s ``aux``. The vision stub's patch embeddings
+(``batch["frontend"]``) are projected ahead of the text, and the loss
+reads the text's tail of the logits; the audio stub's frames
+(``batch["enc_input"]``) are projected into the encoder.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.registry import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -38,6 +46,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (
+    cross_entropy_loss,
     dense_init,
     init_embedding,
     init_mlp,
@@ -137,9 +146,10 @@ def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out,
     """The block after its attention and SSM halves (``repro``'s
     ``_layer_apply`` from the mix on): the residual, then ``cross`` (the
     layer's cross-attention of its normed input, enc-dec only), then the
-    MLP or the MoE layer."""
+    MLP or the MoE layer. Returns (x, aux): the MoE layer's
+    load-balancing loss, None for the other families."""
     if cfg.family == "ssm":
-        return x + ssm_out
+        return x + ssm_out, None
     if cfg.family == "hybrid":
         x = x + 0.5 * (rms_norm(attn_out, lp["norm_attn_out"], cfg.norm_eps)
                        + rms_norm(ssm_out, lp["norm_ssm_out"], cfg.norm_eps))
@@ -149,8 +159,20 @@ def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out,
         x = x + cross(rms_norm(x, lp["norm_cross"], cfg.norm_eps))
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if cfg.family == "moe":
-        return x + moe_mod.moe_layer(lp["moe"], cfg, h2)[0]
-    return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+        mo, aux = moe_mod.moe_layer(lp["moe"], cfg, h2)
+        return x + mo, aux
+    return (x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                       lp["mlp"]["w_down"]), None)
+
+
+def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` (one layer), recomputed in the backward instead of keeping
+    its activations where ``cfg.remat`` is set and grad mode is on:
+    ``torch.utils.checkpoint`` a layer at a time, ``repro``'s
+    ``jax.checkpoint`` of its scan body."""
+    if cfg.remat and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
 
 
 def _prefill_cross(cfg: ModelConfig, lp: Params, ekv, impl: str):
@@ -162,19 +184,24 @@ def _prefill_cross(cfg: ModelConfig, lp: Params, ekv, impl: str):
                              enc_kv=ekv, impl=impl)
 
 
+def _encoder_layer(cfg: ModelConfig, lp: Params, x, positions, impl: str):
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    x = x + attn_mod.attention(lp["attn"], cfg, h, positions, impl=impl,
+                               causal=False)
+    h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+
+
 def _encode(cfg: ModelConfig, params: Params, enc_in: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
     """Bidirectional encoder over [B, S, d] inputs: every layer's
     self-attention sees every position (``causal=False``)."""
     positions = torch.arange(enc_in.shape[1], device=enc_in.device).expand(
         enc_in.shape[:2])
+    layer = _remat(cfg, functools.partial(_encoder_layer, cfg))
     x = enc_in
     for lp in params["encoder"]["layers"]:
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attn_mod.attention(lp["attn"], cfg, h, positions, impl=impl,
-                                   causal=False)
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+        x = layer(lp, x, positions, impl)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -214,22 +241,52 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return x @ head.to(cfg.dtype)
 
 
+def _layer(cfg: ModelConfig, lp: Params, window: int, x, positions,
+           enc_out, impl: str):
+    """One decoder layer (``repro``'s ``_layer_apply``, with the layer's
+    cross keys and values projected from the encoder's output first, as
+    ``repro``'s scan body does). Returns (x, aux or None)."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    a = (attn_mod.attention(lp["attn"], cfg, h, positions, window, impl=impl)
+         if cfg.has_attention else None)
+    s = ssm_mod.ssm_block(lp["ssm"], cfg, h, impl) if cfg.has_ssm else None
+    ekv = (attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
+           if enc_out is not None else None)
+    return _mix(cfg, lp, x, a, s, _prefill_cross(cfg, lp, ekv, impl))
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            impl: str = "auto") -> torch.Tensor:
-    """Logits [B, T, V] of the whole sequence (the vision prefix
-    included), layer by layer: the port's own reference for
-    :func:`prefill` and :func:`decode_step`."""
+            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logits [B, T, V], aux)`` of the whole sequence (the vision
+    prefix included), layer by layer, as ``repro``'s: ``aux`` is the MoE
+    layers' load-balancing loss summed over the layers (float32, 0 for
+    the other families). The training path, and the port's own reference
+    for :func:`prefill` and :func:`decode_step`."""
     x, positions = embed_inputs(cfg, params, batch)
     enc_out = _encoder_output(cfg, params, batch, impl)
+    layer = _remat(cfg, functools.partial(_layer, cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, w in zip(params["layers"], layer_windows(cfg)):
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        a = (attn_mod.attention(lp["attn"], cfg, h, positions, w, impl=impl)
-             if cfg.has_attention else None)
-        s = ssm_mod.ssm_block(lp["ssm"], cfg, h, impl) if cfg.has_ssm else None
-        ekv = (attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
-               if enc_out is not None else None)
-        x = _mix(cfg, lp, x, a, s, _prefill_cross(cfg, lp, ekv, impl))
-    return _logits(cfg, params, x)
+        x, a = layer(lp, w, x, positions, enc_out, impl)
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``repro``'s training loss: the cross-entropy of the logits against
+    ``batch["labels"]`` (over ``batch["mask"]`` where given; the vision
+    prefix's logits cut off, the text's tail kept) plus
+    ``cfg.router_aux_weight`` times the MoE aux loss. Returns
+    ``(total, {"ce", "aux"})``."""
+    logits, aux = forward(cfg, params, batch, impl)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # stub frontend prefix: text tail only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    ce = cross_entropy_loss(logits, labels, batch.get("mask"))
+    total = ce + cfg.router_aux_weight * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving
@@ -293,7 +350,8 @@ def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
         ssm_out = y @ sp["out_proj"]
     if enc_out is not None:
         ekv = attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
-    x = _mix(cfg, lp, x, attn_out, ssm_out, _prefill_cross(cfg, lp, ekv, impl))
+    x, _ = _mix(cfg, lp, x, attn_out, ssm_out,
+                _prefill_cross(cfg, lp, ekv, impl))
     return x, new_entry, ekv
 
 
@@ -332,7 +390,7 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x, entry: Dict[str, Any],
     if cross_kv is not None:
         cross = functools.partial(attn_mod.decode_cross_attention,
                                   lp["cross"], cfg, enc_kv=cross_kv)
-    return _mix(cfg, lp, x, a_out, s_out, cross), new_entry
+    return _mix(cfg, lp, x, a_out, s_out, cross)[0], new_entry
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

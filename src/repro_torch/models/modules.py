@@ -4,7 +4,8 @@ port's counterpart of ``repro.models.modules``.
 Each function computes what ``repro``'s of the same name computes, in the
 same types: the norm in float32 with the ``1 + scale`` form, RoPE on
 float32 angles (a bf16 input is promoted to float32 by the products with
-``cos``/``sin``, as ``jnp`` promotes it, and cast back once). The inits
+``cos``/``sin``, as ``jnp`` promotes it, and cast back once), the
+training loss in float32. The inits
 draw from an explicit ``torch.Generator``, which lives on the device the
 tensors are made on; they give other numbers than ``jax.random`` from the
 same seed, so the tests carry ``repro``'s weights over
@@ -77,3 +78,18 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, dtype) -> Params:
 def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
     return torch.randn((vocab, d), generator=generator, dtype=torch.float32,
                        device=generator.device).to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits: [B, T, V]; labels: [B, T]. The mean negative log-likelihood
+    in float32, over the positions ``mask`` keeps (``repro``'s: the
+    masked sum over ``max(sum(mask), 1)``) or over all of them."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

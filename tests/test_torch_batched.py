@@ -31,6 +31,7 @@ from repro_torch.kernels.registry import resolve_tick_impl
 from repro_torch.sim.batched import TickLoop, run_sweep_torch, simulate_packed
 from repro_torch.sim.jobs import RetryPolicy
 from repro_torch.sim.sweep import run_sweep
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 TINY = dict(days=0.25, n_files=1000)

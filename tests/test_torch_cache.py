@@ -52,6 +52,7 @@ from repro_torch.sim.cache import (
 )
 from repro_torch.sim.sweep import ScenarioResult, SweepDriver, run_sweep
 from repro_torch.version import __version__
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: Smallest spec that still exercises cache dynamics and billing.
 TINY = dict(base="III", days=0.05, n_files=300, cache_tb=5.0)

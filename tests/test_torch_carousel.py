@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from repro.kernels.carousel_update import ops as jx_ops
 from repro_torch.kernels.carousel_update import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 NO_LAUNCHES = {"carousel_tick": 0, "engine_count": 0, "engine_tick": 0}
 

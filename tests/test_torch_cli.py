@@ -18,6 +18,7 @@ from repro_torch.cli import decide as decide_cli
 from repro_torch.cli import run_sweep as sweep_cli
 from repro_torch.core.scenarios import specs_from_mapping
 from repro_torch.sim.batched import run_sweep_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,6 +30,7 @@ import repro.sim.sweep as jx_sweep
 import repro_torch.core.scenarios as pt
 import repro_torch.sim.decide as pt_decide
 import repro_torch.sim.sweep as pt_sweep
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5  # tests/test_torch_batched.py's float bar against jnp
 

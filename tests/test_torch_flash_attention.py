@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.ops import flash_attention as jx_flash
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

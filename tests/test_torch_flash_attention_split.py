@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL, RTOL, UNEQUAL_SHARE = 4e-3, 8e-3, 0.01
 

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 2e-5
 

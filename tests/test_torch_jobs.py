@@ -42,6 +42,7 @@ from repro_torch.sim.faults import (
 )
 from repro_torch.sim.jobs import Job, JobRegistry, RetryPolicy, run_local_jobs
 from repro_torch.sim.sweep import SweepDriver, run_sweep
+from torch_threads import one_torch_thread  # noqa: F401
 
 TICK = 60.0
 

@@ -40,6 +40,7 @@ from torch_lane_inputs import (
     window_inputs,
     windows_inputs,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _gcs_numpy_oracle(want, sizes, used0, limit, n_passes):

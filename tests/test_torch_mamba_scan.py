@@ -32,6 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan import ops, ref
 from repro_torch.models import ssm
 from repro_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def scan_inputs(B, T, D, N, seed):

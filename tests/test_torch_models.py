@@ -45,6 +45,7 @@ from repro_torch.models.model import (
     layer_windows,
     prefill,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}

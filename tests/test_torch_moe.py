@@ -25,6 +25,7 @@ from repro import configs as jx_configs
 from repro.models import moe as jx_moe
 from repro_torch import configs
 from repro_torch.models import moe
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -23,6 +23,7 @@ from repro_torch.obs.metrics import (
 from repro_torch.obs.trace import Tracer, get_tracer
 from repro_torch.sim.batched import run_sweep_torch
 from repro_torch.sim.sweep import SweepDriver
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------------ metrics
 _ops = hs.lists(hs.tuples(

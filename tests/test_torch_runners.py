@@ -30,6 +30,7 @@ from repro_torch.sim.runners import (
 from repro_torch.sim.runners import worker
 from repro_torch.sim.runners.transport import recv_frame, send_frame
 from repro_torch.sim.sweep import run_sweep
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 TICK = 60.0

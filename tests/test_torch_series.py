@@ -39,6 +39,7 @@ from repro_torch.sim.batched import (
     simulate_packed,
 )
 from repro_torch.sim.sweep import run_sweep
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 QUICK = dict(days=0.1, n_files=1000)

@@ -44,6 +44,7 @@ from repro_torch.models import decode_step, forward, init_cache, prefill
 from repro_torch.models.convert import cache_to_numpy, params_from_numpy
 from repro_torch.serve import make_decode_step, make_prefill_step
 from repro_torch.serve.engine import Request, ServeLoop
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen3_4b", "gemma3_27b", "falcon_mamba_7b", "hymba_1_5b",
          "olmoe_1b_7b", "arctic_480b", "phi_3_vision_4_2b",
@@ -231,7 +232,7 @@ def test_prefill_and_decode_match_forward(arch):
     logits, cache = prefill(cfg, params, batch,
                             init_cache(cfg, B, MAX_LEN + fe, device="cpu"))
     step, _ = decode_step(cfg, params, tokens[:, T:], cache, T + fe)
-    full = forward(cfg, params, {**batch, "tokens": tokens})
+    full, _ = forward(cfg, params, {**batch, "tokens": tokens})
     assert full.shape == (B, fe + T + 1, cfg.vocab_size)
     torch.testing.assert_close(logits, full[:, fe + T - 1], **F32_TOL)
     torch.testing.assert_close(step, full[:, fe + T], **F32_TOL)

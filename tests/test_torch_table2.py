@@ -25,6 +25,7 @@ from repro.core.scenarios import with_seeds as jx_with_seeds
 from repro.sim.sweep import run_sweep as jx_run_sweep
 from repro_torch.core.scenarios import ScenarioSpec
 from repro_torch.sim.batched import run_sweep_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
 

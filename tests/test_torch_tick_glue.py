@@ -45,6 +45,7 @@ from torch_glue_inputs import (
     glue_state,
     kernel_wait_select,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 _INF = float("inf")
 

@@ -44,6 +44,7 @@ from torch_glue_inputs import (
     WS_VEC,
     kernel_wait_select,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 BIG = 2 ** 30
 
