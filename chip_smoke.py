@@ -155,6 +155,24 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    on the card (``transport="subprocess"``, ``lane_chunk=2``: each
    worker's chunks and busy seconds, the dispatcher's device memory
    unchanged);
+7b. mesh phase (``mesh_phase``): (a) the dry run
+   (``repro_torch.launch.dryrun``) of ``MESH_DRYRUN``'s four cells at full
+   width and depth on the 16x16 fake backend with fake ``cuda`` tensors
+   (qwen3_4b and arctic_480b ``train_4k``, olmoe_1b_7b ``prefill_32k``,
+   hymba_1_5b ``long_500k``), each ``ok``, with its trace seconds, one
+   rank's argument and peak GB beside the card's 80 GB, FLOPs, wire bytes
+   by kind and roofline terms (H100 datasheet figures); (b) on a one-rank
+   NCCL ``DeviceMesh`` of the card, real DTensors: olmoe_1b_7b's prefill
+   at full width and depth (one ``FAMILY_SERVE`` wave) against the
+   no-mesh prefill, logits bitwise or within ``SERVE_LOGIT_BARS``, and
+   one hymba_1_5b ``value_and_grad`` at full width and
+   ``MESH_TRAIN_LAYERS`` layers against PR 31's route from one state,
+   loss and every gradient bitwise or within ``TRAIN_BARS``, the kernels
+   on the ``cuda`` route with their launches counted (the kernels line's
+   attention and scan entries carry them as ``launches_mesh``), then one
+   ``make_train_step(mesh=...)`` step; (c) ``run_sweep(...,
+   shard=True)`` over the lane mesh of the visible cards on the sweep's
+   grid, every result bitwise the sweep phase's;
 8. decide phase, the §5.3 decision workflow through the port's front door
    (``sim.decide.decide`` on ``sim.sweep.SweepDriver(backend="torch",
    tick=10.0, tick_impl="cuda", device="cuda", cache=<dir>)``, the cache
@@ -3487,6 +3505,223 @@ def train_phase(torch, card: str):
     return cases
 
 
+#: The dry run's cells on the 16x16 fake backend (``launch.dryrun``), each
+#: at full width and depth.
+MESH_DRYRUN = (("qwen3_4b", "train_4k"), ("arctic_480b", "train_4k"),
+               ("olmoe_1b_7b", "prefill_32k"), ("hymba_1_5b", "long_500k"))
+#: The world-size-1 mesh path: olmoe_1b_7b's prefill at full width and
+#: depth (one FAMILY_SERVE wave) and one hymba_1_5b train step at full
+#: width and MESH_TRAIN_LAYERS layers, bf16.
+MESH_PREFILL_ARCH = "olmoe_1b_7b"
+MESH_TRAIN_LAYERS = 4
+CARD_GB = 80.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_dryrun(card: str) -> None:
+    """(a) The dry run's cells (``MESH_DRYRUN``) traced on the 16x16 fake
+    backend with fake ``cuda`` tensors: each must end ``ok``; prints its
+    trace seconds, one rank's argument and peak GB beside the card's 80
+    GB, FLOPs, wire bytes by kind and roofline terms."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape in MESH_DRYRUN:
+        rec = dryrun.run_cell(arch, shape, False)
+        log(f"mesh dry run: {dryrun.summary(rec)} (one rank of 256; the "
+            f"card holds {CARD_GB:g} GB) [{card}]")
+        check(rec["status"] == "ok",
+              f"mesh dry run: {arch} {shape} ended {rec['status']}: "
+              f"{rec.get('traceback', rec.get('error'))}")
+        mem, rl = rec["memory"], rec["roofline"]
+        log(f"  {arch} {shape}: plan {rec['plan']}; memory (bytes, one "
+            f"rank) {mem}; kernels {rec['kernels']}; bytes accessed "
+            f"{rec['cost']['bytes_accessed']:.4e}; collectives "
+            f"{rec['collectives']['count']}; roofline {rl}")
+
+
+def mesh_world_one(torch, card: str) -> dict:
+    """(b) The mesh path on a one-rank NCCL ``DeviceMesh`` of the card with
+    real DTensors, through the kernels on the ``cuda`` route: olmoe's
+    prefill against the no-mesh path, logits bitwise or within
+    ``SERVE_LOGIT_BARS``; one hymba train step's loss and gradients
+    against PR 31's route from one state, bitwise or within
+    ``TRAIN_BARS``. Returns the path's launches by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.parallel import plan_for
+    from repro_torch.parallel.ctx import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings,
+        cache_shardings,
+        param_shardings,
+        shard_tree,
+    )
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (
+        make_train_step,
+        shard_state,
+        value_and_grad,
+    )
+
+    launches = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        # olmoe prefill, full width and depth, bf16
+        cfg = get_config(MESH_PREFILL_ARCH).replace(dtype=torch.bfloat16)
+        prompt = next(p for a, _, p, _ in FAMILY_SERVE
+                      if a == MESH_PREFILL_ARCH)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(3232), "cuda")
+        batch, _ = family_batch(torch, cfg, prompt, None, 3232)
+        B, T = batch["tokens"].shape
+        cache = init_cache(cfg, B, T + 8, "cuda")
+        want, _ = prefill(cfg, params, batch, cache, impl="cuda")
+        plan = plan_for(cfg, "prefill_32k", mesh)
+        pd = shard_tree(params, mesh, param_shardings(mesh, plan, params))
+        del params
+        bd = shard_tree(batch, mesh, batch_shardings(mesh, batch))
+        cd = shard_tree(cache, mesh, cache_shardings(mesh, plan, cfg, cache))
+        del cache
+        step = make_prefill_step(cfg, "cuda", mesh=mesh,
+                                 moe_local_dispatch=plan.moe_local_dispatch,
+                                 no_ep=plan.no_ep)
+        torch.cuda.synchronize()
+        fa_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, _ = step(pd, bd, cd)
+        got = got.full_tensor()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_attn = fa_ops.launch_counts()["flash_attention"]
+        launches["flash_attention"] = n_attn
+        diff = float((got.float() - want.float()).abs().max())
+        bar = SERVE_LOGIT_BARS["bfloat16"]
+        log(f"mesh world 1: {cfg.name} prefill on a 1x1 DeviceMesh (DTensor "
+            f"weights, batch and cache; plan {plan}), {B} x {T} tokens, "
+            f"{wall:.2f} s: logits {'bitwise' if torch.equal(got, want) else f'max |diff| {diff:.6g} (bar {bar})'} "
+            f"against the no-mesh prefill; flash_attention launched {n_attn} "
+            f"times on the cuda route [{card}]")
+        check(n_attn == cfg.n_layers,
+              f"mesh world 1: attention launched {n_attn} times, not "
+              f"{cfg.n_layers}")
+        check(torch.equal(got, want) or diff <= bar,
+              f"mesh world 1: prefill logits differ by {diff}")
+        del pd, bd, cd, got, want
+        torch.cuda.empty_cache()
+
+        # one hymba train step, full width, MESH_TRAIN_LAYERS layers, bf16
+        cfg = get_config(TRAIN_ARCH).replace(n_layers=MESH_TRAIN_LAYERS)
+        plan = plan_for(cfg)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(3233), "cuda")
+        gen = torch.Generator().manual_seed(3233)
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen).cuda()
+        batch = {"tokens": toks[:, :-1].int().contiguous(),
+                 "labels": toks[:, 1:].int().contiguous()}
+        pl = route_run(torch, cfg, params, batch, "cuda")
+        pd = shard_tree(params, mesh, param_shardings(mesh, plan, params))
+        bd = shard_tree(batch, mesh, batch_shardings(mesh, batch))
+        fa_ops.reset_launch_counts()
+        ms_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sharding_ctx(mesh):
+            loss, _, gd = value_and_grad(cfg, pd, bd, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_attn = fa_ops.launch_counts()["flash_attention"]
+        n_scan = ms_ops.launch_counts()["selective_scan"]
+        launches["selective_scan"] = n_scan
+        launches["flash_attention"] += n_attn
+        loss_f = float(loss.full_tensor())
+        full = tree_map(lambda g: g.full_tensor(), gd)
+        del gd
+        bitwise = loss_f == pl["loss"] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(full),
+                                              tree_leaves(pl["grads"])))
+        loss_gap = abs(loss_f - pl["loss"]) / abs(pl["loss"])
+        g_gap, where = grad_gap(torch, full, pl["grads"])
+        loss_bar, g_bar = TRAIN_BARS["bfloat16"]
+        want_launch = 2 * cfg.n_layers  # the forward and remat's recompute
+        log(f"mesh world 1: {cfg.name} ({cfg.n_layers} layers, full width) "
+            f"value_and_grad on the 1x1 mesh, {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"tokens, {wall:.2f} s: "
+            + ("loss and every gradient leaf bitwise" if bitwise else
+               f"loss {loss_f:.6f} vs {pl['loss']:.6f} (relative "
+               f"{loss_gap:.3g}, bar {loss_bar}), gradients' largest "
+               f"per-leaf relative L2 {g_gap:.3g} at {where} (bar {g_bar})")
+            + f" against PR 31's route; launches attention {n_attn}, "
+              f"selective_scan {n_scan} (want {want_launch} each) [{card}]")
+        check(n_attn == n_scan == want_launch,
+              f"mesh world 1: train launches attention {n_attn} scan "
+              f"{n_scan}, not {want_launch}")
+        check(bitwise or (loss_gap <= loss_bar and g_gap <= g_bar),
+              "mesh world 1: the train step's loss or gradients beyond "
+              "the bars")
+        opt_step = make_train_step(cfg, plan, impl="cuda", mesh=mesh)
+        pd, od = shard_state(params, make_optimizer(plan.optimizer)
+                             .init(params), mesh, plan)
+        _, _, m = opt_step(pd, od, bd)
+        step_loss = float(m["loss"].full_tensor())
+        log(f"mesh world 1: make_train_step(mesh=...) one step, loss "
+            f"{step_loss:.6f} (value_and_grad's {loss_f:.6f})")
+        check(np.isfinite(step_loss), "mesh world 1: train step loss")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_phase(torch, card: str, specs, sweep_result) -> dict:
+    """The mesh phase: (a) the dry run, (b) the world-size-1 mesh path,
+    (c) ``run_sweep(..., shard=True)`` over the lane mesh of the visible
+    cards on the sweep's grid, bitwise to the sweep phase's results.
+    Returns (b)'s launches."""
+    from repro_torch.kernels.lane_tick import ops
+    from repro_torch.parallel.sharding import lane_mesh
+    from repro_torch.sim.sweep import run_sweep
+
+    t_phase = time.perf_counter()
+    mesh_dryrun(card)
+    t_a = time.perf_counter() - t_phase
+    launches = mesh_world_one(torch, card)
+    t_b = time.perf_counter() - t_phase - t_a
+    lanes = lane_mesh()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_sweep(specs, tick=10.0, tick_impl="cuda", device="cuda",
+                    shard=True)
+    wall = time.perf_counter() - t0
+    n = same_results(res, sweep_result, "mesh shard=True sweep")
+    counted = ops.launch_counts()
+    log(f"mesh sweep: run_sweep(shard=True) over the lane mesh of "
+        f"{lanes.size} card(s) ({[str(d) for d in lanes.devices]}), "
+        f"{len(specs)} specs in {wall:.2f} s: {n} results bitwise to the "
+        f"sweep phase's; lane-tick launches {counted} [{card}]")
+    check(all(v > 0 for v in counted.values()),
+          "mesh sweep: a lane-tick kernel was not launched")
+    log(f"mesh phase: dry run {t_a:.1f} s, world 1 {t_b:.1f} s, sweep "
+        f"{wall:.1f} s, whole phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def launch_serve(arch: str, card: str) -> None:
     """``python -m repro_torch.launch.serve --arch <arch>`` as a
     subprocess, as a user runs it: exit 0 and its tok/s line."""
@@ -3633,6 +3868,7 @@ def main(argv=None) -> int:
 
     execution_phase(torch, grid, specs, days, n_files, outs[False],
                     runs["cuda"], card)
+    mesh_launches = mesh_phase(torch, card, specs, runs["cuda"])
 
     decide_launches, decided = decide_phase(torch, days, n_files)
     cli_phase(torch, days, n_files, card, decided)
@@ -3676,6 +3912,10 @@ def main(argv=None) -> int:
                         "capture_ms", "chunk", "launches_decide")
                        if k in r})
                for name, case, n, r in cases]
+    for name, n in mesh_launches.items():  # the mesh path's own launches
+        for k in kernels:
+            if k["name"] == name:
+                k["launches_mesh"] = n
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} ({k['case']}) was not "
                                  f"launched on its path")

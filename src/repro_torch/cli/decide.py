@@ -174,8 +174,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "--workers local worker processes, 'local' "
                          "executes inline")
     ap.add_argument("--shard", action="store_true",
-                    help="refused: the JAX package's shard_map lane mesh "
-                         "has no counterpart in the port")
+                    help="run the lanes over the lane mesh of the local "
+                         "devices (every visible CUDA device, one "
+                         "contiguous block of lanes a device); bitwise "
+                         "the unsharded results. Requires --backend torch")
     ap.add_argument("--cross-check", action="store_true",
                     help="re-evaluate the baseline and final frontier on "
                          "the other backend; non-zero exit on disagreement")
@@ -290,9 +292,8 @@ def main(argv=None) -> int:
                           if flag != "--lane-chunk" else
                           "%s requires --backend torch", flag)
                 return 2
-    if args.shard:
-        log.error("--shard: the JAX package's shard_map lane mesh has no "
-                  "counterpart in the port")
+    if args.shard and args.backend != "torch":
+        log.error("--shard requires --backend torch")
         return 2
     device = None
     if args.backend == "torch" or args.cross_check:
@@ -328,7 +329,7 @@ def main(argv=None) -> int:
                              lane_chunk=args.lane_chunk, cache=cache_dir,
                              retry=retry, faults=args.faults,
                              job_timeout=args.job_timeout,
-                             transport=args.transport,
+                             transport=args.transport, shard=args.shard,
                              device=device if args.backend == "torch"
                              else None)
     except ValueError as e:  # malformed --faults plan, tick_impl on the CPU

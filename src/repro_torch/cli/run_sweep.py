@@ -183,8 +183,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(testing). Works with both backends; composes "
                          "with --retries/--faults/--job-timeout")
     ap.add_argument("--shard", action="store_true",
-                    help="refused: the JAX package's shard_map lane mesh "
-                         "has no counterpart in the port")
+                    help="run the lanes over the lane mesh of the local "
+                         "devices (every visible CUDA device, one "
+                         "contiguous block of lanes a device); bitwise "
+                         "the unsharded results. Requires --backend torch")
     ap.add_argument("--cache-dir", default=os.environ.get("REPRO_CACHE_DIR"),
                     metavar="DIR",
                     help="persistent result-cache directory (default: "
@@ -273,9 +275,8 @@ def main(argv=None) -> int:
                           " (use --curves for the process backend)"
                           if flag == "--record-series" else "")
                 return 2
-    if args.shard:
-        log.error("--shard: the JAX package's shard_map lane mesh has no "
-                  "counterpart in the port")
+    if args.shard and args.backend != "torch":
+        log.error("--shard requires --backend torch")
         return 2
     device = None
     if args.backend == "torch":
@@ -331,7 +332,8 @@ def main(argv=None) -> int:
                                record_series=args.record_series,
                                retry=retry, faults=args.faults,
                                job_timeout=args.job_timeout,
-                               transport=args.transport, device=device)
+                               transport=args.transport, device=device,
+                               shard=args.shard)
     except ValueError as e:  # e.g. a non-uniform grid on the torch backend
         log.error("%s", e)
         return 2

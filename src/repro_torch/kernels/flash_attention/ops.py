@@ -34,8 +34,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sharded
 from repro_torch.kernels.autograd import kernel_with_plain_backward
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.registry import resolve_tick_impl
@@ -252,7 +253,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """``q [B, nh, T, hd]``, ``k/v [B, nkv, S, hd]`` (float32 or bfloat16)
     -> ``[B, nh, T, hd]`` in ``q.dtype``; see ``ref.attention`` for the
     masks and the head mapping. Differentiable on both routes: the kernel
-    route's backward is the plain version's."""
-    if resolve_tick_impl(impl, q.device).use_kernel:
-        return _kernel_route(q, k, v, causal, int(window))
-    return ref.attention(q, k, v, causal=causal, window=window)
+    route's backward is the plain version's. DTensor inputs run each
+    rank's shards (``kernels.sharded``); ``impl="shape"`` is the dry
+    run's shape-only entry (fake tensors only)."""
+    if impl == "shape":
+        def run(q, k, v):
+            return sharded.attention_shape(q, k, v, causal=causal,
+                                           window=window)
+    elif resolve_tick_impl(impl, q.device).use_kernel:
+        def run(q, k, v):
+            return _kernel_route(q, k, v, causal, int(window))
+    else:
+        def run(q, k, v):
+            return ref.attention(q, k, v, causal=causal, window=window)
+    if isinstance(q, DTensor):
+        return sharded.sharded_attention(run, q, k, v)
+    return run(q, k, v)

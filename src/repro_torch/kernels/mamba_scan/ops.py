@@ -24,8 +24,9 @@ import functools
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sharded
 from repro_torch.kernels.autograd import kernel_with_plain_backward
 from repro_torch.kernels.mamba_scan import ref
 from repro_torch.kernels.registry import resolve_tick_impl
@@ -202,7 +203,10 @@ def mamba_scan(dA, dBu, C, *, return_state: bool = False,
                impl: str = "auto"):
     """``dA, dBu [B, T, D, N] float32``, ``C [B, T, N] float32`` ->
     ``y [B, T, D] float32``, or ``(y, h_T [B, D, N])`` with
-    ``return_state``; see ``ref.mamba_scan``."""
+    ``return_state``; see ``ref.mamba_scan``. ``impl="shape"``: the dry
+    run's shape-only entry (``kernels.sharded``)."""
+    if impl == "shape":
+        return sharded.mamba_scan_shape(dA, dBu, C, return_state=return_state)
     if resolve_tick_impl(impl, dA.device).use_kernel:
         return _scan_kernel(dA, dBu, C, return_state)
     return ref.mamba_scan(dA, dBu, C, return_state=return_state)
@@ -227,7 +231,18 @@ def selective_scan(u, dt, A, Bm, Cm, *, return_state: bool = False,
     Cm [B, T, N]`` of ``u``'s type (column slices taken as they are) ->
     ``y [B, T, D] float32``, or ``(y, h_T [B, D, N])`` with
     ``return_state``; see ``ref.selective_scan``. Differentiable on both
-    routes: the kernel route's backward is the plain version's."""
-    if resolve_tick_impl(impl, u.device).use_kernel:
-        return _selective_route(u, dt, A, Bm, Cm, return_state)
-    return ref.selective_scan(u, dt, A, Bm, Cm, return_state=return_state)
+    routes: the kernel route's backward is the plain version's. DTensor
+    inputs run each rank's shards (``kernels.sharded``); ``impl="shape"``
+    is the dry run's shape-only entry (fake tensors only)."""
+    if impl == "shape":
+        def run(*a):
+            return sharded.selective_scan_shape(*a, return_state=return_state)
+    elif resolve_tick_impl(impl, u.device).use_kernel:
+        def run(*a):
+            return _selective_route(*a, return_state)
+    else:
+        def run(*a):
+            return ref.selective_scan(*a, return_state=return_state)
+    if isinstance(u, DTensor):
+        return sharded.sharded_scan(run, u, dt, A, Bm, Cm, return_state)
+    return run(u, dt, A, Bm, Cm)

@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -61,7 +62,28 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("btd,dhk->bthk", x, w)`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    y = x @ w.reshape(d, h * k)
+    if isinstance(y, DTensor):
+        y = _whole_heads(y, h)
+    return y.unflatten(-1, (h, k))
+
+
+def _whole_heads(y, h: int):
+    """``y`` (a DTensor, heads x width in its last dim) with that dim
+    gathered where its shards would cut a head (DTensor may shard a
+    product's columns over a mesh dim that the heads do not divide)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = (-1, y.ndim - 1)
+    sharded = [m for m, p in enumerate(y.placements)
+               if isinstance(p, Shard) and p.dim in last]
+    n = 1
+    for m in sharded:
+        n *= y.device_mesh.size(m)
+    if h % n == 0:
+        return y
+    pl = [Replicate() if m in sharded else p for m, p in enumerate(y.placements)]
+    return y.redistribute(y.device_mesh, pl)
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -126,6 +148,8 @@ def _attend_one(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     [B, S, nkv, hd] read in place by each query head's group, ``valid``
     [S] the keys it may see (None: all). Returns [B, nh, hd] in q's
     type."""
+    if isinstance(q, DTensor):
+        return _attend_one_sharded(cfg, q, k, v, valid, softcap)
     B, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(B, nkv, nh // nkv, hd).float()
@@ -137,6 +161,50 @@ def _attend_one(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrs,bsgk->bgrk", w, v.float())
     return out.reshape(B, nh, hd).to(q.dtype)
+
+
+def _attend_one_sharded(cfg: ModelConfig, q, k, v, valid, softcap):
+    """:func:`_attend_one` on DTensors, each rank on its own rows and
+    heads (``local_map``: DTensor cannot split the query heads into kv
+    groups when either is sharded). q's batch and heads keep their
+    placements; k and v follow q's batch, their sequence gathered where
+    it is sharded (the cache's sequence-parallel layout), their kv heads
+    sharded like q's or replicated, when each rank reads its query heads'
+    kv heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    group = q.shape[1] // k.shape[2]
+    kv_pl, head_dim = [], None
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if isinstance(pq, Shard) and pq.dim == 1:  # query heads
+            kv_pl.append(Shard(2) if isinstance(pk, Shard) and pk.dim == 2
+                         else Replicate())
+            if not isinstance(kv_pl[-1], Shard):
+                head_dim = m
+        elif isinstance(pq, Shard) and pq.dim == 0:  # batch
+            kv_pl.append(Shard(0))
+        else:
+            kv_pl.append(Replicate())
+    k, v = (t.redistribute(mesh, kv_pl) for t in (k, v))
+    coord = mesh.get_local_rank(head_dim) if head_dim is not None else 0
+
+    def local(ql, kl, vl):
+        if head_dim is not None:  # this rank's query heads' kv heads
+            nl = ql.shape[1]
+            h0 = coord * nl
+            if nl % group and group % nl:
+                raise ValueError(f"decode attention: {nl} local query heads "
+                                 f"do not map onto whole kv heads")
+            a = h0 // group
+            kl = kl[:, :, a:a + max(nl // group, 1)]
+            vl = vl[:, :, a:a + max(nl // group, 1)]
+        return _attend_one(cfg, ql, kl, vl, valid, softcap)
+
+    qp = list(q.placements)  # a list: one tensor's (local_map)
+    return local_map(local, out_placements=qp,
+                     in_placements=(qp, kv_pl, kv_pl), device_mesh=mesh)(q, k, v)
 
 
 def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,

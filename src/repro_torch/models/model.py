@@ -29,6 +29,12 @@ into ``forward``'s ``aux``. The vision stub's patch embeddings
 (``batch["frontend"]``) are projected ahead of the text, and the loss
 reads the text's tail of the logits; the audio stub's frames
 (``batch["enc_input"]``) are projected into the encoder.
+
+On a mesh (parameters and batch as DTensors under
+``parallel.ctx.sharding_ctx``) the embedding's output and every layer's
+output pass ``shard_batch``, ``repro``'s anchors, and each layer's
+weights are gathered over the data axes first (``gather_fsdp``); on plain
+tensors both pass them through.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from repro_torch.models.modules import (
     rms_norm,
     swiglu,
 )
+from repro_torch.parallel.ctx import gather_fsdp, grad_placed, shard_batch
 
 Params = Dict[str, Any]
 
@@ -142,12 +149,17 @@ def layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
 
 # ------------------------------------------------------------------ forward
 def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out,
-         cross: Optional[Callable] = None):
+         cross: Optional[Callable] = None, shard_experts=None):
     """The block after its attention and SSM halves (``repro``'s
     ``_layer_apply`` from the mix on): the residual, then ``cross`` (the
     layer's cross-attention of its normed input, enc-dec only), then the
     MLP or the MoE layer. Returns (x, aux): the MoE layer's
-    load-balancing loss, None for the other families."""
+    load-balancing loss, None for the other families. On a mesh each
+    half's output is anchored to the batch sharding (``shard_batch``)
+    before it joins the residual: a row-parallel product leaves a partial
+    sum, which is reduced there rather than carried into the next
+    product."""
+    attn_out, ssm_out = shard_batch(attn_out), shard_batch(ssm_out)
     if cfg.family == "ssm":
         return x + ssm_out, None
     if cfg.family == "hybrid":
@@ -156,13 +168,14 @@ def _mix(cfg: ModelConfig, lp: Params, x, attn_out, ssm_out,
     else:
         x = x + attn_out
     if cross is not None:
-        x = x + cross(rms_norm(x, lp["norm_cross"], cfg.norm_eps))
+        x = x + shard_batch(cross(rms_norm(x, lp["norm_cross"], cfg.norm_eps)))
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if cfg.family == "moe":
-        mo, aux = moe_mod.moe_layer(lp["moe"], cfg, h2)
-        return x + mo, aux
-    return (x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                       lp["mlp"]["w_down"]), None)
+        mo, aux = moe_mod.moe_layer(lp["moe"], cfg, h2,
+                                    shard_experts=shard_experts)
+        return x + shard_batch(mo), aux
+    return (x + shard_batch(swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                                   lp["mlp"]["w_down"])), None)
 
 
 def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
@@ -185,11 +198,13 @@ def _prefill_cross(cfg: ModelConfig, lp: Params, ekv, impl: str):
 
 
 def _encoder_layer(cfg: ModelConfig, lp: Params, x, positions, impl: str):
+    lp = gather_fsdp(lp)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attn_mod.attention(lp["attn"], cfg, h, positions, impl=impl,
-                               causal=False)
+    x = x + shard_batch(attn_mod.attention(lp["attn"], cfg, h, positions,
+                                           impl=impl, causal=False))
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return x + shard_batch(swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                                  lp["mlp"]["w_down"]))
 
 
 def _encode(cfg: ModelConfig, params: Params, enc_in: torch.Tensor,
@@ -202,7 +217,7 @@ def _encode(cfg: ModelConfig, params: Params, enc_in: torch.Tensor,
     x = enc_in
     for lp in params["encoder"]["layers"]:
         x = layer(lp, x, positions, impl)
-    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    return rms_norm(x, gather_fsdp(params["encoder"]["final_norm"]), cfg.norm_eps)
 
 
 def _encoder_output(cfg: ModelConfig, params: Params,
@@ -217,7 +232,8 @@ def _encoder_output(cfg: ModelConfig, params: Params,
                          f"{cfg.frontend_dim or cfg.d_model}])")
     enc_in = batch["enc_input"]
     if cfg.frontend == "audio":
-        enc_in = enc_in.to(cfg.dtype) @ params["frontend_proj"]
+        enc_in = shard_batch(enc_in.to(cfg.dtype)
+                             @ gather_fsdp(params["frontend_proj"]))
     return _encode(cfg, params, enc_in, impl)
 
 
@@ -227,60 +243,67 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor
     positions [B, T] over prefix and text)."""
     check_family(cfg)
     tokens = batch["tokens"]
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = F.embedding(tokens.long(), gather_fsdp(params["embed"])).to(cfg.dtype)
     if cfg.frontend is not None and cfg.frontend != "audio" and "frontend" in batch:
-        fe = batch["frontend"].to(cfg.dtype) @ params["frontend_proj"]
+        fe = batch["frontend"].to(cfg.dtype) @ gather_fsdp(params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    return x, positions
+    return grad_placed(shard_batch(x)), positions
 
 
 def _logits(cfg: ModelConfig, params: Params, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
+    head = gather_fsdp(params["embed"] if cfg.tie_embeddings else params["lm_head"])
+    head = head.T if cfg.tie_embeddings else head
     return x @ head.to(cfg.dtype)
 
 
 def _layer(cfg: ModelConfig, lp: Params, window: int, x, positions,
-           enc_out, impl: str):
+           enc_out, impl: str, shard_experts=None):
     """One decoder layer (``repro``'s ``_layer_apply``, with the layer's
     cross keys and values projected from the encoder's output first, as
     ``repro``'s scan body does). Returns (x, aux or None)."""
+    lp = gather_fsdp(lp)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     a = (attn_mod.attention(lp["attn"], cfg, h, positions, window, impl=impl)
          if cfg.has_attention else None)
     s = ssm_mod.ssm_block(lp["ssm"], cfg, h, impl) if cfg.has_ssm else None
     ekv = (attn_mod.encode_cross_kv(lp["cross"], cfg, enc_out)
            if enc_out is not None else None)
-    return _mix(cfg, lp, x, a, s, _prefill_cross(cfg, lp, ekv, impl))
+    x, aux = _mix(cfg, lp, x, a, s, _prefill_cross(cfg, lp, ekv, impl),
+                  shard_experts)
+    return shard_batch(x), aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: str = "auto", shard_experts=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, T, V], aux)`` of the whole sequence (the vision
     prefix included), layer by layer, as ``repro``'s: ``aux`` is the MoE
     layers' load-balancing loss summed over the layers (float32, 0 for
     the other families). The training path, and the port's own reference
-    for :func:`prefill` and :func:`decode_step`."""
+    for :func:`prefill` and :func:`decode_step`. ``shard_experts``: the
+    MoE layer's EP hook (``parallel.sharding.expert_sharder``)."""
     x, positions = embed_inputs(cfg, params, batch)
     enc_out = _encoder_output(cfg, params, batch, impl)
     layer = _remat(cfg, functools.partial(_layer, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, w in zip(params["layers"], layer_windows(cfg)):
-        x, a = layer(lp, w, x, positions, enc_out, impl)
+        x, a = layer(lp, w, x, positions, enc_out, impl, shard_experts)
         if a is not None:
             aux = aux + a
     return _logits(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            impl: str = "auto", shard_experts=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``repro``'s training loss: the cross-entropy of the logits against
     ``batch["labels"]`` (over ``batch["mask"]`` where given; the vision
     prefix's logits cut off, the text's tail kept) plus
     ``cfg.router_aux_weight`` times the MoE aux loss. Returns
     ``(total, {"ce", "aux"})``."""
-    logits, aux = forward(cfg, params, batch, impl)
+    logits, aux = forward(cfg, params, batch, impl, shard_experts)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # stub frontend prefix: text tail only
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -323,6 +346,7 @@ def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
     a single pass (q/k/v projected once, the SSM scan run once). The
     entry's k/v are written in place. Returns (x_out, new_cache_entry,
     the layer's cross (k, v) or None)."""
+    lp = gather_fsdp(lp)
     T = x.shape[1]
     new_entry: Dict[str, Any] = {}
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -334,9 +358,12 @@ def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
         if S >= T:
             ck[:, :T], cv[:, :T] = k, v
         else:  # ring buffer shorter than prompt: keep the tail
+            # slot (j + roll) mod S takes the tail's step j: the tail rolled
+            # by `roll`, written as two slices (no index_put, which DTensor
+            # has no rule for)
             roll = (T - S) % S  # align ring slots with position mod S
-            idx = (torch.arange(S, device=x.device) + roll) % S
-            ck[:, idx], cv[:, idx] = k[:, T - S:], v[:, T - S:]
+            for c, t in ((ck, k[:, T - S:]), (cv, v[:, T - S:])):
+                c[:, :roll], c[:, roll:] = t[:, S - roll:], t[:, :S - roll]
         new_entry["kv"] = entry["kv"]
         attn_out = attn_mod.attention_core(lp["attn"], cfg, q, k, v, window,
                                            impl=impl)
@@ -367,6 +394,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     for lp, w, entry in zip(params["layers"], layer_windows(cfg), cache["layers"]):
         x, new_entry, ekv = _prefill_layer(cfg, lp, x, positions, w, entry,
                                            enc_out, impl)
+        x = shard_batch(x)
         new_list.append(new_entry)
         cross.append(ekv)
     new_cache: Dict[str, Any] = {"layers": new_list}
@@ -378,6 +406,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 def _decode_layer(cfg: ModelConfig, lp: Params, x, entry: Dict[str, Any],
                   t: int, window: int, cross_kv=None):
     """One layer of single-token decode: returns (x_out, new_entry)."""
+    lp = gather_fsdp(lp)
     new_entry: Dict[str, Any] = {}
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     a_out = s_out = cross = None
@@ -401,7 +430,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     read to the host). The cache's k/v are written in place."""
     check_family(cfg)
     t = int(t)
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = shard_batch(F.embedding(tokens.long(), gather_fsdp(params["embed"]))
+                    .to(cfg.dtype))
     if cfg.is_enc_dec and cache["cross_kv"] is None:
         raise ValueError(f"{cfg.name}: decode needs the encoder's keys and "
                          f"values, which prefill puts in the cache")

@@ -80,12 +80,26 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype) -> tor
                        device=generator.device).to(dtype)
 
 
+def full_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its last dim (the vocabulary) gathered onto every
+    rank, for the gold logit's gather and the greedy ``argmax``, which
+    DTensor cannot take on a sharded dim; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    last = {-1, x.ndim - 1}
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in last else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits: [B, T, V]; labels: [B, T]. The mean negative log-likelihood
     in float32, over the positions ``mask`` keeps (``repro``'s: the
     masked sum over ``max(sum(mask), 1)``) or over all of them."""
-    logits = logits.float()
+    logits = full_last_dim(logits.float())
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold

@@ -22,11 +22,13 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.mamba_scan import selective_scan
 from repro_torch.kernels.mamba_scan.ref import scan_inputs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel.ctx import reduce_partial
 
 Params = Dict[str, torch.Tensor]
 
@@ -50,7 +52,10 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: [B, T, di]; w: [K, di]."""
+    """Depthwise causal conv. x: [B, T, di]; w: [K, di]. On DTensors each
+    rank convolves its own rows and channels (:func:`_sharded_conv`)."""
+    if isinstance(x, DTensor):
+        return _sharded_conv(x, w, b)
     K = w.shape[0]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
@@ -59,11 +64,34 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return out + b
 
 
+def _sharded_conv(x, w, b):
+    """:func:`_causal_conv1d` through ``local_map``: x's batch and channel
+    shards kept, its time dim gathered where sharded (the conv reads K - 1
+    earlier steps), w and b sharded with the channels."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    xp, wp, bp = [], [], []
+    for p in x.placements:
+        chan = isinstance(p, Shard) and p.dim in (2, -1)
+        xp.append(p if isinstance(p, Shard) and p.dim in (0, 2, -1)
+                  else Replicate())
+        wp.append(Shard(1) if chan else Replicate())
+        bp.append(Shard(0) if chan else Replicate())
+    x = x.redistribute(mesh, xp)
+    w, b = w.redistribute(mesh, wp), b.redistribute(mesh, bp)
+    return local_map(_causal_conv1d, out_placements=xp,
+                     in_placements=(xp, wp, bp), device_mesh=mesh)(x, w, b)
+
+
 def _scan_params(p: Params, cfg: ModelConfig, u: torch.Tensor):
     """u: [B, T, di] (post conv+silu). Returns dt [B, T, di] f32, A [di, N]
     f32 and B, C [B, T, N] (column slices of the projection, u's type)."""
     n = cfg.ssm_state
-    dbc = u @ p["x_proj"]
+    # on a mesh, u's channels sharded leave the projection a partial sum:
+    # reduced before it is split (the all-reduce of Mamba's x_proj)
+    dbc = reduce_partial(u @ p["x_proj"])
     dt_low, Bm, Cm = torch.split(dbc, [cfg.dtr, n, n], dim=-1)
     dt = F.softplus((dt_low @ p["dt_proj_w"]).float() + p["dt_proj_b"])  # [B, T, di] f32
     A = -torch.exp(p["A_log"])  # [di, N] f32

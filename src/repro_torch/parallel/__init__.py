@@ -1,7 +1,25 @@
-"""Distribution layer, single-card part: the parallel plan's fields that
-one card uses (``repro.parallel``'s mesh, sharding rules and FSDP are
-not ported)."""
+"""Distribution layer: mesh axes, logical sharding rules, parallel plans and
+the activation-sharding context (``repro.parallel``'s counterpart on
+``torch.distributed``'s ``DeviceMesh`` and DTensor placements)."""
 
-from repro_torch.parallel.sharding import ParallelPlan, plan_for
+from repro_torch.parallel.sharding import (
+    LANES_AXIS,
+    ParallelPlan,
+    batch_shardings,
+    cache_shardings,
+    lane_mesh,
+    param_shardings,
+    placements,
+    plan_for,
+)
 
-__all__ = ["ParallelPlan", "plan_for"]
+__all__ = [
+    "LANES_AXIS",
+    "ParallelPlan",
+    "batch_shardings",
+    "cache_shardings",
+    "lane_mesh",
+    "param_shardings",
+    "placements",
+    "plan_for",
+]

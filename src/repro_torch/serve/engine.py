@@ -25,19 +25,29 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Params, decode_step, init_cache, prefill
+from repro_torch.models.modules import full_last_dim
+from repro_torch.parallel.ctx import sharding_ctx
 
 
-def make_prefill_step(cfg: ModelConfig, impl: str = "auto") -> Callable:
+def make_prefill_step(cfg: ModelConfig, impl: str = "auto", mesh=None,
+                      **ctx_opts) -> Callable:
+    """``prefill_step(params, batch, cache)``; with a ``mesh`` (DTensor
+    parameters, batch and cache) under ``sharding_ctx(mesh, **ctx_opts)``
+    (``moe_local_dispatch``, ``no_ep``)."""
     def prefill_step(params, batch, cache):
-        return prefill(cfg, params, batch, cache, impl=impl)
+        with sharding_ctx(mesh, **ctx_opts):
+            return prefill(cfg, params, batch, cache, impl=impl)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, mesh=None, **ctx_opts) -> Callable:
+    """``serve_step(params, tokens, cache, t)`` -> (next tokens, logits,
+    cache); ``mesh`` and ``ctx_opts`` as :func:`make_prefill_step`'s."""
     def serve_step(params, tokens, cache, t):
-        logits, new_cache = decode_step(cfg, params, tokens, cache, t)
-        next_tok = logits.argmax(-1)[:, None]
+        with sharding_ctx(mesh, **ctx_opts):
+            logits, new_cache = decode_step(cfg, params, tokens, cache, t)
+            next_tok = full_last_dim(logits).argmax(-1)[:, None]
         return next_tok, logits, new_cache
 
     return serve_step

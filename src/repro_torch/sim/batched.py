@@ -44,6 +44,9 @@ Around the tick program, as in the JAX package:
   :class:`TickLoop` of its own that is closed before the next chunk on its
   device (one graph pool a device at a time), dealt round-robin over
   ``devices=``;
+- the lane mesh (``shard=True``): one contiguous block of lanes on each
+  visible device at once (``parallel.sharding.lane_mesh``), concatenated
+  in lane order;
 - the resilient job path (``retry=``/``faults=``/``transport=``): the
   chunks as retryable jobs (``repro_torch.sim.jobs``), in-process or on a
   worker fleet (``repro_torch.sim.runners``), each completed chunk
@@ -83,6 +86,7 @@ from repro_torch.kernels.registry import (
 )
 from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.trace import get_tracer
+from repro_torch.parallel.sharding import lane_mesh
 from repro_torch.sim.cloud import bills_from_monthly_totals
 from repro_torch.sim.output import TimeSeries
 from repro_torch.sim.sweep import ScenarioResult, SweepResult
@@ -672,12 +676,11 @@ def _resolve_devices(device, devices) -> List[torch.device]:
             if d.type == "cuda" and d.index is None else d for d in devs]
 
 
-def _check_shard(shard: bool) -> None:
-    if shard:
-        raise ValueError(
-            "shard=True (the JAX package's shard_map lane mesh) has no "
-            "counterpart in the port: pass devices= to deal lane chunks "
-            "round-robin over CUDA devices")
+def _check_shard(shard: bool, devices) -> None:
+    if shard and devices is not None:
+        raise ValueError("shard=True builds a lane mesh over the local "
+                         "devices; devices= applies to the round-robin "
+                         "path only")
 
 
 #: Per-lane fields of ``PackedGrid``: what a lane chunk slices.
@@ -741,10 +744,7 @@ def _run_chunks(grid: PackedGrid, impl: TickImpl, devs: List[torch.device],
                     loops.append(TickLoop(
                         _chunk_grid(grid, _chunk_lanes(grid, start, stop, C)),
                         impl, dev, graph, record))
-                turn = T if len(loops) == 1 else _DEVICE_TURN_TICKS
-                for t0 in range(0, T, turn):
-                    for loop in loops:
-                        loop.advance(min(turn, T - t0))
+                _advance_together(loops, T)
                 for (_, (start, stop), _), loop in zip(batch, loops):
                     out = loop.result()
                     outs.append({k: v[:stop - start] for k, v in out.items()})
@@ -755,6 +755,60 @@ def _run_chunks(grid: PackedGrid, impl: TickImpl, devs: List[torch.device],
                     loop.close()
     out = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
     return out, capture_s, pool_bytes
+
+
+def _advance_together(loops: List["TickLoop"], T: int) -> None:
+    """Advance every loop ``T`` ticks, in turns of
+    :data:`_DEVICE_TURN_TICKS` when there are several, so each device has
+    work in flight while the others take theirs."""
+    turn = T if len(loops) == 1 else _DEVICE_TURN_TICKS
+    for t0 in range(0, T, turn):
+        for loop in loops:
+            loop.advance(min(turn, T - t0))
+
+
+def _simulate_sharded(grid: PackedGrid, impl: TickImpl, mesh, graph: bool,
+                      record, lane_chunk: Optional[int]):
+    """``shard=True``: the lanes (a chunk of ``lane_chunk`` at a time,
+    rounded up to a multiple of the mesh's size, else all of them) padded
+    to a multiple of the lane mesh's size by repeating the last lane, cut
+    into one contiguous block a device of ``mesh``
+    (``parallel.sharding.lane_mesh``), the blocks run together on their
+    devices (:func:`_advance_together`) and concatenated in lane order.
+    Lanes never interact, so each lane's results are bitwise those of the
+    unsharded run. Returns what :func:`_simulate` does."""
+    if lane_chunk is not None and lane_chunk <= 0:
+        raise ValueError(f"lane_chunk must be > 0, got {lane_chunk!r}")
+    n, L, T = mesh.size, grid.n_lanes, grid.n_ticks
+    C = L if lane_chunk is None or lane_chunk >= L else int(lane_chunk)
+    C = -(-C // n) * n  # each chunk shards evenly
+    b = C // n
+    tracer = get_tracer()
+    outs: List[Dict[str, np.ndarray]] = []
+    capture_s, pool_bytes = 0.0, 0
+    for start in range(0, L, C):
+        stop = min(start + C, L)
+        lanes = _chunk_lanes(grid, start, stop, C)
+        loops: List[TickLoop] = []
+        with tracer.span("simulate_packed.chunk", chunk=start // C,
+                         lanes=stop - start, tick_impl=impl.name, shards=n):
+            try:
+                for i, dev in enumerate(mesh.devices):
+                    block = {k: v[i * b:(i + 1) * b] for k, v in lanes.items()}
+                    loops.append(TickLoop(_chunk_grid(grid, block), impl, dev,
+                                          graph, record))
+                _advance_together(loops, T)
+                parts = [loop.result() for loop in loops]
+                outs.append({k: np.concatenate([p[k] for p in parts],
+                                               axis=0)[:stop - start]
+                             for k in parts[0]})
+                capture_s += sum(loop.capture_s for loop in loops)
+                pool_bytes = max([pool_bytes] + [loop.pool_bytes for loop in loops])
+            finally:
+                for loop in loops:
+                    loop.close()
+    out = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
+    return out, capture_s, pool_bytes, len(outs)
 
 
 def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
@@ -788,14 +842,25 @@ def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
     S, 3]``; convert with :func:`series_from_capture`. Capture off runs
     the tick without capture, so those results stay bitwise the same.
 
-    ``shard=True`` raises: the port deals lane chunks over ``devices=``.
+    ``shard=True`` runs the lanes over the ``"lanes"`` mesh of the local
+    devices of ``device``'s type (``parallel.sharding.lane_mesh``: every
+    visible CUDA device, or the CPU): one contiguous block of lanes a
+    device, padded by repeating the last lane, run together and
+    concatenated in lane order, bitwise the unsharded result
+    (:func:`_simulate_sharded`). ``lane_chunk`` still bounds memory, each
+    chunk sharded; ``devices=`` is the round-robin path's knob and raises
+    together with ``shard``.
     """
-    _check_shard(shard)
+    _check_shard(shard, devices)
     record = _normalize_record(record_series, grid.n_ticks)
     devs = _resolve_devices(device, devices)
     impl = resolve_tick_impl(tick_impl, devs[0])
-    return _simulate(grid, impl, devs, graph=impl.use_kernel and not _eager,
-                     record=record, lane_chunk=lane_chunk)[0]
+    graph = impl.use_kernel and not _eager
+    if shard:
+        return _simulate_sharded(grid, impl, lane_mesh(device_type=devs[0].type),
+                                 graph, record, lane_chunk)[0]
+    return _simulate(grid, impl, devs, graph=graph, record=record,
+                     lane_chunk=lane_chunk)[0]
 
 
 def _simulate(grid: PackedGrid, impl: TickImpl, devs: List[torch.device],
@@ -944,7 +1009,8 @@ def lane_chunk_runner(ctx: Dict, loops: Optional[list] = None) -> Callable:
     padded to the chunk size by the dispatcher; the runner runs it on a
     :class:`TickLoop` of its own, closed when the attempt ends, raised or
     not, and drops the padding, so its results are bitwise those of the
-    serial run. A ``cuda`` context where CUDA is missing raises in the
+    serial run; with ``ctx["shard"]`` each payload runs over the lane mesh
+    of the runner's local devices. A ``cuda`` context where CUDA is missing raises in the
     attempt (the device rule): nothing runs on the CPU instead. ``loops``,
     when given, collects each finished attempt's closed loop (its capture
     seconds and graph pool bytes).
@@ -956,6 +1022,10 @@ def lane_chunk_runner(ctx: Dict, loops: Optional[list] = None) -> Callable:
         dev = resolve_device(device)
         impl = resolve_tick_impl(tick_impl, dev)
         grid = _chunk_grid(template, payload["chunk"])
+        if ctx.get("shard"):
+            out = _simulate_sharded(grid, impl, lane_mesh(device_type=dev.type),
+                                    impl.use_kernel, record, None)[0]
+            return {k: v[:payload["n"]] for k, v in out.items()}
         out, loop = _run_loop(grid, impl, dev, graph=impl.use_kernel,
                               record=record)
         if loops is not None:
@@ -969,7 +1039,8 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
                           device: torch.device, lane_chunk: Optional[int],
                           record, faults, retry, job_timeout,
                           journal: Optional[Callable],
-                          workers: Optional[int] = None, transport=None):
+                          workers: Optional[int] = None, transport=None,
+                          shard: bool = False):
     """Run a packed grid as retryable lane-chunk jobs.
 
     Each job runs one fixed-size slice of the grid's lanes through
@@ -978,6 +1049,9 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
     are journaled through ``journal`` as they land (checkpointed resume);
     abandoned chunks leave their lanes out of the stitched output and are
     reported by the returned registry.
+
+    ``shard`` runs each chunk over the lane mesh of the local devices of
+    the process that runs it (:func:`_simulate_sharded`).
 
     ``transport`` engages the worker fleet (``repro_torch.sim.runners``):
     up to ``workers`` persistent workers, each given the init context
@@ -1000,6 +1074,9 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
     else:
         C = min(L, _FLEET_LANE_CHUNK if transport is not None
                 else _RESILIENT_LANE_CHUNK)
+    if shard:  # chunks shard evenly over this process's lane mesh
+        n = lane_mesh(device_type=device.type).size
+        C = -(-C // n) * n
     spec_of_chunk: Dict[tuple, list] = {}
     jobs_list = []
     for start in range(0, L, C):
@@ -1027,7 +1104,7 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
                      for si in spec_of_chunk[(start, stop)]])
 
     ctx = {"kind": "lanes", "tick_impl": impl.name, "device": str(device),
-           "record": record,
+           "record": record, "shard": shard,
            "grid": _chunk_grid(grid, _chunk_lanes(grid, 0, 0, 0))}
     policy = retry if retry is not None else joblib.RetryPolicy()
     tracer = get_tracer()
@@ -1106,7 +1183,9 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     plain path is untouched when none of ``retry``/``faults``/``transport``
     is given. ``transport``/``workers`` drain the chunk jobs through the
     worker fleet (``repro_torch.sim.runners``). Round-robin over
-    ``devices`` is not combined with the job path; ``shard=True`` raises.
+    ``devices`` is not combined with the job path. ``shard=True`` runs
+    the lanes over the lane mesh of the local devices
+    (:func:`simulate_packed`), each chunk job sharded on the job path.
 
     Telemetry: spans ``pack_specs`` and ``simulate_packed``, then one
     ``sweep.torch`` instant event with the call's specs, lanes, ticks,
@@ -1117,7 +1196,7 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     ``sweep.torch.pack_s`` and ``sweep.torch.wall_s``."""
     from repro_torch.sim.faults import as_faults
 
-    _check_shard(shard)
+    _check_shard(shard, devices)
     faults = as_faults(faults)
     resilient = (retry is not None or faults is not None
                  or transport is not None)
@@ -1142,10 +1221,14 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
                 grid, impl=impl, device=devs[0], lane_chunk=lane_chunk,
                 record=record, faults=faults, retry=retry,
                 job_timeout=job_timeout, journal=journal, workers=workers,
-                transport=transport)
+                transport=transport, shard=shard)
             n_chunks = len(registry.jobs)
             capture_s = sum(loop.capture_s for loop in loops)
             pool_bytes = max((loop.pool_bytes for loop in loops), default=0)
+        elif shard:
+            out, capture_s, pool_bytes, n_chunks = _simulate_sharded(
+                grid, impl, lane_mesh(device_type=devs[0].type),
+                impl.use_kernel, record, lane_chunk)
         else:
             out, capture_s, pool_bytes, n_chunks = _simulate(
                 grid, impl, devs, graph=impl.use_kernel, record=record,

@@ -24,8 +24,10 @@ capture (``record_series``), lane chunks and device round-robin
 they land) and the worker fleet (``transport``, ``workers``). The batched
 program's knobs (``tick_impl``, ``device``, ``record_series``,
 ``lane_chunk``, ``devices``) raise on ``backend="process"``, as they do in
-the JAX package. ``shard`` (the JAX package's ``shard_map`` lane mesh) has
-no counterpart in the port and raises ``ValueError``.
+the JAX package. ``shard`` runs the lanes over the lane mesh of the local
+devices (``repro_torch.sim.batched.simulate_packed``); it applies to
+``backend="torch"`` only and raises on ``"process"``, as in the JAX
+package.
 
 The event engine is host code: this module, the engine and the process
 backend's workers import neither torch nor a device (the batched program
@@ -280,10 +282,8 @@ def _check_backend(backend: str, shard: bool) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected 'torch' "
                          "or 'process')")
-    if shard:
-        from repro_torch.sim.batched import _check_shard  # imports us
-
-        _check_shard(shard)
+    if shard and backend != "torch":
+        raise ValueError("shard applies to backend='torch' only")
 
 
 def _check_process_knobs(backend: str, tick_impl: str, device, devices,
@@ -406,7 +406,9 @@ def run_sweep(specs: Sequence[ScenarioSpec],
     unfinished ones; ``faults`` with ``corrupt > 0`` reads the cache
     through a ``FaultyBackend``. ``transport``/``workers``: the jobs on a
     worker fleet (``repro_torch.sim.runners``; ``"subprocess"``,
-    ``"local"`` or a factory). ``shard=True`` raises ``ValueError``.
+    ``"local"`` or a factory). ``shard`` (``backend="torch"`` only): the
+    lanes over the lane mesh of the local devices, one contiguous block a
+    device, bitwise the unsharded results.
     """
     _check_backend(backend, shard)
     _check_process_knobs(backend, tick_impl, device, devices, lane_chunk,
@@ -434,7 +436,8 @@ def run_sweep(specs: Sequence[ScenarioSpec],
         knobs = dict(progress=progress, lane_chunk=lane_chunk,
                      devices=devices, record_series=record_series,
                      retry=retry, faults=faults, job_timeout=job_timeout,
-                     workers=workers, transport=transport, device=device)
+                     workers=workers, transport=transport, device=device,
+                     shard=shard)
 
         def simulate(todo, journal) -> SweepResult:
             return run_sweep_torch(todo, tick=tick, tick_impl=impl,
@@ -568,7 +571,7 @@ class SweepDriver:
     engaged (always on ``"process"``), each round's completed jobs are
     journaled into the cache as they land. ``failures`` accumulates every round's ``JobFailure``
     reports, which the decision layer reads to degrade its claims.
-    ``shard=True`` raises ``ValueError``.
+    ``shard`` passes through to every ``run_sweep`` call.
     """
 
     def __init__(self, backend: str = "torch", tick: float = 10.0,
@@ -610,6 +613,7 @@ class SweepDriver:
         self.faults = as_faults(faults)
         self.job_timeout = job_timeout
         self.transport = transport
+        self.shard = shard
         if cache is not None:
             from repro_torch.sim.cache import as_cache
 
@@ -663,7 +667,7 @@ class SweepDriver:
                             record_series=self.record_series,
                             retry=self.retry, faults=self.faults,
                             job_timeout=self.job_timeout,
-                            transport=self.transport,
+                            transport=self.transport, shard=self.shard,
                             device=None if self.devices else self.device,
                             _journal=journal)
             self.sweep_calls += 1

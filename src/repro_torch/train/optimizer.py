@@ -25,8 +25,10 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.convert import (
+    _transpose_layers,
     stack_layers,
     tree_leaves,
     tree_map,
@@ -55,6 +57,23 @@ def _pick(guide, out, i: int):
     """Item ``i`` of the tuples at ``guide``'s leaves in ``out`` (the
     result of a :func:`tree_map` whose function returned tuples)."""
     return tree_map(lambda _, o: o[i], guide, out)
+
+
+def _index_lists(tree, i: int):
+    """``tree`` (dictionaries of per-layer lists) at layer ``i``."""
+    if isinstance(tree, list):
+        return tree[i]
+    return {k: _index_lists(v, i) for k, v in tree.items()}
+
+
+def _replicated(t):
+    """A DTensor gathered onto every rank (a small statistic); a plain
+    tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
 def _step0(params) -> torch.Tensor:
@@ -134,10 +153,79 @@ def adafactor(cfg: OptConfig = OptConfig()) -> Optimizer:
             newp = p.float() - cfg.lr * (upd + cfg.weight_decay * p.float())
             return new_st, newp.to(p.dtype)
 
+        if isinstance(tree_leaves(params)[0], DTensor):
+            new_p, new_s = _by_layer(grads, state["stats"], params, beta, one)
+            return new_p, {"stats": new_s, "step": step}
         sp = stack_layers(params)
         out = tree_map(one, stack_layers(grads), state["stats"], sp)
         return (unstack_layers(_pick(sp, out, 1)),
                 {"stats": _pick(sp, out, 0), "step": step})
+
+    def _leaf(gs, st, ps, beta, stacked: bool):
+        """:func:`update`'s step of one stacked leaf kept as its per-layer
+        tensors ``gs``/``ps`` (one each outside ``"layers"``): the
+        statistics of each layer's slice, the clipping RMS over all of
+        them together."""
+        upds, news = [], []
+        for i, (g, p) in enumerate(zip(gs, ps)):
+            old = {k: v[i] for k, v in st.items()} if stacked else st
+            g = g.float()
+            g2 = g * g + 1e-30
+            if "vr" in old:
+                vr = beta * old["vr"] + (1 - beta) * g2.mean(-1)
+                vc = beta * old["vc"] + (1 - beta) * g2.mean(-2)
+                denom = vr.mean(-1, keepdim=True).clamp_min(1e-30)
+                prec = (vr[..., None] / denom[..., None]) * vc[..., None, :]
+                upds.append(g * torch.rsqrt(prec + 1e-30))
+                news.append({"vr": vr, "vc": vc})
+            else:
+                v = beta * old["v"] + (1 - beta) * g2
+                upds.append(g * torch.rsqrt(v + 1e-30))
+                news.append({"v": v})
+        sq = sum((u * u).sum() for u in upds)
+        rms = torch.sqrt(sq / sum(u.numel() for u in upds) + 1e-30)
+        scale = (rms / cfg.clip_threshold).clamp_min(1.0)
+        new_ps = [(p.float() - cfg.lr * (u / scale + cfg.weight_decay * p.float())
+                   ).to(p.dtype) for u, p in zip(upds, ps)]
+        if not stacked:
+            return news[0], new_ps[0]
+        return ({k: torch.stack([_replicated(n[k]) for n in news])
+                 for k in news[0]}, new_ps)
+
+    def _by_layer(grads, stats, params, beta, one):
+        """The update on DTensors without stacking them (DTensor cannot
+        stack sharded layers in place): each ``"layers"`` leaf's per-layer
+        tensors through :func:`_leaf`, the statistics kept stacked and
+        replicated, as ``train_step.shard_state`` places them. Returns
+        (params, stats)."""
+        new_p: dict = {}
+        new_s: dict = {}
+        for k, p in params.items():
+            if k == "layers" and isinstance(p, list):
+                new_s[k], per = _layer_leaves(
+                    _transpose_layers(grads[k]), stats[k],
+                    _transpose_layers(p), beta, one)
+                new_p[k] = [_index_lists(per, i) for i in range(len(p))]
+            elif isinstance(p, dict):
+                new_p[k], new_s[k] = _by_layer(grads[k], stats[k], p, beta, one)
+            else:
+                new_s[k], new_p[k] = _leaf([grads[k]], stats[k], [p], beta,
+                                           False)
+        return new_p, new_s
+
+    def _layer_leaves(g, st, p, beta, one):
+        """:func:`_leaf` at each list of ``p`` (a dictionary of per-layer
+        lists); returns (stacked stats, the same dictionary of new
+        per-layer lists)."""
+        if isinstance(p, list):
+            if p[0].ndim >= 2:
+                return _leaf(g, st, p, beta, True)
+            # a 1-d weight factors over its layers: stacked (it is small)
+            new_st, new_p = one(torch.stack([_replicated(t) for t in g]), st,
+                                torch.stack([_replicated(t) for t in p]))
+            return new_st, list(new_p.unbind(0))
+        out = {k: _layer_leaves(g[k], st[k], p[k], beta, one) for k in p}
+        return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
 
     return Optimizer(init, update)
 

@@ -178,7 +178,9 @@ def test_front_door_forwards_and_rejects_later_knobs(pricing_grid,
               dict(retry=RetryPolicy()), dict(faults="seed=3"),
               dict(transport="local", workers=2, lane_chunk=1),
               dict(retry=RetryPolicy(), job_timeout=60.0),
-              dict(devices=["cpu", "cpu"])]
+              dict(devices=["cpu", "cpu"]), dict(shard=True),
+              dict(shard=True, lane_chunk=1),
+              dict(shard=True, retry=RetryPolicy())]
     for knobs in served:
         where = {} if "devices" in knobs else {"device": "cpu"}
         got_k = run_sweep(few, tick=60.0, **where, **knobs)
@@ -187,9 +189,12 @@ def test_front_door_forwards_and_rejects_later_knobs(pricing_grid,
             assert a.metrics == b.metrics, knobs
             assert a.cost_usd == b.cost_usd, knobs
             assert bool(a.series) == ("record_series" in knobs), knobs
-    # only shard, which has no counterpart, and unknown keywords raise
+    # shard is served too (the lane mesh of the CPU, bitwise above); with
+    # devices= or on the process backend it raises, as in repro
+    with pytest.raises(ValueError, match="devices="):
+        run_sweep(few, devices=["cpu"], shard=True)
     with pytest.raises(ValueError, match="shard"):
-        run_sweep(few, device="cpu", shard=True)
+        run_sweep(few, backend="process", shard=True)
     with pytest.raises(TypeError):
         run_sweep(few, device="cpu", bogus=2)
     with pytest.raises(ValueError, match="tick_impl"):

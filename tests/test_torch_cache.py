@@ -340,8 +340,8 @@ def test_driver_resolves_and_pins_tick_impl_and_rejects_later_knobs(
                       cache=tmp_path)
     assert drv.tick_impl == "torch" and drv.device.type == "cpu"
     assert isinstance(drv.cache, ResultCache)
-    # repro's execution knobs are kept for every round; only shard, which
-    # has no counterpart in the port, and unknown keywords raise
+    # repro's execution knobs are kept for every round; unknown keywords
+    # raise
     knobs = SweepDriver(device="cpu", workers=2, lane_chunk=1,
                         record_series=6, retry=RetryPolicy(),
                         faults="seed=3,transient=0.5", job_timeout=9.0,
@@ -350,8 +350,14 @@ def test_driver_resolves_and_pins_tick_impl_and_rejects_later_knobs(
             knobs.job_timeout, knobs.transport) == (2, 1, 6, 9.0, "local")
     assert knobs.faults == FaultPlan(seed=3, transient=0.5)
     assert knobs.failures == []
-    with pytest.raises(ValueError, match="shard"):
-        SweepDriver(device="cpu", shard=True)
+    # shard runs every round over the lane mesh: bitwise the plain rounds
+    specs = with_seeds(expand_grid(QUICK_AXES), 2)
+    plain = SweepDriver(tick=TICK, tick_impl="torch", device="cpu").run(specs)
+    sharded_drv = SweepDriver(tick=TICK, tick_impl="torch", device="cpu",
+                              shard=True)
+    assert sharded_drv.shard
+    for a, b in zip(sharded_drv.run(specs).results, plain.results):
+        _same_result(a, b)
     with pytest.raises(TypeError):
         SweepDriver(device="cpu", bogus=2)
     with pytest.raises(ValueError, match="backend"):

@@ -179,7 +179,12 @@ def test_devices_round_robin_bitwise_to_unchunked(five_lanes):
     with pytest.raises(ValueError, match="lane_chunk"):
         simulate_packed(grid, device="cpu", lane_chunk=0)
     with pytest.raises(ValueError, match="devices="):
-        simulate_packed(grid, device="cpu", shard=True)
+        simulate_packed(grid, devices=["cpu"], shard=True)
+    # shard=True: the lane mesh (the CPU), with and without chunks
+    for kw in (dict(), dict(lane_chunk=2)):
+        sh = simulate_packed(grid, device="cpu", shard=True, **kw)
+        for k, want in whole.items():
+            np.testing.assert_array_equal(sh[k], want, err_msg=k)
 
 
 def test_resilient_path_rejects_device_round_robin():

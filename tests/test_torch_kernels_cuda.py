@@ -1558,3 +1558,134 @@ def test_cuda_train_step_matches_plain(cuda_device, arch):
     torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert float((a - b).norm()) <= 1e-3 * float(b.norm()) + 1e-12
+
+
+# ------------------------------------------------------------ mesh path
+@pytest.fixture
+def one_rank_mesh(cuda_device):
+    """A one-rank NCCL ``DeviceMesh`` of the card (1 x 1), destroyed
+    after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "hymba_1_5b", "qwen3_4b"])
+def test_cuda_mesh_prefill_matches_no_mesh(one_rank_mesh, arch):
+    """A smoke config's prefill in float32 on the 1x1 mesh (DTensor
+    weights, batch and cache on the rules' placements) through the
+    kernels against the no-mesh prefill: logits within 1e-3 (the serving
+    tests' float32 bar), one attention launch a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.parallel import plan_for
+    from repro_torch.parallel.sharding import (batch_shardings,
+                                               cache_shardings,
+                                               param_shardings, shard_tree)
+    from repro_torch.serve.engine import make_prefill_step
+
+    mesh = one_rank_mesh
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(7), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(8))
+    batch = {"tokens": toks}
+    want, _ = prefill(cfg, params, batch, init_cache(cfg, 2, 48, "cuda"),
+                      impl="cuda")
+    plan = plan_for(cfg, "prefill_32k", mesh)
+    cache = init_cache(cfg, 2, 48, "cuda")
+    step = make_prefill_step(cfg, "cuda", mesh=mesh,
+                             moe_local_dispatch=plan.moe_local_dispatch,
+                             no_ep=plan.no_ep)
+    fa_ops.reset_launch_counts()
+    got, _ = step(shard_tree(params, mesh, param_shardings(mesh, plan, params)),
+                  shard_tree(batch, mesh, batch_shardings(mesh, batch)),
+                  shard_tree(cache, mesh,
+                             cache_shardings(mesh, plan, cfg, cache)))
+    torch.cuda.synchronize()
+    assert fa_ops.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.full_tensor(), want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "olmoe_1b_7b"])
+def test_cuda_mesh_train_step_matches_no_mesh(one_rank_mesh, arch):
+    """One train step of a smoke config in float32 on the 1x1 mesh through
+    the kernels against the no-mesh step from one state: loss rtol 1e-4,
+    each gradient leaf's relative L2 within 1e-3 (the train tests' bars),
+    each kernel launched twice a layer; then ``make_train_step(mesh=)``'s
+    parameters after one step within the same bar."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.parallel import plan_for
+    from repro_torch.parallel.ctx import sharding_ctx
+    from repro_torch.parallel.sharding import (batch_shardings,
+                                               param_shardings, shard_tree)
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, shard_state,
+                                              value_and_grad)
+
+    mesh = one_rank_mesh
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32, remat=True)
+    plan = plan_for(cfg)
+    params, opt = init_train_state(cfg, plan,
+                                   torch.Generator("cuda").manual_seed(9),
+                                   "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(10))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    lp, _, gp = value_and_grad(cfg, params, batch, "cuda")
+    pd = shard_tree(params, mesh, param_shardings(mesh, plan, params))
+    bd = shard_tree(batch, mesh, batch_shardings(mesh, batch))
+    fa_ops.reset_launch_counts()
+    ms_ops.reset_launch_counts()
+    with sharding_ctx(mesh):
+        lk, _, gk = value_and_grad(cfg, pd, bd, "cuda")
+    torch.cuda.synchronize()
+    assert fa_ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers
+    assert ms_ops.launch_counts()["selective_scan"] == \
+        (2 * cfg.n_layers if cfg.has_ssm else 0)
+    torch.testing.assert_close(lk.full_tensor(), lp, rtol=1e-4, atol=0)
+    gk = tree_map(lambda g: g.full_tensor(), gk)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert float((a - b).norm()) <= 1e-3 * float(b.norm()) + 1e-12
+    want_p, _, _ = make_train_step(cfg, plan, impl="cuda")(params, opt, batch)
+    got_p, _, _ = make_train_step(cfg, plan, impl="cuda", mesh=mesh)(
+        *shard_state(params, opt, mesh, plan), bd)
+    for a, b in zip(tree_leaves(got_p), tree_leaves(want_p)):
+        torch.testing.assert_close(a.full_tensor(), b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_sweep_bitwise_to_unsharded(cuda_device):
+    """``run_sweep(shard=True)`` over the lane mesh of every visible card
+    (one block of lanes a card) bitwise to the unsharded run, with and
+    without lane chunks."""
+    from repro_torch.core.scenarios import ScenarioSpec
+    from repro_torch.parallel.sharding import lane_mesh
+    from repro_torch.sim.sweep import run_sweep
+
+    specs = [ScenarioSpec(base="III", cache_tb=c, days=0.05, n_files=5000,
+                          seed=s) for c in (5.0, 20.0, 80.0)
+             for s in (1, 2, 3)]
+    want = run_sweep(specs, tick=10.0, tick_impl="cuda", device="cuda")
+    assert lane_mesh().size == torch.cuda.device_count()
+    for kw in ({}, {"lane_chunk": 4}):
+        got = run_sweep(specs, tick=10.0, tick_impl="cuda", device="cuda",
+                        shard=True, **kw)
+        for a, b in zip(got.results, want.results):
+            assert a.spec == b.spec and a.metrics == b.metrics, kw
+            assert a.cost_usd == b.cost_usd, kw
