@@ -169,7 +169,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``MESH_TRAIN_LAYERS`` layers against PR 31's route from one state,
    loss and every gradient bitwise or within ``TRAIN_BARS``, the kernels
    on the ``cuda`` route with their launches counted (the kernels line's
-   attention and scan entries carry them as ``launches_mesh``), then one
+   rows of the same kernel at the same shapes, the family serve phase's
+   olmoe row and the train phase's rows, carry each run's as
+   ``launches_mesh_prefill`` and ``launches_mesh_train``), then one
    ``make_train_step(mesh=...)`` step; (c) ``run_sweep(...,
    shard=True)`` over the lane mesh of the visible cards on the sweep's
    grid, every result bitwise the sweep phase's;
@@ -3546,13 +3548,51 @@ def mesh_dryrun(card: str) -> None:
             f"{rec['collectives']['count']}; roofline {rl}")
 
 
+def mesh_counts(fa_ops, ms_ops) -> dict:
+    """Launches since the last reset by the kernels line's row key
+    (:func:`row_key`)."""
+    fa, ms = fa_ops.launch_counts(), ms_ops.launch_counts()
+    threads = fa["flash_attention_wgmma_threads"]
+    return {"flash_attention/tf32x3": fa["flash_attention_tf32x3"],
+            "flash_attention/wgmma/tma": fa["flash_attention_wgmma"] - threads,
+            "flash_attention/wgmma/threads": threads,
+            "selective_scan": ms["selective_scan"],
+            "mamba_scan": ms["mamba_scan"]}
+
+
+def row_key(row: dict) -> str:
+    """Which kernel a row of the kernels line times: its name, and for
+    attention its variant and the wgmma kernel's loader."""
+    if row["name"] != "flash_attention":
+        return row["name"]
+    if row["variant"] == "wgmma":
+        return f"flash_attention/wgmma/{row['loader']}"
+    return f"flash_attention/{row['variant']}"
+
+
+def attach_mesh_launches(kernels: list, mesh_launches: dict) -> None:
+    """Each mesh run's launches onto the rows of the same kernel at the
+    same shapes, as ``launches_mesh_<run>``; fails if a kernel the run
+    launched has no such row."""
+    for run, (case, counts) in mesh_launches.items():
+        for key, n in counts.items():
+            rows = [k for k in kernels
+                    if k["case"].startswith(case) and row_key(k) == key]
+            check(n == 0 or rows, f"mesh {run}: {key} launched {n} times "
+                                  f"and no row has its shapes")
+            for k in rows:
+                k[f"launches_mesh_{run}"] = n
+
+
 def mesh_world_one(torch, card: str) -> dict:
     """(b) The mesh path on a one-rank NCCL ``DeviceMesh`` of the card with
     real DTensors, through the kernels on the ``cuda`` route: olmoe's
     prefill against the no-mesh path, logits bitwise or within
     ``SERVE_LOGIT_BARS``; one hymba train step's loss and gradients
     against PR 31's route from one state, bitwise or within
-    ``TRAIN_BARS``. Returns the path's launches by kernel."""
+    ``TRAIN_BARS``. Returns each run's launches (:func:`mesh_counts`) with
+    the start of the case of the kernels line's rows at the same shapes:
+    ``{"prefill": (case, counts), "train": (case, counts)}``."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3603,13 +3643,16 @@ def mesh_world_one(torch, card: str) -> dict:
                                  no_ep=plan.no_ep)
         torch.cuda.synchronize()
         fa_ops.reset_launch_counts()
+        ms_ops.reset_launch_counts()
         t0 = time.perf_counter()
         got, _ = step(pd, bd, cd)
         got = got.full_tensor()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_attn = fa_ops.launch_counts()["flash_attention"]
-        launches["flash_attention"] = n_attn
+        # the family serve phase's olmoe row has these shapes (one wave)
+        launches["prefill"] = (f"{cfg.name} served layer 0 (",
+                               mesh_counts(fa_ops, ms_ops))
         diff = float((got.float() - want.float()).abs().max())
         bar = SERVE_LOGIT_BARS["bfloat16"]
         log(f"mesh world 1: {cfg.name} prefill on a 1x1 DeviceMesh (DTensor "
@@ -3648,8 +3691,9 @@ def mesh_world_one(torch, card: str) -> dict:
         wall = time.perf_counter() - t0
         n_attn = fa_ops.launch_counts()["flash_attention"]
         n_scan = ms_ops.launch_counts()["selective_scan"]
-        launches["selective_scan"] = n_scan
-        launches["flash_attention"] += n_attn
+        # the train phase's rows have these shapes (the batch, the sequence)
+        launches["train"] = (f"{cfg.name} train step layer ",
+                             mesh_counts(fa_ops, ms_ops))
         loss_f = float(loss.full_tensor())
         full = tree_map(lambda g: g.full_tensor(), gd)
         del gd
@@ -3912,10 +3956,7 @@ def main(argv=None) -> int:
                         "capture_ms", "chunk", "launches_decide")
                        if k in r})
                for name, case, n, r in cases]
-    for name, n in mesh_launches.items():  # the mesh path's own launches
-        for k in kernels:
-            if k["name"] == name:
-                k["launches_mesh"] = n
+    attach_mesh_launches(kernels, mesh_launches)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} ({k['case']}) was not "
                                  f"launched on its path")

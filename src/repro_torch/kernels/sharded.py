@@ -23,8 +23,9 @@ experimental.local_map``, with every placement stated:
 Any other placement raises ``ValueError``.
 
 The shape-only entries (``impl="shape"`` at the entry points) return
-uninitialised outputs of the kernel's shapes, types and device and record
-its per-rank cost with ``roofline.op_cost.record_kernel``: FLOPs as
+uninitialised outputs of the kernel's shapes, types and device and report
+its per-rank cost to :data:`COST_HOOKS` (``roofline.op_cost.OpCost``
+installs one while it counts): FLOPs as
 ``repro``'s reference counts them, matrix products only (attention ``4 x
 B x h x T x S x hd`` over all pairs, twice that for the backward's four
 products; the scan none), and bytes as inputs plus outputs. Their
@@ -35,11 +36,21 @@ tensor that holds data.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import math
+from typing import Callable, List, Tuple
 
 import torch
 
-from repro_torch.roofline import op_cost
+#: Callables ``(name, flops, nbytes)`` that a shape-only entry reports its
+#: cost to; with none installed the cost goes nowhere.
+COST_HOOKS: List[Callable[[str, float, float], None]] = []
+
+
+def _report(name: str, flops: float, *tensors) -> None:
+    nbytes = float(sum(math.prod(t.shape) * t.element_size()
+                       for t in tensors if t is not None))
+    for hook in COST_HOOKS:
+        hook(name, flops, nbytes)
 
 
 def _is_dtensor(t) -> bool:
@@ -48,9 +59,19 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def _is_fake(t) -> bool:
+    """Whether ``t`` (a DTensor by its local shard) holds no data: a fake
+    or ``meta`` tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if _is_dtensor(t):
+        t = t._local_tensor
+    return isinstance(t, FakeTensor) or t.device.type == "meta"
+
+
 def _require_fake(*tensors) -> None:
     for t in tensors:
-        if t is not None and not op_cost.is_fake(t):
+        if t is not None and not _is_fake(t):
             raise ValueError("a shape-only kernel entry takes fake or meta "
                              "tensors only (the dry run's); got a tensor "
                              "that holds data")
@@ -67,8 +88,7 @@ class _ShapeOnly(torch.autograd.Function):
     def forward(ctx, name, out_fn, fwd_flops, bwd_flops, *tensors):
         outs = out_fn(*tensors)
         flat = outs if isinstance(outs, tuple) else (outs,)
-        op_cost.record_kernel(name, fwd_flops,
-                              op_cost.tensor_bytes(*tensors, *flat))
+        _report(name, fwd_flops, *tensors, *flat)
         ctx.name, ctx.bwd_flops = name, bwd_flops
         ctx.metas = [(t.shape, t.dtype, t.device) for t in tensors]
         ctx.set_materialize_grads(False)
@@ -78,8 +98,7 @@ class _ShapeOnly(torch.autograd.Function):
     def backward(ctx, *grads):
         gin = [torch.empty(s, dtype=d, device=dev) if n else None
                for (s, d, dev), n in zip(ctx.metas, ctx.needs_input_grad[4:])]
-        op_cost.record_kernel(ctx.name + ".backward", ctx.bwd_flops,
-                              op_cost.tensor_bytes(*grads, *gin))
+        _report(ctx.name + ".backward", ctx.bwd_flops, *grads, *gin)
         return (None, None, None, None, *gin)
 
 

@@ -47,6 +47,7 @@ from repro_torch.launch.shapes import (
     input_specs,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import tree_map
 from repro_torch.models.model import init_cache, init_params
 from repro_torch.parallel.sharding import (
     ParallelPlan,
@@ -58,9 +59,13 @@ from repro_torch.parallel.sharding import (
     shard_tree,
 )
 from repro_torch.roofline.analysis import roofline_report
-from repro_torch.roofline.op_cost import OpCost, local_nbytes
+from repro_torch.roofline.op_cost import OpCost, local_nbytes, repeated
 from repro_torch.serve.engine import make_decode_step, make_prefill_step
-from repro_torch.train.train_step import make_train_step, shard_state
+from repro_torch.train.train_step import (
+    TrainStep,
+    make_train_step,
+    shard_state,
+)
 
 PLAN_KEYS = ("fsdp", "microbatches", "seq_shard_cache", "optimizer",
              "shard_activation_seq", "remat_policy", "grad_accum_dtype",
@@ -70,6 +75,28 @@ PLAN_KEYS = ("fsdp", "microbatches", "seq_shard_cache", "optimizer",
 def _fake_inputs(specs: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.empty(s.shape, dtype=s.dtype, device=device)
             for k, s in specs.items()}
+
+
+def one_microbatch_step(step: TrainStep):
+    """``step`` as the dry run traces it: the first microbatch's gradients
+    and their accumulation counted once for each microbatch
+    (``op_cost.repeated``), the accumulators' set-up, the average and the
+    update once. The loss it returns is that microbatch's."""
+    n = step.plan.microbatches
+    if n <= 1:
+        return step
+
+    def run(params, opt_state, batch):
+        with step.context():
+            first = step.microbatches(batch)[0]
+            grads = step.zeros(params)
+            with repeated(n):
+                loss, g = step.grads_of(params, first)
+                grads = step.add(grads, g)
+            return step.update(params, opt_state,
+                               tree_map(lambda g: g / n, grads), loss)
+
+    return run
 
 
 def trace_step(cfg: ModelConfig, shape_name: str, mesh, plan: ParallelPlan,
@@ -94,8 +121,8 @@ def trace_step(cfg: ModelConfig, shape_name: str, mesh, plan: ParallelPlan,
         params, opt_state = (shard_state(params_g, opt_g, mesh, plan)
                              if mesh is not None else (params_g, opt_g))
         del params_g, opt_g
-        step = make_train_step(cfg, plan, impl="shape", mesh=mesh,
-                               trace_one_microbatch=True)
+        step = one_microbatch_step(make_train_step(cfg, plan, impl="shape",
+                                                   mesh=mesh))
         args = (params, opt_state, inputs)
     else:
         params = place(params_g, lambda t: param_shardings(mesh, plan, t))
@@ -167,6 +194,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ok, why = cell_supported(arch, shape_name)
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name, "tag": tag,
+        "torch": torch.__version__,  # the counts follow DTensor's version
     }
     if not ok:
         rec.update(status="skipped", reason=why)
@@ -227,7 +255,8 @@ def summary(rec: Dict[str, Any]) -> str:
             f"flops={rec['cost']['flops']:.3e} "
             f"wire={rec['collectives']['total_wire_bytes']:.3e}B [{kinds}] "
             f"compute={rl['compute_s']:.4g}s memory={rl['memory_s']:.4g}s "
-            f"collective={rl['collective_s']:.4g}s dominant={rl['dominant']}")
+            f"collective={rl['collective_s']:.4g}s dominant={rl['dominant']} "
+            f"torch={rec['torch']}")
 
 
 def main() -> None:

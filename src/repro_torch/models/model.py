@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.registry import resolve_device
@@ -237,13 +238,22 @@ def _encoder_output(cfg: ModelConfig, params: Params,
     return _encode(cfg, params, enc_in, impl)
 
 
+def _embed(table, tokens: torch.Tensor):
+    """Rows of ``table`` at ``tokens``: an index on a plain tensor;
+    ``F.embedding`` on a DTensor, which has a rule for it (the
+    vocab-parallel lookup) and none for the index."""
+    if isinstance(table, DTensor):
+        return F.embedding(tokens.long(), table)
+    return table[tokens.long()]
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Token embedding, behind the vision stub's projected patch
     embeddings when the batch has ``"frontend"``. Returns (x [B, T, d],
     positions [B, T] over prefix and text)."""
     check_family(cfg)
     tokens = batch["tokens"]
-    x = F.embedding(tokens.long(), gather_fsdp(params["embed"])).to(cfg.dtype)
+    x = _embed(gather_fsdp(params["embed"]), tokens).to(cfg.dtype)
     if cfg.frontend is not None and cfg.frontend != "audio" and "frontend" in batch:
         fe = batch["frontend"].to(cfg.dtype) @ gather_fsdp(params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)
@@ -358,12 +368,16 @@ def _prefill_layer(cfg: ModelConfig, lp: Params, x, positions, window: int,
         if S >= T:
             ck[:, :T], cv[:, :T] = k, v
         else:  # ring buffer shorter than prompt: keep the tail
-            # slot (j + roll) mod S takes the tail's step j: the tail rolled
-            # by `roll`, written as two slices (no index_put, which DTensor
-            # has no rule for)
             roll = (T - S) % S  # align ring slots with position mod S
-            for c, t in ((ck, k[:, T - S:]), (cv, v[:, T - S:])):
-                c[:, :roll], c[:, roll:] = t[:, S - roll:], t[:, :S - roll]
+            if isinstance(ck, DTensor):
+                # slot (j + roll) mod S takes the tail's step j: the tail
+                # rolled by `roll`, written as two slices (DTensor has no
+                # rule for the index put)
+                for c, t in ((ck, k[:, T - S:]), (cv, v[:, T - S:])):
+                    c[:, :roll], c[:, roll:] = t[:, S - roll:], t[:, :S - roll]
+            else:
+                idx = (torch.arange(S, device=x.device) + roll) % S
+                ck[:, idx], cv[:, idx] = k[:, T - S:], v[:, T - S:]
         new_entry["kv"] = entry["kv"]
         attn_out = attn_mod.attention_core(lp["attn"], cfg, q, k, v, window,
                                            impl=impl)
@@ -430,8 +444,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     read to the host). The cache's k/v are written in place."""
     check_family(cfg)
     t = int(t)
-    x = shard_batch(F.embedding(tokens.long(), gather_fsdp(params["embed"]))
-                    .to(cfg.dtype))
+    x = shard_batch(_embed(gather_fsdp(params["embed"]), tokens).to(cfg.dtype))
     if cfg.is_enc_dec and cache["cross_kv"] is None:
         raise ValueError(f"{cfg.name}: decode needs the encoder's keys and "
                          f"values, which prefill puts in the cache")

@@ -15,8 +15,9 @@ included: every number is one rank's. DTensor's own shape propagation
 
 - ``flops``: matrix products only, ``2 x M x N x K`` each (``mm``,
   ``addmm``, ``bmm``, ``baddbmm``), as ``hlo_cost`` counts dots, plus what
-  the kernels' shape-only entries record (:func:`record_kernel`:
-  attention ``4 x B x h x T x S x hd`` forward, the scan 0);
+  the kernels' shape-only entries report (``kernels.sharded.COST_HOOKS``,
+  where the mode installs its hook while it counts: attention ``4 x B x h
+  x T x S x hd`` forward, the scan 0);
 - ``bytes_accessed``: each op's tensor inputs plus its outputs, views and
   allocations not counted. This is unfused: every elementwise op reads
   and writes its tensors, where XLA's fusions count a fused region's
@@ -30,14 +31,21 @@ included: every number is one rank's. DTensor's own shape propagation
 It also tracks one rank's live bytes: :meth:`OpCost.track` registers the
 step's arguments, every op's outputs are tracked until their storage is
 freed, and ``peak_bytes`` is the high-water mark.
+
+One mode counts at a time: entering a second raises. While it counts it
+shadows DTensor's shape propagation on the process's sharding propagator
+(an instance attribute over ``_propagate_tensor_meta_non_cached``, a
+private method of torch's), and puts back what was there when it exits.
+The counts follow DTensor's strategy choices, which differ between torch
+versions: compare records of one version only (``launch.dryrun`` writes
+it into each).
 """
 
 from __future__ import annotations
 
-import math
 import weakref
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -66,21 +74,15 @@ _COLLECTIVES = {
     "all_to_all_single": ("all-to-all", "in"),
 }
 
-_ACTIVE: List["OpCost"] = []
+_ACTIVE: List["OpCost"] = []  # the mode that counts, at most one
 
-
-def record_kernel(name: str, flops: float, nbytes: float) -> None:
-    """Add a kernel's cost (what a shape-only entry computes for its
-    shapes) to every active :class:`OpCost`."""
-    for c in _ACTIVE:
-        c.flops += flops * c.scale
-        c.bytes += nbytes * c.scale
-        c.kernels[name] = c.kernels.get(name, 0) + int(c.scale)
+_PROPAGATE = "_propagate_tensor_meta_non_cached"
+_MISSING = object()
 
 
 @contextmanager
 def repeated(n: int):
-    """Count what runs inside ``n`` times over in every active
+    """Count what runs inside ``n`` times over in the active
     :class:`OpCost` (a loop whose body runs once in the trace: ``hlo_cost``
     multiplies a while body by its trip count the same way). Live bytes
     are not scaled."""
@@ -118,6 +120,7 @@ class OpCost(TorchDispatchMode):
         self._storages: Dict[int, int] = {}
         self._shadow = 0
         self._prop = None
+        self._saved = _MISSING
         self.scale = 1.0
 
     # -- live bytes
@@ -149,12 +152,24 @@ class OpCost(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.live -= self._storages.pop(key, 0)
 
+    # -- kernels
+    def _kernel(self, name: str, flops: float, nbytes: float) -> None:
+        """A shape-only entry's cost (``kernels.sharded.COST_HOOKS``)."""
+        self.flops += flops * self.scale
+        self.bytes += nbytes * self.scale
+        self.kernels[name] = self.kernels.get(name, 0) + int(self.scale)
+
     # -- mode
     def __enter__(self):
         from torch.distributed.tensor import DTensor
 
+        from repro_torch.kernels.sharded import COST_HOOKS
+
+        if _ACTIVE:
+            raise RuntimeError("OpCost does not nest: another one is "
+                               "counting")
         prop = DTensor._op_dispatcher.sharding_propagator
-        inner = prop._propagate_tensor_meta_non_cached
+        inner = getattr(prop, _PROPAGATE)
 
         def shadowed(op_schema):
             self._shadow += 1
@@ -163,15 +178,23 @@ class OpCost(TorchDispatchMode):
             finally:
                 self._shadow -= 1
 
-        prop._propagate_tensor_meta_non_cached = shadowed
+        self._saved = prop.__dict__.get(_PROPAGATE, _MISSING)
+        setattr(prop, _PROPAGATE, shadowed)
         self._prop = prop
         _ACTIVE.append(self)
+        COST_HOOKS.append(self._kernel)
         return super().__enter__()
 
     def __exit__(self, *exc):
+        from repro_torch.kernels.sharded import COST_HOOKS
+
+        COST_HOOKS.remove(self._kernel)
         _ACTIVE.remove(self)
-        del self._prop._propagate_tensor_meta_non_cached  # the class's again
-        self._prop = None
+        if self._saved is _MISSING:
+            delattr(self._prop, _PROPAGATE)  # the class's method again
+        else:
+            setattr(self._prop, _PROPAGATE, self._saved)
+        self._prop, self._saved = None, _MISSING
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -241,21 +264,3 @@ def local_nbytes(tree) -> int:
             t = t._local_tensor
         total += _nbytes(t)
     return total
-
-
-def tensor_bytes(*tensors) -> float:
-    """Bytes of ``tensors`` (None skipped), each counted once."""
-    return float(sum(math.prod(t.shape) * t.element_size()
-                     for t in tensors if t is not None))
-
-
-def is_fake(t: Optional[torch.Tensor]) -> bool:
-    """Whether ``t`` (a DTensor by its local shard) holds no data: a fake
-    or ``meta`` tensor."""
-    from torch._subclasses.fake_tensor import FakeTensor
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(t, DTensor):
-        t = t._local_tensor
-    return isinstance(t, FakeTensor) or (isinstance(t, torch.Tensor)
-                                         and t.device.type == "meta")

@@ -44,9 +44,10 @@ Around the tick program, as in the JAX package:
   :class:`TickLoop` of its own that is closed before the next chunk on its
   device (one graph pool a device at a time), dealt round-robin over
   ``devices=``;
-- the lane mesh (``shard=True``): one contiguous block of lanes on each
-  visible device at once (``parallel.sharding.lane_mesh``), concatenated
-  in lane order;
+- the lane mesh (``shard=True``): the round-robin path over the devices
+  of ``parallel.sharding.lane_mesh`` (every visible device of the type),
+  each chunk cut into one contiguous block of lanes a device, the blocks
+  run together and concatenated in lane order;
 - the resilient job path (``retry=``/``faults=``/``transport=``): the
   chunks as retryable jobs (``repro_torch.sim.jobs``), in-process or on a
   worker fleet (``repro_torch.sim.runners``), each completed chunk
@@ -767,50 +768,6 @@ def _advance_together(loops: List["TickLoop"], T: int) -> None:
             loop.advance(min(turn, T - t0))
 
 
-def _simulate_sharded(grid: PackedGrid, impl: TickImpl, mesh, graph: bool,
-                      record, lane_chunk: Optional[int]):
-    """``shard=True``: the lanes (a chunk of ``lane_chunk`` at a time,
-    rounded up to a multiple of the mesh's size, else all of them) padded
-    to a multiple of the lane mesh's size by repeating the last lane, cut
-    into one contiguous block a device of ``mesh``
-    (``parallel.sharding.lane_mesh``), the blocks run together on their
-    devices (:func:`_advance_together`) and concatenated in lane order.
-    Lanes never interact, so each lane's results are bitwise those of the
-    unsharded run. Returns what :func:`_simulate` does."""
-    if lane_chunk is not None and lane_chunk <= 0:
-        raise ValueError(f"lane_chunk must be > 0, got {lane_chunk!r}")
-    n, L, T = mesh.size, grid.n_lanes, grid.n_ticks
-    C = L if lane_chunk is None or lane_chunk >= L else int(lane_chunk)
-    C = -(-C // n) * n  # each chunk shards evenly
-    b = C // n
-    tracer = get_tracer()
-    outs: List[Dict[str, np.ndarray]] = []
-    capture_s, pool_bytes = 0.0, 0
-    for start in range(0, L, C):
-        stop = min(start + C, L)
-        lanes = _chunk_lanes(grid, start, stop, C)
-        loops: List[TickLoop] = []
-        with tracer.span("simulate_packed.chunk", chunk=start // C,
-                         lanes=stop - start, tick_impl=impl.name, shards=n):
-            try:
-                for i, dev in enumerate(mesh.devices):
-                    block = {k: v[i * b:(i + 1) * b] for k, v in lanes.items()}
-                    loops.append(TickLoop(_chunk_grid(grid, block), impl, dev,
-                                          graph, record))
-                _advance_together(loops, T)
-                parts = [loop.result() for loop in loops]
-                outs.append({k: np.concatenate([p[k] for p in parts],
-                                               axis=0)[:stop - start]
-                             for k in parts[0]})
-                capture_s += sum(loop.capture_s for loop in loops)
-                pool_bytes = max([pool_bytes] + [loop.pool_bytes for loop in loops])
-            finally:
-                for loop in loops:
-                    loop.close()
-    out = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
-    return out, capture_s, pool_bytes, len(outs)
-
-
 def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
                     device=None, lane_chunk: Optional[int] = None,
                     devices: Optional[Sequence] = None,
@@ -847,7 +804,7 @@ def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
     visible CUDA device, or the CPU): one contiguous block of lanes a
     device, padded by repeating the last lane, run together and
     concatenated in lane order, bitwise the unsharded result
-    (:func:`_simulate_sharded`). ``lane_chunk`` still bounds memory, each
+    (:func:`_lane_mesh_run`). ``lane_chunk`` still bounds memory, each
     chunk sharded; ``devices=`` is the round-robin path's knob and raises
     together with ``shard``.
     """
@@ -857,10 +814,20 @@ def simulate_packed(grid: PackedGrid, tick_impl: str = "auto",
     impl = resolve_tick_impl(tick_impl, devs[0])
     graph = impl.use_kernel and not _eager
     if shard:
-        return _simulate_sharded(grid, impl, lane_mesh(device_type=devs[0].type),
-                                 graph, record, lane_chunk)[0]
+        devs, lane_chunk = _lane_mesh_run(devs[0], lane_chunk)
     return _simulate(grid, impl, devs, graph=graph, record=record,
                      lane_chunk=lane_chunk)[0]
+
+
+def _lane_mesh_run(device: torch.device, lane_chunk: Optional[int]):
+    """``shard=True`` as the round-robin path runs it: the devices of the
+    lane mesh of ``device``'s type (``parallel.sharding.lane_mesh``) and
+    each chunk of ``lane_chunk`` lanes cut into one block a device. With
+    no ``lane_chunk`` :func:`_simulate` gives each device one contiguous
+    block of the lanes, the last padded by repeating its final lane; the
+    blocks run together and are concatenated in lane order."""
+    devs = list(lane_mesh(device_type=device.type).devices)
+    return devs, lane_chunk and -(-lane_chunk // len(devs))
 
 
 def _simulate(grid: PackedGrid, impl: TickImpl, devs: List[torch.device],
@@ -1023,8 +990,8 @@ def lane_chunk_runner(ctx: Dict, loops: Optional[list] = None) -> Callable:
         impl = resolve_tick_impl(tick_impl, dev)
         grid = _chunk_grid(template, payload["chunk"])
         if ctx.get("shard"):
-            out = _simulate_sharded(grid, impl, lane_mesh(device_type=dev.type),
-                                    impl.use_kernel, record, None)[0]
+            devs, _ = _lane_mesh_run(dev, None)
+            out = _simulate(grid, impl, devs, impl.use_kernel, record, None)[0]
             return {k: v[:payload["n"]] for k, v in out.items()}
         out, loop = _run_loop(grid, impl, dev, graph=impl.use_kernel,
                               record=record)
@@ -1051,7 +1018,7 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
     reported by the returned registry.
 
     ``shard`` runs each chunk over the lane mesh of the local devices of
-    the process that runs it (:func:`_simulate_sharded`).
+    the process that runs it (:func:`_lane_mesh_run`).
 
     ``transport`` engages the worker fleet (``repro_torch.sim.runners``):
     up to ``workers`` persistent workers, each given the init context
@@ -1074,9 +1041,6 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
     else:
         C = min(L, _FLEET_LANE_CHUNK if transport is not None
                 else _RESILIENT_LANE_CHUNK)
-    if shard:  # chunks shard evenly over this process's lane mesh
-        n = lane_mesh(device_type=device.type).size
-        C = -(-C // n) * n
     spec_of_chunk: Dict[tuple, list] = {}
     jobs_list = []
     for start in range(0, L, C):
@@ -1225,11 +1189,9 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
             n_chunks = len(registry.jobs)
             capture_s = sum(loop.capture_s for loop in loops)
             pool_bytes = max((loop.pool_bytes for loop in loops), default=0)
-        elif shard:
-            out, capture_s, pool_bytes, n_chunks = _simulate_sharded(
-                grid, impl, lane_mesh(device_type=devs[0].type),
-                impl.use_kernel, record, lane_chunk)
         else:
+            if shard:
+                devs, lane_chunk = _lane_mesh_run(devs[0], lane_chunk)
             out, capture_s, pool_bytes, n_chunks = _simulate(
                 grid, impl, devs, graph=impl.use_kernel, record=record,
                 lane_chunk=lane_chunk)

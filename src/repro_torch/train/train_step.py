@@ -32,16 +32,17 @@ so the split moves nothing; the microbatches hold other rows than
 ``repro``'s contiguous ones, and their mean is the same). The optimizer
 state lives on the FSDP plan's placements (ZeRO-1).
 
-``trace_one_microbatch`` is the dry run's: the microbatch loop runs its
-first microbatch only, counted ``n`` times by ``roofline.op_cost`` (as
-``repro``'s ``hlo_cost`` multiplies a scan body by its trip count); the
-numbers it returns are not a step's.
+The step is a :class:`TrainStep`, whose parts (the context, a
+microbatch's gradients, the accumulators, the update) ``launch.dryrun``
+also composes on its own: it traces one microbatch and counts it once for
+each.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import List, Optional, Union
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -51,7 +52,6 @@ from repro_torch.models import init_params, loss_fn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_leaves, tree_map
 from repro_torch.parallel.ctx import sharding_ctx
-from repro_torch.roofline import op_cost
 from repro_torch.parallel.sharding import (
     ParallelPlan,
     expert_sharder,
@@ -116,58 +116,83 @@ def _split_rows(v: torch.Tensor, n: int):
     return list(v.chunk(n))
 
 
-def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
-                    opt_cfg: OptConfig = OptConfig(),
-                    compress: bool = False, impl: str = "auto", *,
-                    mesh=None, trace_one_microbatch: bool = False) -> Callable:
-    opt = make_optimizer(plan.optimizer, opt_cfg)
-    acc_dt = ACCUM_DTYPES[plan.grad_accum_dtype]
-    shard_experts = (expert_sharder(mesh) if mesh is not None
-                     and cfg.family == "moe" else None)
-    shard_grads = _grad_sharder(mesh, plan) if mesh is not None else (lambda g: g)
+class TrainStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    (module notes), and its parts."""
 
-    def grads_of(params, batch):
-        loss, _, g = value_and_grad(cfg, params, batch, impl, shard_experts)
-        return loss, shard_grads(g)
+    def __init__(self, cfg: ModelConfig, plan: ParallelPlan,
+                 opt_cfg: OptConfig = OptConfig(), impl: str = "auto",
+                 mesh=None):
+        self.cfg, self.plan, self.impl, self.mesh = cfg, plan, impl, mesh
+        self.opt = make_optimizer(plan.optimizer, opt_cfg)
+        self.acc_dt = ACCUM_DTYPES[plan.grad_accum_dtype]
+        self.shard_experts = (expert_sharder(mesh) if mesh is not None
+                              and cfg.family == "moe" else None)
+        self.shard_grads = (_grad_sharder(mesh, plan) if mesh is not None
+                            else (lambda g: g))
 
-    def train_step(params, opt_state, batch):
-        n_micro = plan.microbatches
-        if n_micro <= 1:
-            loss, grads = grads_of(params, batch)
-        else:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % n_micro:
-                raise ValueError(f"{rows} rows do not split into {n_micro} "
-                                 f"microbatches")
-            split = {k: _split_rows(v, n_micro) for k, v in batch.items()}
-            micro = [{k: v[i] for k, v in split.items()}
-                     for i in range(n_micro)]
-            grads = shard_grads(tree_map(
-                lambda p: torch.zeros_like(p, dtype=acc_dt), params))
-            losses = []
-            if trace_one_microbatch:  # the dry run: one body, counted n times
-                micro = micro[:1]
-            with op_cost.repeated(n_micro if trace_one_microbatch else 1):
-                for mb in micro:
-                    mloss, g = grads_of(params, mb)
-                    grads = tree_map(lambda a, b: a + b.to(acc_dt), grads, g)
-                    losses.append(mloss)
-            grads = tree_map(lambda g: g / n_micro, grads)
-            loss = torch.stack(losses).sum() / len(losses)
-        new_params, new_opt = opt.update(grads, opt_state, params)
+    def context(self):
+        """What the step runs in: ``sharding_ctx`` on a mesh, else
+        nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx(self.mesh,
+                            moe_local_dispatch=self.plan.moe_local_dispatch,
+                            no_ep=self.plan.no_ep)
+
+    def grads_of(self, params, batch):
+        """``(loss, grads)`` of one microbatch, the gradients on the FSDP
+        placements."""
+        loss, _, g = value_and_grad(self.cfg, params, batch, self.impl,
+                                    self.shard_experts)
+        return loss, self.shard_grads(g)
+
+    def microbatches(self, batch) -> List[dict]:
+        """``batch``'s rows in ``plan.microbatches`` microbatches."""
+        n = self.plan.microbatches
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"{rows} rows do not split into {n} "
+                             f"microbatches")
+        split = {k: _split_rows(v, n) for k, v in batch.items()}
+        return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+    def zeros(self, params):
+        """The gradient accumulators, 0 in ``plan.grad_accum_dtype``."""
+        return self.shard_grads(tree_map(
+            lambda p: torch.zeros_like(p, dtype=self.acc_dt), params))
+
+    def add(self, acc, grads):
+        return tree_map(lambda a, b: a + b.to(self.acc_dt), acc, grads)
+
+    def update(self, params, opt_state, grads, loss):
+        """The optimizer's update on the averaged ``grads``; the metrics."""
+        new_params, new_opt = self.opt.update(grads, opt_state, params)
         gnorm = torch.sqrt(sum(g.float().square().sum()
                                for g in tree_leaves(grads)))
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
-    if mesh is None:
-        return train_step
+    def __call__(self, params, opt_state, batch):
+        with self.context():
+            n = self.plan.microbatches
+            if n <= 1:
+                loss, grads = self.grads_of(params, batch)
+            else:
+                grads, losses = self.zeros(params), []
+                for mb in self.microbatches(batch):
+                    mloss, g = self.grads_of(params, mb)
+                    grads = self.add(grads, g)
+                    losses.append(mloss)
+                grads = tree_map(lambda g: g / n, grads)
+                loss = torch.stack(losses).sum() / len(losses)
+            return self.update(params, opt_state, grads, loss)
 
-    def train_step_ctx(params, opt_state, batch):
-        with sharding_ctx(mesh, moe_local_dispatch=plan.moe_local_dispatch,
-                          no_ep=plan.no_ep):
-            return train_step(params, opt_state, batch)
 
-    return train_step_ctx
+def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
+                    opt_cfg: OptConfig = OptConfig(),
+                    compress: bool = False, impl: str = "auto", *,
+                    mesh=None) -> TrainStep:
+    return TrainStep(cfg, plan, opt_cfg, impl, mesh)
 
 
 def init_train_state(cfg: ModelConfig, plan: ParallelPlan,

@@ -44,6 +44,8 @@ from repro_torch.models import moe
 from repro_torch.parallel import sharding
 from repro_torch.roofline import analysis
 from repro_torch.sim import batched
+from repro_torch.sim.jobs import RetryPolicy
+from repro_torch.sim.sweep import run_sweep
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -358,20 +360,32 @@ def test_local_dispatch_matches_repro_per_shard(S, no_ep):
 
 
 # --------------------------------------------------------------- lane mesh
-def test_lane_mesh_blocks_are_bitwise_the_unsharded_run():
+def test_lane_mesh_blocks_are_bitwise_the_unsharded_run(monkeypatch):
     specs = [ScenarioSpec(base="III", cache_tb=c, days=0.05, n_files=300,
                           seed=s) for c in (5.0, 20.0) for s in (1, 2, 3)]
     grid = pack_specs(specs, tick=60.0)
     impl = resolve_tick_impl("torch", "cpu")
     whole = batched.simulate_packed(grid, tick_impl="torch", device="cpu")
-    mesh = sharding.lane_mesh(devices=["cpu"] * 4)  # 6 lanes -> 8, 2 a block
+    mesh = sharding.lane_mesh(devices=["cpu"] * 4)
     assert mesh.shape == {"lanes": 4} and mesh.axis_names == ("lanes",)
-    for chunk in (None, 3):
-        got, _, _, n = batched._simulate_sharded(grid, impl, mesh, False,
-                                                 None, chunk)
-        assert n == (1 if chunk is None else 2)
+    monkeypatch.setattr(batched, "lane_mesh", lambda device_type: mesh)
+    # 6 lanes: blocks of 2 on three devices; chunks of 3: blocks of 1
+    for chunk, blocks in ((None, 3), (3, 6)):
+        devs, block = batched._lane_mesh_run(torch.device("cpu"), chunk)
+        assert devs == list(mesh.devices)
+        got, _, _, n = batched._simulate(grid, impl, devs, False, None, block)
+        assert n == blocks
+        sh = batched.simulate_packed(grid, tick_impl="torch", device="cpu",
+                                     shard=True, lane_chunk=chunk)
         for k, want in whole.items():
             np.testing.assert_array_equal(got[k], want, err_msg=k)
+            np.testing.assert_array_equal(sh[k], want, err_msg=k)
+    # the job path runs each chunk over the mesh in its runner
+    plain = run_sweep(specs, tick=60.0, device="cpu")
+    jobs = run_sweep(specs, tick=60.0, device="cpu", shard=True, lane_chunk=3,
+                     retry=RetryPolicy())
+    for a, b in zip(jobs.results, plain.results):
+        assert a.metrics == b.metrics
     assert sharding.lane_mesh(device_type="cpu").size == 1
     with pytest.raises(ValueError, match="not both"):
         sharding.lane_mesh(2, devices=["cpu"])
