@@ -121,11 +121,13 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 5. sweep phase: the 216-config pricing grid (Config III; cache 10/20/40/80
    TB; 3 egress options; 9 storage prices; 2 seeds; 8 dynamics lanes) at
    the paper's full catalogue of 1,000,000 files per site through
-   ``run_sweep_torch`` once with ``tick_impl="cuda"`` (the tick replayed
-   from a CUDA graph) and once with ``"torch"`` on the card; per-spec
-   agreement at the Table-2 5% bar, equal jobs submitted, and each kernel
-   (the three lane-tick and the five glue kernels) launched once a tick
-   on the ``cuda`` run, replays counted; then
+   ``run_sweep_torch`` with ``tick_impl="cuda"`` (the tick replayed
+   from a CUDA graph), each kernel (the three lane-tick and the five glue
+   kernels) launched once a tick, replays counted; then the same grid cut
+   to ``PARITY_DAYS`` of horizon once with ``"cuda"`` and once with
+   ``"torch"`` on the card (the plain tick runs some 45 ticks/s, so its
+   whole horizon would take 190 s): per-spec agreement at the Table-2 5%
+   bar, equal jobs submitted; then
    ``simulate_packed`` on the packed grid with the ``cuda`` tick eager
    and replayed, every output bitwise equal;
 6. profile, for the eager and the replayed ``cuda`` tick
@@ -212,6 +214,30 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    configs and wall s, the event engine's events and events/s per config
    (host CPU), and the device memory before and after, each beside the
    card's name and power limit;
+9b. examples phase (``examples_phase``), the port's examples and crash
+   soak as a user runs them, each ``main`` in this process (its printed
+   lines kept, the counts set to 0 just before each run and read just
+   after): ``examples/sweep_decision_torch.py`` at its defaults with
+   ``--tick-impl cuda`` and with ``torch`` on the card (each lane-tick and
+   glue kernel launched on the first, none on the second; equal decisions,
+   every point within the Table-2 bar); ``examples/serve_small_torch.py``
+   at its bf16 defaults (6 requests of 8 tokens; attention and the fused
+   scan launched), then its ``run`` in float32 on the kernels and on the
+   plain route from one set of seeded weights (every token equal, the
+   ``tf32x3`` attention and the scan launched only on the first; on a
+   mismatch the first differing step's top-2 logit gap is printed);
+   ``examples/train_with_hcdc_pipeline_torch.py`` at its 200 steps
+   (losses finite and falling, the store statistics, attention launched),
+   then 3 steps on each route (losses within ``TRAIN_BARS``);
+   ``scripts/crash_soak_torch.py`` as a subprocess at ``SOAK_FILES``
+   files a site (12 configs in lane chunks of 2), its kill timed from an
+   uninterrupted run of the same ``run_sweep`` command: the victim dies
+   of SIGKILL mid-run (the resume serves at least one config from the
+   journal and simulates at least one lane), the resumed rows bitwise the
+   uninterrupted run's (``wall_s`` aside), the fault soak exits 0 with
+   every config; prints each run's wall s, the soak's kill time, resumed
+   share and wall s, and the in-process runs' launches by kernel variant
+   on one line (no row of the kernels line);
 10. carousel phase: ``carousel_tick`` over 1,000,000 transfers (one site's
    catalogue, every file in flight) on 6 links (Config III's 2 sites x 3
    link types) and on 512, half shared and half per-transfer, dt = 10 s,
@@ -323,6 +349,9 @@ TF32_OPS_PER_S = 495e12
 INSTR_PER_S = F32_OPS_PER_S / 2
 
 TOL = 0.05  # Table 2 validation tolerance (fractional)
+#: The sweep phase's plain-path parity horizon (days), cut from the main
+#: path's to keep the smoke inside its time limit.
+PARITY_DAYS = 0.25
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
 _CAROUSEL = "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu"
 _TICK_GLUE = "src/repro_torch/kernels/tick_glue/csrc/tick_glue.cu"
@@ -1823,6 +1852,360 @@ def cli_phase(torch, days: float, n_files: int, card: str,
         f"{torch.cuda.memory_allocated()} B after; nvidia-smi memory.used "
         f"{smi0} before, {smi_memory_used()} after [{card}]")
     log(f"cli phase: {time.perf_counter() - t_phase:.2f} s wall [{card}]")
+
+
+#: The examples phase's crash soak at the card's size: the sweep's
+#: catalogue, 12 configs (6 cache sizes x 2 seeds: 12 dynamics lanes in 6
+#: journaled chunks of 2), the soak's own horizon; the kill lands this far
+#: into the sweep of an uninterrupted run of the same command, after its
+#: start-up (its own ``done in`` line against its wall time).
+SOAK_FILES, SOAK_DAYS, SOAK_KILL_AT = 1_000_000, 2.0, 0.5
+#: The store statistics the train example prints.
+TRAIN_STORE_KEYS = ("archival_reads", "cold_hits", "hot_hits",
+                    "migrated_bytes", "cold_egress_usd",
+                    "straggler_refetches")
+
+
+def load_entry(relpath: str):
+    """``ROOT / relpath`` (an example or script of the port) as a module,
+    whose ``main`` the phase calls in this process."""
+    import importlib.util
+
+    path = ROOT / relpath
+    spec = importlib.util.spec_from_file_location(f"entry_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quietly(fn, *args):
+    """``fn(*args)`` with its standard output kept, not printed; returns
+    the result and the text."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _count_modules():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lane_tick import ops as lt_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.tick_glue import ops as glue_ops
+
+    return lt_ops, glue_ops, fa_ops, ms_ops
+
+
+def reset_counts() -> None:
+    for mod in _count_modules():
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every launch counted since :func:`reset_counts` on the lane-tick,
+    glue, attention (by variant) and scan kernels, by name."""
+    counts = {}
+    for mod in _count_modules():
+        counts.update(mod.launch_counts())
+    return counts
+
+
+def counted_run(torch, fn, *args):
+    """``fn(*args)`` quietly on the card with the counts set to 0 just
+    before and read just after; returns the result, its printed text, the
+    wall seconds and the launches that are not 0."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, text = quietly(fn, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, text, wall, {k: v for k, v in read_counts().items() if v}
+
+
+def example_sweep_decision(torch, card: str, launches: dict) -> float:
+    """``sweep_decision_torch.main`` at its defaults on the kernels and on
+    the plain tick: equal decisions, every point within the Table-2 bar.
+    Returns the seconds."""
+    from repro_torch.kernels.lane_tick import ops
+    from repro_torch.kernels.tick_glue import ops as glue_ops
+
+    ex = load_entry("examples/sweep_decision_torch.py")
+    t_part = time.perf_counter()
+    runs, texts = {}, {}
+    for impl in ("cuda", "torch"):
+        got, texts[impl], wall, n = counted_run(torch, ex.main,
+                                                ["--tick-impl", impl])
+        runs[impl] = got["report"]
+        launches[f"sweep_decision {impl}"] = n
+        st = got["report"]["stats"]
+        log(f"examples sweep_decision --tick-impl {impl}: {wall:.2f} s wall, "
+            f"{st['sweep_calls']} sweep calls, {st['configs_run']} configs, "
+            f"{st['lanes_simulated']} lanes simulated; {got['decision']} "
+            f"[{card}]")
+    tick_kernels = ops.KERNELS + glue_ops.KERNELS
+    check(all(launches["sweep_decision cuda"].get(k, 0) > 0
+              for k in tick_kernels),
+          f"examples sweep_decision cuda: a kernel was not launched "
+          f"({launches['sweep_decision cuda']})")
+    check(not launches["sweep_decision torch"],
+          "examples sweep_decision torch: a kernel was launched")
+    a, b = runs["cuda"], runs["torch"]
+    off = points_beyond_bar(a, b)
+    if decisions(a) != decisions(b) or off:
+        for impl, text in texts.items():
+            log(f"--- sweep_decision report ({impl}) ---\n{text}")
+    check(decisions(a) == decisions(b),
+          f"examples sweep_decision: cuda and plain decisions differ: "
+          f"{decisions(a)} vs {decisions(b)}")
+    check(not off, f"examples sweep_decision: points beyond the Table-2 "
+                   f"bar: {off}")
+    same = ({k: v for k, v in a.items() if k != "stats"}
+            == {k: v for k, v in b.items() if k != "stats"})
+    log(f"examples sweep_decision: cuda and torch decisions equal "
+        f"{decisions(a)}, every point within the Table-2 bar; the reports "
+        f"outside their stats {'identical' if same else 'not identical'}")
+    return time.perf_counter() - t_part
+
+
+def serve_token_gap(torch, ex, cfg, params, prompts, got: dict,
+                    want: dict) -> str:
+    """Where two runs' tokens first differ (request, step) and each
+    route's top-2 logit gap there, from a rerun of both routes with the
+    loop's steps recording their logits."""
+    from repro_torch.serve.engine import Request, ServeLoop
+
+    rid, step = next((r, s) for r in sorted(got)
+                     for s in range(len(got[r])) if got[r][s] != want[r][s])
+    gaps = {}
+    for impl in ("cuda", "torch"):
+        loop = ServeLoop(cfg, params, batch_slots=ex.BATCH_SLOTS,
+                         max_len=ex.MAX_LEN, impl=impl)
+        steps = []
+
+        def record(fn, i):
+            def call(*args):
+                out = fn(*args)
+                steps.append(out[i].float())
+                return out
+            return call
+
+        loop.prefill = record(loop.prefill, 0)
+        loop.decode = record(loop.decode, 1)
+        max_new = len(got[rid])
+        loop.run([Request(rid=i, prompt=p, max_new=max_new)
+                  for i, p in enumerate(prompts)])
+        row = steps[(rid // ex.BATCH_SLOTS) * max_new + step][
+            rid % ex.BATCH_SLOTS]
+        top = row.topk(2).values
+        gaps[impl] = float(top[0] - top[1])
+    return (f"request {rid} step {step}: top-2 logit gap {gaps['cuda']:.3e} "
+            f"(kernels), {gaps['torch']:.3e} (plain)")
+
+
+def example_serve_small(torch, card: str, launches: dict) -> float:
+    """``serve_small_torch.main`` at its bf16 defaults on the kernels;
+    ``run`` in float32 on the kernels and on the plain route, tokens
+    equal. Returns the seconds."""
+    from repro_torch.configs import canonical, get_smoke_config
+    from repro_torch.models import init_params
+
+    ex = load_entry("examples/serve_small_torch.py")
+    t_part = time.perf_counter()
+    got, text, wall, n = counted_run(torch, ex.main, [])
+    launches["serve_small bf16"] = n
+    toks = got["tokens"]
+    log(f"examples serve_small (bf16 defaults, kernel route): {wall:.2f} s "
+        f"wall; {text.strip().splitlines()[-1]} [{card}]")
+    check(sorted(toks) == list(range(6))
+          and all(len(v) == 8 for v in toks.values()),
+          f"examples serve_small: not 6 requests of 8 tokens ({toks})")
+    check(n.get("flash_attention_wgmma", 0) > 0
+          and n.get("selective_scan", 0) > 0,
+          f"examples serve_small bf16: attention or scan not launched ({n})")
+
+    cfg = get_smoke_config(canonical("hymba_1_5b")).replace(
+        dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompts = [torch.randint(0, cfg.vocab_size, (ex.PROMPT_LEN,),
+                             generator=torch.Generator().manual_seed(100 + i))
+               for i in range(6)]
+    outs = {}
+    for impl in ("cuda", "torch"):
+        (outs[impl], secs), _, wall, n = counted_run(
+            torch, ex.run, cfg, params, prompts, 8, impl)
+        launches[f"serve_small float32 {impl}"] = n
+        log(f"examples serve_small run float32 impl={impl}: {wall:.2f} s "
+            f"wall, {48 / secs:.1f} tok/s [{card}]")
+    n_cu, n_pl = (launches[f"serve_small float32 {i}"]
+                  for i in ("cuda", "torch"))
+    check(n_cu.get("flash_attention_tf32x3", 0) > 0
+          and n_cu.get("selective_scan", 0) > 0,
+          f"examples serve_small float32: kernels not launched ({n_cu})")
+    check(not n_pl, f"examples serve_small float32 plain: a kernel was "
+                    f"launched ({n_pl})")
+    if outs["cuda"] != outs["torch"]:
+        log(f"examples serve_small float32: tokens differ at "
+            + serve_token_gap(torch, ex, cfg, params, prompts, outs["cuda"],
+                              outs["torch"]))
+    check(outs["cuda"] == outs["torch"],
+          "examples serve_small float32: kernel and plain tokens differ")
+    log("examples serve_small float32: all 48 tokens equal on the kernel "
+        "and plain routes")
+    return time.perf_counter() - t_part
+
+
+def example_train(torch, card: str, launches: dict, work: Path) -> float:
+    """``train_with_hcdc_pipeline_torch.main`` at its 200 steps on the
+    kernels (losses finite and falling, the store statistics), then 3
+    steps on each route, losses within ``TRAIN_BARS``. Returns the
+    seconds."""
+    import math
+
+    from repro_torch.configs import get_smoke_config
+
+    ex = load_entry("examples/train_with_hcdc_pipeline_torch.py")
+    t_part = time.perf_counter()
+    out, text, wall, n = counted_run(torch, ex.main,
+                                     ["--ckpt-dir", str(work / "ckpt")])
+    launches["train 200 steps"] = n
+    losses = out["losses"]
+    lines = text.strip().splitlines()
+    log(f"examples train (qwen3_4b smoke, 200 steps of 8 x 64 tokens, "
+        f"kernel route): {wall:.2f} s wall, {1e3 * wall / len(losses):.1f} "
+        f"ms a step; {lines[-3]} | {lines[-2]} | {lines[-1]} [{card}]")
+    check(len(losses) == 200 and all(math.isfinite(v) for v in losses),
+          "examples train: a loss is not finite")
+    check(losses[-1] < losses[0],
+          f"examples train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(set(TRAIN_STORE_KEYS) <= set(out["store_stats"]),
+          f"examples train: store statistics {sorted(out['store_stats'])}")
+    check(n.get("flash_attention", 0) > 0,
+          f"examples train: attention not launched ({n})")
+
+    arch = "qwen3_4b"
+    dtype = str(get_smoke_config(arch).dtype).split(".")[-1]
+    three = {}
+    for impl in ("cuda", "torch"):
+        three[impl], _, wall, n = counted_run(
+            torch, ex.run, arch, 3, str(work / f"ckpt_{impl}"), None, impl)
+        launches[f"train 3 steps {impl}"] = n
+        log(f"examples train 3 steps impl={impl}: {wall:.2f} s wall, losses "
+            f"{three[impl]['losses']} [{card}]")
+    check(launches["train 3 steps cuda"].get("flash_attention", 0) > 0,
+          "examples train 3 steps: attention not launched")
+    check(not launches["train 3 steps torch"],
+          "examples train 3 steps plain: a kernel was launched")
+    bar = TRAIN_BARS[dtype][0]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(three["cuda"]["losses"],
+                                                three["torch"]["losses"])]
+    log(f"examples train 3 steps: loss relative differences {gaps} "
+        f"({dtype}, bar {bar:g})")
+    check(max(gaps) <= bar, f"examples train: kernel and plain losses "
+                            f"beyond {bar:g} ({gaps})")
+    return time.perf_counter() - t_part
+
+
+def example_crash_soak(torch, card: str, work: Path) -> float:
+    """``scripts/crash_soak_torch.py`` at ``SOAK_FILES`` files a site on
+    the kernels, the kill timed from an uninterrupted run of the same
+    command, whose rows the resumed run's must equal bitwise. Returns the
+    seconds."""
+    import os
+    import re
+    import signal
+
+    soak = load_entry("scripts/crash_soak_torch.py")
+    t_part = time.perf_counter()
+    flags = ["--files", str(SOAK_FILES), "--days", str(SOAK_DAYS),
+             "--tick-impl", "cuda"]
+    args = soak.build_parser().parse_args(flags)
+    n_expected = len(args.cache_tb.split(",")) * args.seeds
+    full_json = work / "soak_full.json"
+    cmd = soak._sweep_cmd(args, str(work / "soak_cache"), str(full_json), [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=soak._env(), cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    full_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+    check(proc.returncode == 0, f"examples crash soak: the uninterrupted "
+                                f"run exited {proc.returncode}")
+    sweep_s = float(re.search(r"done in ([0-9.]+)s", proc.stderr).group(1))
+    kill_after = round(full_wall - sweep_s + SOAK_KILL_AT * sweep_s, 1)
+    log(f"examples crash soak: uninterrupted run ({n_expected} configs, "
+        f"{SOAK_FILES} files/site, {SOAK_DAYS:g} days, tick 60 s, lane "
+        f"chunks of 2, cuda) {full_wall:.2f} s wall, its sweep {sweep_s} s; "
+        f"kill after {kill_after} s [{card}]")
+
+    env = dict(os.environ, TMPDIR=str(work))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "crash_soak_torch.py"),
+         *flags, "--kill-after", str(kill_after), "--keep"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    soak_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+    check(proc.returncode == 0,
+          f"examples crash soak: the soak exited {proc.returncode}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"examples crash soak: {soak_wall:.2f} s wall; victim exit "
+        f"{got['victim_rc']}; resume {got['resume_wall_s']:.2f} s, "
+        f"{got['resume_rows']}/{n_expected} configs, {got['cache_hits']} "
+        f"from the journal ({got['cache_hits'] / n_expected:.3f}), "
+        f"{got['lanes_simulated']} lanes simulated; fault soak "
+        f"{got['fault_wall_s']:.2f} s, exit {got['fault_rc']}, "
+        f"{got['fault_rows']} configs [{card}]")
+    check(got["victim_rc"] == -signal.SIGKILL,
+          f"examples crash soak: the first run did not die from SIGKILL "
+          f"(exit {got['victim_rc']})")
+    check(got["resume_rows"] == n_expected and got["cache_hits"] >= 1
+          and got["lanes_simulated"] >= 1,
+          "examples crash soak: the kill did not land mid-run (no chunk "
+          "journaled, or none left)")
+
+    def bits(doc):
+        return [{k: v for k, v in r.items() if k != "wall_s"}
+                for r in doc["rows"]]
+
+    resumed = json.loads(Path(got["resume_json"]).read_text())
+    full = json.loads(full_json.read_text())
+    check(not resumed.get("failures") and bits(resumed) == bits(full),
+          "examples crash soak: the resumed rows are not bitwise the "
+          "uninterrupted run's")
+    check(got["fault_rc"] == 0 and got["fault_rows"] == n_expected,
+          "examples crash soak: the fault soak lost configs")
+    log(f"examples crash soak: resumed rows bitwise the uninterrupted "
+        f"run's ({n_expected} rows, wall_s aside); fault soak complete")
+    return time.perf_counter() - t_part
+
+
+def examples_phase(torch, card: str) -> None:
+    """The port's examples and its crash soak on the card (see the module
+    notes), each kernel run's launches on one line."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="examples_phase_", dir=ROOT / "build"))
+    launches: dict = {}
+    try:
+        secs = {"sweep_decision": example_sweep_decision(torch, card,
+                                                         launches),
+                "serve_small": example_serve_small(torch, card, launches),
+                "train": example_train(torch, card, launches, work),
+                "crash_soak": example_crash_soak(torch, card, work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"examples launches: {json.dumps(launches, sort_keys=True)}")
+    log(f"examples phase: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + f"; whole phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def carousel_inputs(torch, gen, n: int, m: int):
@@ -3853,35 +4236,39 @@ def main(argv=None) -> int:
         f"Table-2 bar (CPU plain vs card kernels)")
 
     # -- sweep phase (the main path: run_sweep_torch, whose cuda tick
-    # replays a CUDA graph), then the plain path, then the cuda path
-    # replayed and eager on the packed grid, bitwise to each other
+    # replays a CUDA graph), then the plain path against it on a shorter
+    # horizon, then the cuda path replayed and eager on the packed grid,
+    # bitwise to each other
     log(f"sweep: horizon cut from the paper's 90 days to {days:g} days "
         f"({grid.n_ticks} ticks of 10 s); catalogue {n_files} files/site")
     runs = {}
-    counts = None
-    for impl in ("cuda", "torch"):
+    parity_specs = pricing_specs(min(days, PARITY_DAYS), n_files)
+    for impl, run_specs in (("cuda", specs), ("parity cuda", parity_specs),
+                            ("parity torch", parity_specs)):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         glue_ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = run_sweep_torch(specs, tick=10.0, tick_impl=impl,
-                              device="cuda")
+        res = run_sweep_torch(run_specs, tick=10.0,
+                              tick_impl=impl.split()[-1], device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {**ops.launch_counts(), **glue_ops.launch_counts()}
+        runs[impl] = res
+        n_ticks = res.results[0].events  # the batched program's ticks
+        log(f"sweep {impl}{' (captured)' if impl == 'cuda' else ''}: "
+            f"{run_specs[0].days:g} days, {wall:.2f} s wall, "
+            f"{n_ticks / wall:.1f} ticks/s, {len(res) / wall:.2f} "
+            f"configs/s, launches {launched}")
         if impl == "cuda":
             counts = launched
-        runs[impl] = res
-        log(f"sweep {impl}{' (captured)' if impl == 'cuda' else ''}: "
-            f"{wall:.2f} s wall, {grid.n_ticks / wall:.1f} ticks/s, "
-            f"{len(res) / wall:.2f} configs/s, launches {launched}")
     check(counts == {name: grid.n_ticks
                      for name in ops.KERNELS + glue_ops.KERNELS},
           f"main path launches {counts}, not one of each kernel in each of "
           f"{grid.n_ticks} ticks")
-    n_ok = lane_parity(runs["torch"], runs["cuda"])
-    log(f"sweep parity: {n_ok} specs within the Table-2 bar, jobs "
-        f"submitted equal")
+    n_ok = lane_parity(runs["parity torch"], runs["parity cuda"])
+    log(f"sweep parity ({parity_specs[0].days:g} days): {n_ok} specs within "
+        f"the Table-2 bar, jobs submitted equal")
     outs = {}
     for eager in (True, False):
         torch.cuda.synchronize()
@@ -3916,6 +4303,7 @@ def main(argv=None) -> int:
 
     decide_launches, decided = decide_phase(torch, days, n_files)
     cli_phase(torch, days, n_files, card, decided)
+    examples_phase(torch, card)
 
     # one entry per kernel and case: the lane-tick kernels at the sweep's
     # shapes with their launches on the sweep, then the three further
