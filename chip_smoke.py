@@ -132,16 +132,35 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    and replayed, every output bitwise equal;
 6. profile, for the eager and the replayed ``cuda`` tick
    (``sim.batched.TickLoop``): 40 ticks on the host clock, 40 more under
-   ``torch.profiler`` — wall and device time per tick, the device's idle
-   share, the top kernels, the lane-tick and each glue kernel's device
+   ``torch.profiler`` — wall and device time per tick, the top kernels,
+   the lane-tick and each glue kernel's device
    time per tick, ``torch.cumsum``'s calls and device time per tick,
    ``torch.topk``'s kernels (none: the run fails on any), PyTorch's
    reductions per tick and the wait queue's files after the profiled
    ticks (what ``glue_wait_select`` reads); for
    the replayed tick the capture's host time and the graph
-   pool's bytes; for the eager one the GCS candidates and admissions per
-   lane per tick of the profiled ticks (counted after them) and of 40
-   ticks half-way through the horizon;
+   pool's bytes; for the eager one, traced (its times hold the trace
+   library's, printed apart), the mean and most GCS candidates and
+   admissions a lane on each counted tick (every
+   ``trace_tick.COUNT_STRIDE``-th, the loop's counters read around each)
+   from the profiled ticks to half-way through the horizon, and on 8
+   counted ticks from there;
+6b. trace phase (``trace_phase``), the tick's tracing
+   (``kernels.trace_tick``) on the sweep grid: a traced captured loop,
+   launch counts set to 0 after its warm-up ticks, replayed to the counted
+   tick nearest half the horizon: each lane-tick and glue kernel launched
+   once a replayed tick, ``trace_stamp`` once a segment of each
+   (``len(SEGMENTS)``), ``trace_count`` once; its ``sweep.torch.tick``
+   instant stamps every replayed tick on ``globaltimer`` and counts the
+   lanes of every counted tick, its stamped time beside the replays' CUDA
+   event time; then an eager traced loop on a copy of its state runs the
+   next tick (a counted one) beside its replay, every state tensor bitwise
+   and the counts added equal, and ``trace_tick.count`` on that tick's
+   planes held exactly to the plain ``ref.count`` on the same inputs;
+   ``trace_count``'s and ``trace_stamp``'s ms, device µs, ms in a graph,
+   plain ms and bound (the count's: its two flag planes, 2 B a file, and
+   the per-lane counters, at 3.35 TB/s), and the count's device µs on a
+   tick it skips;
 7. execution phase, on the same grid through the normal entry points on
    ``cuda``, each run held bitwise to the sweep phase's captured
    ``simulate_packed`` outputs or ``run_sweep_torch`` results:
@@ -152,7 +171,8 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    (peak device memory allocated, ``torch.cuda.max_memory_allocated``,
    below the unchunked run's), ``devices=["cuda:0", "cuda:0"]`` with
    ``lane_chunk=2``, retryable chunk jobs under injected crashes, hangs
-   and transient faults (0.3 each; retries scheduled; device memory back
+   and transient faults (0.3 each, traced loops; retries scheduled; device
+   memory back
    within half a chunk's graph pool), and a fleet of two worker processes
    on the card (``transport="subprocess"``, ``lane_chunk=2``: each
    worker's chunks and busy seconds, the dispatcher's device memory
@@ -180,9 +200,11 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 8. decide phase, the §5.3 decision workflow through the port's front door
    (``sim.decide.decide`` on ``sim.sweep.SweepDriver(backend="torch",
    tick=10.0, tick_impl="cuda", device="cuda", cache=<dir>)``, the cache
-   in a fresh directory under ``build/``): the pricing grid's axes (2
+   in a fresh directory under ``build/``; the tracer on, so the loops are
+   traced): the pricing grid's axes (2
    seeds) at the sweep's horizon and catalogue, ``max_rounds=2``, cold
-   (each lane-tick and glue kernel launched, counts reset just before;
+   (each lane-tick, glue and trace kernel launched, counts reset just
+   before;
    device memory back within half a graph pool of where it was, so each
    sweep call's pool is released), then warm with a fresh driver on the
    same cache (0 lanes simulated, the report equal outside its stats);
@@ -299,10 +321,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     the train step, each with its 192 launches over the timed steps),
     each with its launches on its own path (counts
     reset just before the path runs, read just after each case; the
-    lane-tick and glue entries also with ``launches_decide``, their
-    launches in the cold decide run); the glue kernels,
-    which replace no Pallas kernel, name the lines of ``repro``'s tick
-    that XLA fuses as what they replace; attention entries
+    lane-tick, glue and trace entries also with ``launches_decide``, their
+    launches in the cold decide run); the glue kernels, which replace
+    no Pallas kernel, name the lines of ``repro``'s tick that XLA fuses
+    as what they replace, the trace kernels none; attention entries
     also name their route (``variant``: ``wgmma`` or ``tf32x3``, each at
     least once; the ``wgmma`` ones their ``loader``, ``tma`` or
     ``threads``, each at least once) and that kernel's source; then the
@@ -355,6 +377,7 @@ PARITY_DAYS = 0.25
 _LANE_TICK = "src/repro_torch/kernels/lane_tick/csrc/lane_tick.cu"
 _CAROUSEL = "src/repro_torch/kernels/carousel_update/csrc/carousel_update.cu"
 _TICK_GLUE = "src/repro_torch/kernels/tick_glue/csrc/tick_glue.cu"
+_TRACE_TICK = "src/repro_torch/kernels/trace_tick/csrc/trace_tick.cu"
 KERNEL_SOURCE = {
     "transfer_tick": _LANE_TICK,
     "gcs_admit": _LANE_TICK,
@@ -364,6 +387,8 @@ KERNEL_SOURCE = {
     "glue_link_admit": _TICK_GLUE,
     "glue_migrate": _TICK_GLUE,
     "glue_wait_select": _TICK_GLUE,
+    "trace_stamp": _TRACE_TICK,
+    "trace_count": _TRACE_TICK,
     "carousel_tick": _CAROUSEL,
     "engine_count": _CAROUSEL,
     "engine_tick": _CAROUSEL,
@@ -395,6 +420,9 @@ REPLACES = {
     "glue_link_admit": "src/repro/sim/batched.py:280-286 (XLA-fused)",
     "glue_migrate": "src/repro/sim/batched.py:331,336-353 (XLA-fused)",
     "glue_wait_select": "src/repro/sim/batched.py:473-475 (jax.lax.top_k)",
+    # no counterpart: the port's tracing of its own replayed tick
+    "trace_stamp": "none (the port's tick tracing)",
+    "trace_count": "none (the port's tick tracing)",
     "carousel_tick":
         "src/repro/kernels/carousel_update/carousel_update.py:42",
     "engine_count":
@@ -1178,6 +1206,171 @@ def glue_phase(torch, grid) -> dict:
     return res, state_tick
 
 
+def trace_phase(torch, grid) -> list:
+    """The tick's tracing (``kernels.trace_tick``) on the sweep grid (see
+    the module notes). Returns the kernels line's cases of ``trace_stamp``
+    and ``trace_count``, each with its launches on the traced loop."""
+    from repro_torch.kernels import trace_tick
+    from repro_torch.kernels.lane_tick import ops
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.kernels.tick_glue import ops as glue_ops
+    from repro_torch.kernels.trace_tick import ops as trk
+    from repro_torch.kernels.trace_tick import ref as trk_ref
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.sim.batched import GRAPH_WARMUP_TICKS, TickLoop
+
+    dev = torch.device("cuda")
+    impl = resolve_tick_impl("cuda", dev)
+    stride, n_seg = trace_tick.COUNT_STRIDE, len(trace_tick.SEGMENTS)
+    L, S, F = grid.n_lanes, len(grid.site_names), grid.sizes.shape[-1]
+    upto = max(grid.n_ticks // 2 // stride, 1) * stride
+    check(upto < grid.n_ticks, f"trace: {grid.n_ticks} ticks reach no "
+                               f"counted tick after the first")
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable()
+    try:
+        cap = TickLoop(grid, impl, dev, graph=True)
+        eager = TickLoop(grid, impl, dev, graph=False)
+        check(cap.trace and eager.trace, "trace: a loop built with the "
+                                         "tracer on is not traced")
+        cap.advance(GRAPH_WARMUP_TICKS)
+        torch.cuda.synchronize()
+        for lib in (ops, glue_ops, trk):
+            lib.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cap.advance(upto - cap.t)
+        stop.record()
+        torch.cuda.synchronize()
+        replays = upto - GRAPH_WARMUP_TICKS
+        launched = {**ops.launch_counts(), **glue_ops.launch_counts(),
+                    **trk.launch_counts()}
+        check(launched == {**{k: replays
+                              for k in ops.KERNELS + glue_ops.KERNELS},
+                           "trace_stamp": n_seg * replays,
+                           "trace_count": replays},
+              f"trace: launches {launched} over {replays} replayed ticks")
+        cap.result()
+        tick = [e["args"] for e in tracer.events
+                if e["name"] == "sweep.torch.tick"][-1]
+        stamped_ns = (sum(g["sum_ns"] for g in tick["segments"].values())
+                      + tick["replay_gap"]["sum_ns"])
+        event_ns = 1e6 * start.elapsed_time(stop)
+        check(tick["clock"] == "globaltimer" and tick["ticks"] == replays
+              and tick["lane_ticks"] == L * (upto // stride),
+              f"trace: the tick instant stamps {tick['ticks']} ticks on "
+              f"{tick['clock']} and counts {tick['lane_ticks']} lane-ticks "
+              f"({replays} replayed, {upto // stride} counted, {L} lanes)")
+        log(f"trace: {replays} replayed traced ticks to tick {upto}, "
+            f"launches {launched}; stamped {stamped_ns / replays / 1e3:.1f} "
+            f"us a tick against {event_ns / replays / 1e3:.1f} by CUDA "
+            f"events ({stamped_ns / event_ns:.4f}); counts "
+            f"{tick['counts']} over {tick['lane_ticks']} lane-ticks")
+
+        # the next tick, a counted one: eager on a copy of the state, its
+        # count's inputs kept, beside its replay
+        for k, v in cap.st.items():
+            eager.st[k].copy_(v)
+        kept = {}
+        count = trace_tick.count
+
+        def keeping(counts, *args):
+            kept["args"] = tuple(a.clone() for a in args)
+            return count(counts, *args)
+
+        trace_tick.count = keeping
+        try:
+            eager.advance(1)
+        finally:
+            trace_tick.count = count
+        cap.advance(1)
+        torch.cuda.synchronize()
+        for k in cap.st:
+            check(k == "trace_acc" or torch.equal(cap.st[k], eager.st[k]),
+                  f"trace: eager and replayed traced tick {upto}: {k} "
+                  f"differs")
+    finally:
+        tracer.disable()
+        tracer.reset()
+    # the count's inputs: tick, want, mig, occ3, lq_next, lq_serve,
+    # wq_wait, work
+    args = kept["args"]
+    check(int(args[0][0]) - 1 == upto, f"trace: kept tick {args[0]}")
+    got = torch.zeros((L, len(trace_tick.COUNTS)), dtype=torch.int64,
+                      device=dev)
+    trk.count(got, *args)
+    plain = torch.zeros_like(got)
+    trk_ref.count(plain, *args[:-1])
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), f"trace: trace_count {got.tolist()} "
+                                   f"against the plain {plain.tolist()}")
+    check(bool((plain[:, 2] > 0).all() and (plain[:, 3] > 0).any()),
+          f"trace: tick {upto} has no active transfer or waiting file to "
+          f"count ({plain.tolist()})")
+    cap.close()
+    eager.close()
+    del cap, eager
+    torch.cuda.empty_cache()
+    scratch = torch.zeros_like(got)
+    skipped = (args[0] + 1,) + args[1:]
+    n = L * S * F
+    need = 2 * n + L * S * (12 + 24 + 8) + 2 * L * 8 * len(trace_tick.COUNTS)
+    nb, kind = bound_ms(need, 0.0)
+    count_row = dict(
+        max_abs_err=0,
+        ms=time_ms(torch, lambda: trk.count(scratch, *args)),
+        graph_ms=graph_ms(torch, lambda: trk.count(scratch, *args)),
+        device_us=device_us(torch, lambda: trk.count(scratch, *args)),
+        plain_ms=time_ms(torch, lambda: trk_ref.count(scratch, *args[:-1])),
+        bound_ms=nb, bound_by=kind, library_ms=None)
+    skip_us = device_us(torch, lambda: trk.count(scratch, *skipped))
+    acc = torch.zeros((trk_ref.acc_size(),), dtype=torch.int64, device=dev)
+    host_acc = torch.zeros((trk_ref.acc_size(),), dtype=torch.int64)
+    nb_s, kind_s = bound_ms(64, 0.0)  # the last stamp and a row, in and out
+    stamp_row = dict(
+        max_abs_err=None,  # a clock: no plain value to hold it to
+        ms=time_ms(torch, lambda: trk.stamp(acc, 1)),
+        graph_ms=graph_ms(torch, lambda: trk.stamp(acc, 1)),
+        device_us=device_us(torch, lambda: trk.stamp(acc, 1)),
+        plain_ms=time_ms(torch, lambda: trk_ref.stamp(host_acc, 1)),
+        bound_ms=nb_s, bound_by=kind_s, library_ms=None)
+    log(f"trace: tick {upto}'s counts a lane {got.tolist()} exact to the "
+        f"plain count on its planes; eager and replayed traced tick bitwise "
+        f"on every state tensor but the stamps")
+    for name, r in (("trace_count", count_row), ("trace_stamp", stamp_row)):
+        log(f"  {name}: ms {r['ms']:.4f} graph_ms {r['graph_ms']:.4f} "
+            f"device_us {r['device_us']:.2f} plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    log(f"  trace_count on a tick it skips: device_us {skip_us:.2f}")
+    shapes = f"sweep shapes (L {L}, S {S}, F {F})"
+    return [("trace_stamp", f"{shapes}, {n_seg} a replayed tick",
+             launched["trace_stamp"], stamp_row),
+            ("trace_count", f"{shapes}, tick {upto}'s planes (a counted "
+             f"tick)", launched["trace_count"], count_row)]
+
+
+def counted_ticks(torch, loop, upto: int):
+    """Advance a traced loop to tick ``upto``, reading its counters
+    (``kernels.trace_tick``) around each counted tick on the way: what each
+    counted tick added a lane, ``[ticks, L, len(COUNTS)]`` (``None`` where
+    no tick on the way is counted)."""
+    from repro_torch.kernels.trace_tick import COUNT_STRIDE
+
+    added = []
+    while True:
+        nxt = -(-loop.t // COUNT_STRIDE) * COUNT_STRIDE
+        if nxt >= upto:
+            break
+        loop.advance(nxt - loop.t)
+        before = loop.st["trace_counts"].clone()  # in stream order: no sync
+        loop.advance(1)
+        added.append(loop.st["trace_counts"] - before)
+    loop.advance(upto - loop.t)
+    return torch.stack(added).cpu() if added else None
+
+
 def profile_phase(torch, grid, graph: bool, warm: int = 20,
                   n: int = 40, record_series=None) -> dict:
     """Where a tick's time goes on the ``cuda`` path, replayed from its
@@ -1185,15 +1378,18 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     the grid's loop (``sim.batched.TickLoop``, as ``simulate_packed``
     drives it, with series capture at ``record_series`` when given) timed
     on the host clock, then the next ``n`` under ``torch.profiler`` for
-    device time by kernel; the idle share is the device's unused part of
-    the unprofiled wall time. Returns the wall and device-busy
-    microseconds per tick (busy ``None`` when the profiler saw no
-    kernel)."""
+    device time by kernel. The eager loop is traced (built with the tracer
+    on), so its times hold the trace library's launches (printed apart);
+    its counters give the GCS candidates and admissions a lane on each
+    counted tick (:func:`counted_ticks`) from the profiled ticks to
+    half-way through the horizon, and on 8 counted ticks from there.
+    Returns the wall and device-busy microseconds per tick (busy ``None``
+    when the profiler saw no kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.lane_tick import ops
     from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.obs.trace import get_tracer
     from repro_torch.sim.batched import TickLoop
 
     dev = torch.device("cuda")
@@ -1202,53 +1398,33 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
         from repro_torch.sim.batched import _normalize_record
 
         kw["record"] = _normalize_record(record_series, grid.n_ticks)
-    loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev, graph=graph,
-                    **kw)
+    tracer = get_tracer()
+    if not graph:
+        tracer.reset()
+        tracer.enable()
+    try:
+        loop = TickLoop(grid, resolve_tick_impl("cuda", dev), dev,
+                        graph=graph, **kw)
+    finally:
+        if not graph:
+            tracer.disable()
+            tracer.reset()
     name = ("captured" if graph else "eager") + (
         f", series every {record_series} ticks" if record_series else "")
     loop.advance(warm)
     torch.cuda.synchronize()
     # the same number of ticks once without the profiler: its own host
-    # cost would inflate the wall time and so the idle share
+    # cost would inflate the wall time
     t0 = time.perf_counter()
     loop.advance(n)
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
-    # the eager ticks keep each GCS admission's candidate plane and mask
-    # (references only: no device work added), counted afterwards; a
-    # replayed tick runs no wrapper
-    seen = []
-    gcs_admit = ops.gcs_admit
-
-    def keeping(want, *args, **kw):
-        out = gcs_admit(want, *args, **kw)
-        seen.append((want, out[0]))
-        return out
-
-    def run_keeping(n_ticks):
-        ops.gcs_admit = keeping
-        try:
-            loop.advance(n_ticks)
-        finally:
-            ops.gcs_admit = gcs_admit
-        torch.cuda.synchronize()
-
-    def counts(n_ticks):
-        """Mean and max GCS candidates and admissions per lane per tick
-        over the kept ticks (then dropped)."""
-        check(len(seen) == n_ticks, f"profile: {len(seen)} GCS admissions "
-                                    f"in {n_ticks} ticks")
-        cand = torch.stack([w.sum((1, 2)) for w, _ in seen]).float()
-        adm = torch.stack([a.sum((1, 2)) for _, a in seen]).float()
-        seen.clear()
-        return (f"mean {float(cand.mean()):.2f} max {int(cand.max())}; "
-                f"admissions: mean {float(adm.mean()):.2f} max "
-                f"{int(adm.max())}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_keeping(n)
+        loop.advance(n)
+        torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side events only (the operators that launched them carry the
     # same time again)
@@ -1260,6 +1436,7 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     busy_us = sum(r[1] for r in rows)
     ours_us = sum(r[1] for r in rows
                   if any(k in r[0] for k in ("tt_", "ga_", "wa_")))
+    trace_us = sum(r[1] for r in rows if "trk_" in r[0])
     glue_us = {step: sum(r[1] for r in rows if f"tg_{step}_kernel" in r[0])
                for step in GLUE_STEPS}
     capture = (f"; capture {loop.capture_s * 1e3:.1f} ms, graph pool "
@@ -1272,12 +1449,12 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
         return dict(wall_us=wall_us / n, busy_us=None)
     log(f"profile {name} ({n} ticks after {warm + n}): wall "
         f"{wall_us / n:.1f} us/tick unprofiled ({prof_wall_us / n:.1f} "
-        f"profiled), device busy {busy_us / n:.1f} us/tick (idle share "
-        f"{1 - busy_us / wall_us:.3f}), lane-tick kernels "
+        f"profiled), device busy {busy_us / n:.1f} us/tick, lane-tick kernels "
         f"{ours_us / n:.1f} us/tick, glue kernels "
         f"{sum(glue_us.values()) / n:.1f} us/tick ("
         + ", ".join(f"{k} {v / n:.1f}" for k, v in glue_us.items())
-        + f"), {len(rows)} device kernels by name{capture}")
+        + f"), trace kernels {trace_us / n:.1f} us/tick (in the busy time), "
+        f"{len(rows)} device kernels by name{capture}")
     for key, us, count in rows[:12]:
         log(f"  {us / n:9.1f} us/tick {count / n:6.1f}/tick  {key[:90]}")
     # the wait queue glue_wait_select reads, after the profiled ticks: its
@@ -1310,17 +1487,23 @@ def profile_phase(torch, grid, graph: bool, warm: int = 20,
     log(f"  torch.cumsum: {cs_calls / n:.1f} calls/tick, {cs_us / n:.1f} "
         f"us/tick of device time")
     if not graph:
-        log(f"  GCS candidates per lane per tick, ticks {warm + n}-"
-            f"{warm + 2 * n} (the profiled ones, counted after them): "
-            f"{counts(n)}")
-        # the same counts half-way through the horizon, where jobs have
-        # finished and files lose their last consumer
+        # the same counts on each counted tick from the profiled ticks to
+        # half-way through the horizon, then on 8 more from there, where
+        # jobs have finished and files lose their last consumer
+        from repro_torch.kernels.trace_tick import COUNT_STRIDE
+
         mid = max(warm + 2 * n, grid.n_ticks // 2)
-        if mid + n <= grid.n_ticks:
-            loop.advance(mid - loop.t)
-            run_keeping(n)
-            log(f"  GCS candidates per lane per tick, ticks {mid}-"
-                f"{mid + n}: {counts(n)}")
+        for upto in (mid, min(grid.n_ticks, mid + 8 * COUNT_STRIDE)):
+            first = loop.t
+            per = counted_ticks(torch, loop, upto)
+            if per is None:
+                continue
+            cand, adm = per[..., 0].float(), per[..., 1].float()
+            log(f"  GCS candidates a lane on the {per.shape[0]} counted ticks "
+                f"of ticks {first}-{upto} (every {COUNT_STRIDE}th): mean "
+                f"{float(cand.mean()):.2f} max {int(cand.max())}; "
+                f"admissions: mean {float(adm.mean()):.2f} max "
+                f"{int(adm.max())}")
     return dict(wall_us=wall_us / n, busy_us=busy_us / n, topk_us=topk_us,
                 glue_us={k: v / n for k, v in glue_us.items()},
                 wait_queue=wait_queue)
@@ -1489,9 +1672,9 @@ def execution_phase(torch, grid, specs, days: float, n_files: int, captured,
     n = same_results(res, swept, "faults")
     check(fired["retries"] > 0, "faults: no retry was scheduled")
     log(f"exec faults (crash/hang/transient 0.3 each, job_timeout 0.5 s, "
-        f"lane_chunk=2): {wall:.2f} s wall, {n} specs bitwise to the "
-        f"unchunked sweep; {fired}; {call['chunks']} chunks, graph pool "
-        f"{call['pool_bytes']} B; device memory allocated {alloc0} B "
+        f"lane_chunk=2, traced loops): {wall:.2f} s wall, {n} specs "
+        f"bitwise to the unchunked sweep; {fired}; {call['chunks']} "
+        f"chunks, graph pool {call['pool_bytes']} B; device memory allocated {alloc0} B "
         f"before, {alloc1} B after")
     check(alloc1 - alloc0 < call["pool_bytes"] // 2,
           "faults: device memory held after the sweep")
@@ -1575,8 +1758,9 @@ def points_beyond_bar(a: dict, b: dict) -> list:
 def run_decide(torch, axes: dict, tick_impl: str, cache, tick: float = 10.0,
                **kw):
     """``decide(axes, SweepDriver(backend="torch", ...))`` on the card
-    with the tracer on; returns the report, the driver, the per-call
-    ``sweep.torch`` records and the wall seconds."""
+    with the tracer on, so its loops are traced (their times hold the
+    trace library's launches); returns the report, the driver, the
+    per-call ``sweep.torch`` records and the wall seconds."""
     from repro_torch.obs.trace import get_tracer
     from repro_torch.sim.decide import decide
     from repro_torch.sim.sweep import SweepDriver
@@ -1616,6 +1800,7 @@ def decide_phase(torch, days: float, n_files: int):
 
     from repro_torch.kernels.lane_tick import ops
     from repro_torch.kernels.tick_glue import ops as glue_ops
+    from repro_torch.kernels.trace_tick import ops as trk
 
     t_phase = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1625,11 +1810,12 @@ def decide_phase(torch, days: float, n_files: int):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         alloc0 = torch.cuda.memory_allocated()
-        ops.reset_launch_counts()
-        glue_ops.reset_launch_counts()
+        for lib in (ops, glue_ops, trk):
+            lib.reset_launch_counts()
         cold, drv, calls, wall = run_decide(torch, axes, "cuda", cache_dir,
                                             max_rounds=2)
-        launched = {**ops.launch_counts(), **glue_ops.launch_counts()}
+        launched = {**ops.launch_counts(), **glue_ops.launch_counts(),
+                    **trk.launch_counts()}
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         alloc1 = torch.cuda.memory_allocated()
@@ -1643,7 +1829,8 @@ def decide_phase(torch, days: float, n_files: int):
               f"decide cold: {len(calls)} sweep records for "
               f"{drv.sweep_calls} calls")
         check(all(n > 0 for n in launched.values())
-              and set(launched) == set(ops.KERNELS + glue_ops.KERNELS),
+              and set(launched) == set(ops.KERNELS + glue_ops.KERNELS
+                                       + trk.KERNELS),
               f"decide cold: a kernel was not launched ({launched})")
         log(f"decide cold: claim_holds {doc['claim_holds']}, "
             f"refine.lane_fraction {doc['refine']['lane_fraction']:.4f}, "
@@ -4291,11 +4478,7 @@ def main(argv=None) -> int:
         which = "captured" if graph else "eager"
         check(p.get("topk_us", 0.0) == 0.0,
               f"profile {which}: torch.topk kernels in the cuda tick")
-    if prof[True]["busy_us"] is None:
-        busy = prof[False]["busy_us"]
-        log(f"profile captured: device busy taken from the eager profile, "
-            f"{busy:.1f} us/tick: idle share "
-            f"{1 - busy / prof[True]['wall_us']:.3f}")
+    traced = trace_phase(torch, grid)
 
     execution_phase(torch, grid, specs, days, n_files, outs[False],
                     runs["cuda"], card)
@@ -4321,6 +4504,8 @@ def main(argv=None) -> int:
                {**glue[step],
                 "launches_decide": decide_launches[f"glue_{step}"]})
               for step in GLUE_STEPS]
+    cases += [(name, case, n, {**r, "launches_decide": decide_launches[name]})
+              for name, case, n, r in traced]
     cases += carousel_phase(torch)
     cases += [("flash_attention", *c) for c in attention_phase(torch)]
     cases += mamba_phase(torch)

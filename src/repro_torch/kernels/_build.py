@@ -37,6 +37,15 @@ SOURCES: Dict[str, str] = {
         "flash_attention/csrc/flash_attention_tf32x3.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
     "tick_glue": "tick_glue/csrc/tick_glue.cu",
+    "trace_tick": "trace_tick/csrc/trace_tick.cu",
+}
+
+#: Libraries built together with a library, wherever it is built: the
+#: tick's tracing with the tick's kernels, so a traced loop finds it built
+#: (loading it is left to the first traced loop).
+BUILT_WITH: Dict[str, tuple] = {
+    "lane_tick": ("trace_tick",),
+    "tick_glue": ("trace_tick",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,11 +96,14 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Build every library in ``names`` (default: all) that is not built
-    yet, one ``nvcc`` per source, all started together. Returns the
-    seconds each build took (0.0 for a library already built). Raises
-    ``RuntimeError`` with the compiler's output when a build fails."""
+    """Build every library in ``names`` (default: all) and the libraries
+    :data:`BUILT_WITH` them that are not built yet, one ``nvcc`` per
+    source, all started together. Returns the seconds each build took (0.0
+    for a library already built). Raises ``RuntimeError`` with the
+    compiler's output when a build fails."""
     names = list(SOURCES if names is None else names)
+    for name in list(names):
+        names += [w for w in BUILT_WITH.get(name, ()) if w not in names]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     seconds: Dict[str, float] = {}
@@ -274,7 +286,8 @@ def hot_loop(code: list, marker: str) -> Dict[str, int]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed (with the
+    libraries :data:`BUILT_WITH` it)."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])

@@ -239,6 +239,15 @@ def migrate(st, c, now, mig, rank, occ3, work) -> None:
                             occ3, work)))
 
 
+def migration_counts(work: torch.Tensor, L: int, S: int):
+    """The migrations :func:`migrate`'s kernel admitted this tick, a row:
+    ``(n_direct, n_queued)``, ``[L * S]`` int32 views of ``work`` (the
+    buffer holds the occupancy ``[L * S, 3]``, then these two, then the
+    launches' tickets)."""
+    R = L * S
+    return work[3 * R:4 * R], work[4 * R:5 * R]
+
+
 def wait_select(st, W: int, work):
     """See ``ref.wait_select`` (1 <= ``W`` <= :data:`MAX_WAIT`, ``W`` <=
     F); on the card ``work`` is the tick's counter buffer, and each

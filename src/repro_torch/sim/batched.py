@@ -86,7 +86,7 @@ from repro_torch.kernels.registry import (
     resolve_tick_impl,
 )
 from repro_torch.obs.metrics import get_registry
-from repro_torch.obs.trace import get_tracer
+from repro_torch.obs.trace import get_tracer, traced_call
 from repro_torch.parallel.sharding import lane_mesh
 from repro_torch.sim.cloud import bills_from_monthly_totals
 from repro_torch.sim.output import TimeSeries
@@ -151,8 +151,20 @@ def _scatter_bool(plane: torch.Tensor, rows: torch.Tensor, src: torch.Tensor,
         1, rows, src.to(torch.uint8), reduce, include_self=True)
 
 
+def _no_mark(segment: str) -> None:
+    """The untraced tick's stamp: nothing."""
+
+
+def _trace_lib():
+    """The tick's tracing (``kernels.trace_tick``), imported by a traced
+    loop only."""
+    from repro_torch.kernels import trace_tick
+
+    return trace_tick
+
+
 def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
-                   record=None):
+                   record=None, trace: bool = False):
     """The tick body and the post-loop reduction (closures over the static
     dimensions, the resolved tick implementation and the series-capture
     configuration).
@@ -178,12 +190,31 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
     counters (``occ3``), which every slot taken or freed during the tick
     has updated: the active transfers per link type at its end. With
     ``record=None`` the tick is exactly the tick without capture.
+
+    ``trace`` stamps the tick's phases and counts its work
+    (``repro_torch.kernels.trace_tick``, into the state's ``trace_acc``
+    and ``trace_counts``): a stamp at the tick's start, at its end and
+    wherever it passes between the lane-tick kernels, the glue kernels and
+    PyTorch's own operations (``mark(segment)`` closes the segment that
+    runs up to it), and the counter at the end. With the kernels it adds
+    the trace library's launches only, no PyTorch operation; the plain
+    tick counts with the plain ``trace_tick.ref.count`` (its glue keeps
+    no counts for the counter kernel), on the card too. With
+    ``trace=False`` ``mark`` does nothing and the tick is exactly the
+    untraced tick.
     """
     lt = ops if impl.use_kernel else ref
     glue = glue_ops if impl.use_kernel else glue_ref
     W = WAIT_ADMITS_PER_TICK
+    trace_tick = _trace_lib() if trace else None
 
     def tick_fn(st: Dict[str, torch.Tensor], c: Dict[str, torch.Tensor]):
+        mark = _no_mark
+        if trace:
+            def mark(segment: str) -> None:
+                trace_tick.stamp(st["trace_acc"], trace_tick.ROW[segment])
+
+        mark("replay_gap")
         sizes = c["sizes"]
         L, _, F = sizes.shape
         J = c["job_fid"].shape[-1]
@@ -193,31 +224,39 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
         dt = c["dts"].index_select(0, t).view(())
         month = c["month_idx"].index_select(0, t).view(())
         jobs_now = c["jobs_per_tick"].index_select(1, t).view(L, S)
+        mark("clock")
 
         # -- advance transfers one tick + completion billing; the glue
         # around it (tick_glue) updates the state planes in place
         t_active, work = glue.begin(st, now, dt)
+        mark("begin")
         (new_done, comp, tape_add, recall_add, mig_add, egress_add,
          cls_a_add, cls_b_add) = lt.transfer_tick(
             st["tr_link"], t_active, st["tr_done"], st["tr_total"], sizes,
             c["bw"], c["mode"], dt, month, n_months)
+        mark("transfer")
         st["tape_b"].add_(tape_add)
         st["gcsdisk_b"].add_(recall_add)
         st["diskgcs_b"].add_(mig_add)
         st["egress_mo"].add_(egress_add)
         st["cls_a_mo"].add_(cls_a_add)
         st["cls_b_mo"].add_(cls_b_add)
+        mark("transfer_adds")
         # completions, pending-job resolution, the link-slot prologue and
         # the hot-tier deletions; then the link-slot FIFO admission
         want_mig, occ3 = glue.complete(st, c, now, new_done, comp, work)
         glue.link_admit(st, c, now, work)
+        mark("complete_link")
         # -- hot->cold migrations: the shared-GCS admission, then each
         # admitted file onto its site's disk->gcs link
         mig, gcs_used, gbsec_add, rank = lt.gcs_admit(
             want_mig, sizes, st["gcs_used"], c["gcs_limit"], dt, month,
             n_months, GCS_ADMIT_PASSES)
+        mark("gcs_admit")
         st["gcs_used"].copy_(gcs_used)
+        mark("gcs_copy")
         glue.migrate(st, c, now, mig, rank, occ3, work)
+        mark("migrate")
         # working [L, S, 3] counters: occ3 (from the glue) and lqn3, a view
         # of lq_next; both are updated in place below
         lqn3 = st["lq_next"].view(L, S, 3)
@@ -277,18 +316,24 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
         first = valid & ~same.any(-1)
         ds_k = torch.gather(st["disk_state"], -1, fids)
         absent = first & (ds_k == ABSENT)
+        mark("job_window")
         # group 2, waiting-queue admission: strict FIFO on the disk window
         # (the head blocks until its file fits, §5.2). The W lowest
         # (ticket, index) pairs, the fill past the waiting files in index
         # order as jax.lax.top_k gives it (tick_glue); the previous tick's
         # window scatters are the last writes of wq_wait and wq_ticket.
         lowest, idx = glue.wait_select(st, W, work)
+        mark("wait_select")
+        size_k = torch.gather(sizes, -1, fids)
+        valid_w = lowest < BIG_TICKET
+        present_w = torch.gather(st["disk_state"], -1, idx) != ABSENT
+        size_w = torch.gather(sizes, -1, idx)
+        mark("window_gather")
         started, admitted, stale, disk_used = lt.windows_admit(
-            absent, torch.gather(sizes, -1, fids), fids,
-            lowest < BIG_TICKET,
-            torch.gather(st["disk_state"], -1, idx) != ABSENT,
-            torch.gather(sizes, -1, idx), idx, st["disk_used"],
-            c["disk_limit"])
+            absent, size_k, fids, valid_w, present_w, size_w, idx,
+            st["disk_used"], c["disk_limit"])
+        del size_k, valid_w, present_w, size_w
+        mark("windows_admit")
         st["disk_used"].copy_(disk_used)
 
         if K > 0:
@@ -395,6 +440,15 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
                 st[name].index_copy_(
                     1, slot, value.to(torch.float32).unsqueeze(1))
         t.add_(1)
+        mark("plan_apply")
+        if trace:
+            planes = (st["trace_counts"], t, want_mig, mig, occ3,
+                      st["lq_next"], st["lq_serve"], st["wq_wait"])
+            if impl.use_kernel:
+                trace_tick.count(*planes, work)
+            else:  # the plain glue keeps no counts in a work buffer
+                trace_tick.ref.count(*planes)
+            mark("counters")
 
     def post_fn(st, c, horizon) -> Dict[str, torch.Tensor]:
         L = c["sizes"].shape[0]
@@ -431,9 +485,11 @@ def _lane_step_fns(S: int, K: int, n_months: int, impl: TickImpl,
 _SERIES_KEYS = ("ser_disk", "ser_gcs", "ser_queue", "ser_run", "ser_link")
 
 
-def _build_lane_sim(grid: PackedGrid, device: torch.device, record=None):
+def _build_lane_sim(grid: PackedGrid, device: torch.device, record=None,
+                    trace: bool = False):
     """Device constants and initial state of a packed grid (with the
-    series buffers of ``record``, ``(stride, n_samples)``, when given)."""
+    series buffers of ``record``, ``(stride, n_samples)``, when given, and
+    the trace's stamps and counts with ``trace``)."""
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
@@ -529,6 +585,8 @@ def _build_lane_sim(grid: PackedGrid, device: torch.device, record=None):
             ser_run=zeros((L, n, S), f32),
             ser_link=zeros((L, n, S, 3), f32),
         )
+    if trace:
+        state.update(_trace_lib().state(L, device))
     return c, state
 
 
@@ -562,18 +620,33 @@ class TickLoop:
     n_samples)``, :func:`_normalize_record`) adds the series buffers to
     the state and their writes to the tick. On a CUDA device the loop runs
     with that device current, so loops of several cards can take turns.
+
+    A loop built while the process-global tracer is on is traced
+    (``trace``): its tick stamps its phases and counts its work
+    (:func:`_lane_step_fns`; on the card the trace library's kernels,
+    captured and replayed with the tick, on the CPU the host clock), the
+    stamps zeroed just before the first replay so they cover replayed
+    ticks only, and :meth:`result` records one ``sweep.torch.tick``
+    instant of them. Any loop records, while the tracer is on, a
+    ``tick.setup`` span from its build to its first replay's launch (the
+    first tick's, uncaptured) and a ``tick.replays`` span around each run
+    of replays, with each replay's host launch time (``launch_ns``, ns
+    from the span's ``ts``).
     """
 
     def __init__(self, grid: PackedGrid, impl: TickImpl, device: torch.device,
                  graph: bool, record=None):
         if graph and not (impl.use_kernel and device.type == "cuda"):
             raise ValueError("a captured tick needs tick_impl='cuda'")
-        self.n_ticks = grid.n_ticks
+        self._built_ns: Optional[int] = time.perf_counter_ns()
+        self.trace = get_tracer().enabled
+        self.n_ticks, self.n_lanes = grid.n_ticks, grid.n_lanes
         self.device, self.use_graph = device, graph
         self.tick_fn, self.post_fn = _lane_step_fns(
             len(grid.site_names), grid.max_jobs_per_tick, grid.n_months, impl,
-            record)
-        self.c, self.st = _build_lane_sim(grid, device, record)
+            record, trace=self.trace)
+        self.c, self.st = _build_lane_sim(grid, device, record,
+                                          trace=self.trace)
         self.horizon = torch.tensor(float(grid.horizon), dtype=torch.float32,
                                     device=device)
         self.t = 0
@@ -599,6 +672,8 @@ class TickLoop:
 
     def _advance(self, n: int) -> None:
         if not self.use_graph:
+            if n:
+                self._setup_done()
             for _ in range(n):
                 self.tick_fn(self.st, self.c)
             return
@@ -609,10 +684,41 @@ class TickLoop:
         if replays:
             if self._graph is None:
                 self._capture()
-            for _ in range(replays):
-                self._graph.replay()
-            for lib, per_tick in zip(_TICK_LIBS, self._per_tick):
+            self._setup_done()
+            self._replay(replays)
+            for lib, per_tick in zip(self._libs(), self._per_tick):
                 lib.add_launch_counts(per_tick, replays)
+
+    def _libs(self) -> tuple:
+        """The kernel libraries this loop's tick launches."""
+        return _TICK_LIBS + ((_trace_lib(),) if self.trace else ())
+
+    def _setup_done(self) -> None:
+        """At the first replay's launch (the first tick's, uncaptured):
+        record the ``tick.setup`` span and zero the stamps."""
+        if self._built_ns is None:
+            return
+        if self.trace:
+            _trace_lib().restart(self.st)
+        get_tracer().record_span("tick.setup", self._built_ns,
+                                 time.perf_counter_ns(), lanes=self.n_lanes,
+                                 graph=self.use_graph)
+        self._built_ns = None
+
+    def _replay(self, n: int) -> None:
+        """``n`` replays of the captured tick, in a ``tick.replays`` span
+        that keeps each one's host launch time while the tracer is on."""
+        launch_ns: List[int] = []
+        with get_tracer().span("tick.replays", replays=n,
+                               launch_ns=launch_ns) as t0:
+            if t0 is None:
+                for _ in range(n):
+                    self._graph.replay()
+                return
+            base = t0 // 1000 * 1000  # the span's ts, in ns
+            for _ in range(n):
+                launch_ns.append(time.perf_counter_ns() - base)
+                self._graph.replay()
 
     def _warm_up(self, n: int) -> None:
         cur = torch.cuda.current_stream(self.device)
@@ -627,7 +733,7 @@ class TickLoop:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before = [lib.launch_counts() for lib in _TICK_LIBS]
+        before = [lib.launch_counts() for lib in self._libs()]
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -636,16 +742,23 @@ class TickLoop:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._per_tick = [{k: v - was[k]
                            for k, v in lib.launch_counts().items()}
-                          for lib, was in zip(_TICK_LIBS, before)]
-        for lib, per_tick in zip(_TICK_LIBS, self._per_tick):
+                          for lib, was in zip(self._libs(), before)]
+        for lib, per_tick in zip(self._libs(), self._per_tick):
             lib.add_launch_counts(per_tick, -1)  # capture launched nothing
         self._graph = graph
 
     def result(self) -> Dict[str, np.ndarray]:
-        """The raw per-lane aggregates of the ticks run so far (numpy)."""
+        """The raw per-lane aggregates of the ticks run so far (numpy); a
+        traced loop also records its stamps and counts (one read of each)
+        as a ``sweep.torch.tick`` instant."""
         with self._current():
             out = self.post_fn(self.st, self.c, self.horizon)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            if self.trace:
+                get_tracer().instant("sweep.torch.tick", lanes=self.n_lanes,
+                                     **_trace_lib().summary(self.st,
+                                                            self.device))
+            return out
 
     def close(self) -> None:
         """Release the captured graph, and with it its private memory pool,
@@ -1114,6 +1227,7 @@ def _simulate_packed_jobs(grid: PackedGrid, *, impl: TickImpl,
     return out, registry, set(range(L)) - done_lanes, loops
 
 
+@traced_call
 def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
                     tick_impl: str = "auto", device=None,
                     progress: Optional[Callable] = None,
@@ -1151,11 +1265,15 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     the lanes over the lane mesh of the local devices
     (:func:`simulate_packed`), each chunk job sharded on the job path.
 
-    Telemetry: spans ``pack_specs`` and ``simulate_packed``, then one
+    Telemetry: spans ``pack_specs`` and ``simulate_packed`` (in it each
+    loop's ``tick.setup`` and ``tick.replays``, and a traced loop's
+    ``sweep.torch.tick`` instant, :class:`TickLoop`), then one
     ``sweep.torch`` instant event with the call's specs, lanes, ticks,
     chunks and seconds (``pack_s``, ``capture_s`` and ``pool_bytes`` of
     the graph captures in this process — summed and the largest — and
-    ``sweep_s`` for the whole call); the registry counts
+    ``sweep_s`` for the whole call), then ``billing`` around the results'
+    bills; all under one root a call (``obs.trace.traced_call``). The
+    registry counts
     ``sweep.torch.runs`` and ``sweep.torch.lanes`` and observes
     ``sweep.torch.pack_s`` and ``sweep.torch.wall_s``."""
     from repro_torch.sim.faults import as_faults
@@ -1212,14 +1330,15 @@ def run_sweep_torch(specs: Sequence[ScenarioSpec], tick: float = 10.0,
     ok_sis = [si for si in range(grid.n_specs)
               if int(grid.lane_of[si]) not in missing]
     results: List[ScenarioResult] = []
-    for si in ok_sis:
-        r = _lane_result(grid, out, si, wall / max(len(ok_sis), 1))
-        if record is not None:
-            r.series = {name: ts.summary() for name, ts in
-                        series_from_capture(grid, out, si,
-                                            record_series).items()}
-        results.append(r)
-        if progress is not None:
-            progress(len(results), len(ok_sis), r)
+    with tracer.span("billing", specs=len(ok_sis)):
+        for si in ok_sis:
+            r = _lane_result(grid, out, si, wall / max(len(ok_sis), 1))
+            if record is not None:
+                r.series = {name: ts.summary() for name, ts in
+                            series_from_capture(grid, out, si,
+                                                record_series).items()}
+            results.append(r)
+            if progress is not None:
+                progress(len(results), len(ok_sis), r)
     return SweepResult(results=results, wall_s=wall, lanes_simulated=lanes,
                        failures=registry.failures() if registry else [])

@@ -231,3 +231,193 @@ def test_tick_keeps_every_state_tensor_at_its_address():
         loop.advance(1)
     with pytest.raises(ValueError, match="cuda"):
         TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=True)
+
+
+# ------------------------------------------------------- the traced tick
+def _trace_grid():
+    """Two lanes with a small disk cache: files wait for the disk window,
+    links are busy, a few files migrate to the cold tier."""
+    return pack_specs([
+        ScenarioSpec(base="III", cache_tb=2.0, seed=1, **QUICK),
+        ScenarioSpec(base="III", cache_tb=3.0, gcs_limit_tb=5.0, seed=3,
+                     **QUICK),
+    ], tick=10.0)
+
+
+@pytest.fixture
+def tracer():
+    from repro_torch.obs.trace import get_tracer
+
+    t = get_tracer()
+    t.reset()
+    t.enable()
+    try:
+        yield t
+    finally:
+        t.disable()
+        t.reset()
+
+
+def _tick_instants(tracer):
+    return [e["args"] for e in tracer.events
+            if e["name"] == "sweep.torch.tick"]
+
+
+def test_traced_tick_results_bitwise_to_untraced(tracer):
+    """The plain tick with the tracer on gives every output bitwise as with
+    it off, and its loop records one ``sweep.torch.tick`` instant with
+    every segment and count, on the host clock."""
+    from repro_torch.kernels import trace_tick
+
+    grid = _trace_grid()
+    tracer.disable()
+    off = simulate_packed(grid, tick_impl="torch", device="cpu")
+    tracer.enable()
+    on = simulate_packed(grid, tick_impl="torch", device="cpu")
+    assert set(on) == set(off)
+    for key, want in off.items():
+        assert on[key].dtype == want.dtype
+        np.testing.assert_array_equal(on[key], want, err_msg=key)
+    (tick,) = _tick_instants(tracer)
+    assert tick["clock"] == "perf_counter" and tick["lanes"] == 2
+    assert tick["ticks"] == grid.n_ticks
+    assert set(tick["segments"]) == set(trace_tick.SEGMENTS) - {"replay_gap"}
+    assert set(tick["counts"]) == set(trace_tick.COUNTS) - {"ticks"}
+    assert tick["lane_ticks"] == 2 * len(range(0, grid.n_ticks,
+                                                trace_tick.COUNT_STRIDE))
+    assert sorted(sum(trace_tick.LAYERS.values(), ())) == \
+        sorted(trace_tick.SEGMENTS)
+
+
+def test_untraced_loop_holds_no_trace_state_and_loads_no_trace_library():
+    """With the tracer off a loop's state holds no trace tensor, its tick
+    launches nothing of the trace library, and the library's module is
+    never imported (a fresh process)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.core.scenarios import ScenarioSpec, pack_specs\n"
+        "from repro_torch.kernels.registry import resolve_tick_impl\n"
+        "from repro_torch.sim.batched import TickLoop\n"
+        "grid = pack_specs([ScenarioSpec(base='III', days=0.01, "
+        "n_files=300)], tick=60.0)\n"
+        "cpu = torch.device('cpu')\n"
+        "loop = TickLoop(grid, resolve_tick_impl('torch', cpu), cpu, "
+        "graph=False)\n"
+        "loop.advance(grid.n_ticks)\n"
+        "loop.result()\n"
+        "print(loop.trace, sorted(k for k in loop.st if 'trace' in k), "
+        "any(m.startswith('repro_torch.kernels.trace_tick') "
+        "for m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(src)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "[]", "False"]
+
+
+def test_trace_counts_equal_the_series_capture_sums(tracer):
+    """The counter's waiting files and active transfers, a lane, equal the
+    series capture's sums over the same sampled ticks
+    (``record_series=COUNT_STRIDE``: ``ser_queue`` and ``ser_link``), and
+    it counts those ticks only."""
+    from repro_torch.kernels.trace_tick import COUNT_STRIDE
+
+    grid = _trace_grid()
+    cpu = torch.device("cpu")
+    loop = TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=False,
+                    record=(COUNT_STRIDE,
+                            (grid.n_ticks - 1) // COUNT_STRIDE + 1))
+    loop.advance(grid.n_ticks)
+    out = loop.result()
+    counts = loop.st["trace_counts"].numpy()
+    n_samples = (grid.n_ticks - 1) // COUNT_STRIDE + 1
+    np.testing.assert_array_equal(counts[:, 5], n_samples)
+    np.testing.assert_array_equal(
+        counts[:, 3], out["ser_queue"].sum((1, 2)).astype(np.int64))
+    np.testing.assert_array_equal(
+        counts[:, 2], out["ser_link"].sum((1, 2, 3)).astype(np.int64))
+    assert counts[:, 3].sum() > 0 and counts[:, 2].sum() > 0
+
+
+def test_trace_gcs_candidates_equal_a_recount(tracer, monkeypatch):
+    """The counter's GCS candidates and admitted migrations, a lane, equal
+    a recount of the planes the tick hands the GCS admission
+    (``want_mig``) and takes back from it, at the counted ticks."""
+    from repro_torch.kernels.lane_tick import ref as lt_ref
+    from repro_torch.kernels.tick_glue import ref as glue_ref
+    from repro_torch.kernels.trace_tick import COUNT_STRIDE
+
+    grid = _trace_grid()
+    want_n = np.zeros(grid.n_lanes, np.int64)
+    mig_n = np.zeros(grid.n_lanes, np.int64)
+    counted = {}
+    complete, gcs_admit = glue_ref.complete, lt_ref.gcs_admit
+
+    def recount_complete(st, *args):
+        want, occ3 = complete(st, *args)
+        counted["now"] = int(st["tick"]) % COUNT_STRIDE == 0
+        if counted["now"]:
+            want_n[:] += want.sum((1, 2)).numpy()
+        return want, occ3
+
+    def recount_admit(*args):
+        out = gcs_admit(*args)
+        if counted["now"]:
+            mig_n[:] += out[0].sum((1, 2)).numpy()
+        return out
+
+    monkeypatch.setattr(glue_ref, "complete", recount_complete)
+    monkeypatch.setattr(lt_ref, "gcs_admit", recount_admit)
+    cpu = torch.device("cpu")
+    loop = TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=False)
+    loop.advance(grid.n_ticks)
+    counts = loop.st["trace_counts"].numpy()
+    np.testing.assert_array_equal(counts[:, 0], want_n)
+    np.testing.assert_array_equal(counts[:, 1], mig_n)
+    assert want_n.sum() > 0
+
+
+def test_trace_segments_sum_to_the_stamped_tick(tracer, monkeypatch):
+    """On a clock that steps by known amounts: every segment is booked once
+    a tick, non-negative, the segments of a tick sum to its stamped wall
+    (first stamp to last), each maximum is the largest of its ticks, and
+    ``replay_gap`` books the time between ticks, one fewer."""
+    from repro_torch.kernels import trace_tick
+    from repro_torch.kernels.trace_tick import ref as trace_ref
+
+    rng = np.random.default_rng(0)
+    stamps = []
+
+    def clock():
+        stamps.append((stamps[-1] if stamps else 10 ** 9)
+                      + int(rng.integers(1, 1000)))
+        return stamps[-1]
+
+    monkeypatch.setattr(trace_ref, "clock_ns", clock)
+    grid = _trace_grid()
+    cpu = torch.device("cpu")
+    loop = TickLoop(grid, resolve_tick_impl("torch", cpu), cpu, graph=False)
+    loop.advance(grid.n_ticks)
+    loop.result()
+    (tick,) = _tick_instants(tracer)
+    n_seg = len(trace_tick.SEGMENTS)
+    per_tick = np.array(stamps).reshape(grid.n_ticks, n_seg)
+    walls = per_tick[:, -1] - per_tick[:, 0]
+    assert sum(s["sum_ns"] for s in tick["segments"].values()) == walls.sum()
+    for i, name in enumerate(trace_tick.SEGMENTS[1:], start=1):
+        d = per_tick[:, i] - per_tick[:, i - 1]
+        assert tick["segments"][name] == {"sum_ns": int(d.sum()),
+                                          "max_ns": int(d.max())}, name
+        assert d.min() >= 0
+    gaps = per_tick[1:, 0] - per_tick[:-1, -1]
+    assert tick["replay_gap"] == {"sum_ns": int(gaps.sum()),
+                                  "max_ns": int(gaps.max()),
+                                  "n": grid.n_ticks - 1}
+    assert tick["ticks"] == grid.n_ticks

@@ -20,9 +20,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.lane_tick import ops as lt_ops
 from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.tick_glue import ops as tg_ops
+from repro_torch.kernels.trace_tick import ops as trk_ops
 
 LIBS = (lt_ops._LIB, cu_ops._LIB, fa_ops._WGMMA, fa_ops._TF32X3,
-        ms_ops._LIB, tg_ops._LIB)
+        ms_ops._LIB, tg_ops._LIB, trk_ops._LIB)
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
             "float": ctypes.c_float, "const char*": ctypes.c_char_p}
@@ -105,6 +106,37 @@ def test_glue_scratch_and_wait_select_entry_points_are_declared():
     for fn in ("tg_wait_select", "tg_complete_scratch", "tg_wait_scratch",
                "tg_complete", "tg_work_ints"):
         assert tg_ops._SIGNATURES[fn] == entry[fn]
+
+
+def test_trace_entry_points_are_declared():
+    """The tick trace's two C entry points: the stamp (the accumulator and
+    its row), and the counter (the tick counter, the stride as a 64-bit
+    int, the two flag planes, the sizes with the blocks a lane after F,
+    the five count sources, the counts), the stream last."""
+    entry = c_entry_points(_build.SOURCES["trace_tick"])
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert entry["trk_stamp"] == ([P, I, P], I)
+    assert entry["trk_count"] == ([P, LL, P, P, I, I, LL, I] + [P] * 7, I)
+    for fn in ("trk_stamp", "trk_count"):
+        assert trk_ops._SIGNATURES[fn] == entry[fn]
+
+
+def test_build_adds_the_libraries_built_with_a_library(monkeypatch,
+                                                      tmp_path):
+    """Building a tick library builds the tick's tracing with it, once,
+    whichever of the two names it: ``build`` expands its names through
+    ``BUILT_WITH`` (here every library is already built, so nothing is
+    compiled)."""
+    def built(name):
+        path = tmp_path / f"{name}.so"
+        path.touch()
+        return path
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "library_path", built)
+    assert _build.build(["lane_tick", "tick_glue"]) == {
+        "lane_tick": 0.0, "tick_glue": 0.0, "trace_tick": 0.0}
+    assert set(_build.build(["mamba_scan"])) == {"mamba_scan"}
 
 
 def test_engine_entry_points_are_declared():

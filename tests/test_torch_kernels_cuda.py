@@ -48,7 +48,12 @@ bitwise (their backward is the plain version's, recomputed), an entry
 without a backward refuses inputs that require grad, and one step of
 three smoke configs in float32 with remat matches the plain route (loss
 rtol 1e-4, each gradient leaf's relative L2 within 1e-3) with each
-kernel launched twice a layer.
+kernel launched twice a layer. The tick's tracing: a traced captured
+tick launches the untraced tick's lane-tick and glue kernels and the
+trace library's stamps and count only (nothing of it untraced), its
+counts equal the eager kernel tick's and the plain tick's exactly, its
+stamps cover the replayed ticks, and the count kernel equals the plain
+count in 16-byte and byte loads.
 """
 
 import numpy as np
@@ -1689,3 +1694,166 @@ def test_cuda_sharded_sweep_bitwise_to_unsharded(cuda_device):
         for a, b in zip(got.results, want.results):
             assert a.spec == b.spec and a.metrics == b.metrics, kw
             assert a.cost_usd == b.cost_usd, kw
+
+
+# ------------------------------------------------ the tick's tracing
+def _unlimited_grid():
+    """Three Config III lanes with a small disk and unlimited GCS: files
+    wait, links are busy, files migrate, and no GCS admission sits at a
+    capacity tie, so the kernels' tick and the plain one agree exactly."""
+    from repro_torch.core.scenarios import ScenarioSpec, pack_specs
+
+    return pack_specs([ScenarioSpec(base="III", cache_tb=1.0 + 2.0 * i,
+                                    seed=i, days=0.1, n_files=2000)
+                       for i in range(3)], tick=10.0)
+
+
+def _traced_loop(grid, device, tick_impl, graph):
+    """A loop built with the tracer on, run to its end and read: the loop
+    and its ``sweep.torch.tick`` instant."""
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.obs.trace import get_tracer
+    from repro_torch.sim.batched import TickLoop
+
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable()
+    try:
+        loop = TickLoop(grid, resolve_tick_impl(tick_impl, device), device,
+                        graph=graph)
+        loop.advance(grid.n_ticks)
+        loop.result()
+        (tick,) = [e["args"] for e in tracer.events
+                   if e["name"] == "sweep.torch.tick"]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    return loop, tick
+
+
+@pytest.mark.cuda
+def test_cuda_traced_tick_launches_the_untraced_ticks_kernels(cuda_device):
+    """The captured tick's lane-tick and glue launches are the same traced
+    and untraced; untraced it launches nothing of the trace library,
+    traced one stamp a segment and one count a tick, replays included."""
+    from repro_torch.kernels import trace_tick
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop
+
+    grid = _small_grid()
+    trace_tick.reset_launch_counts()
+    loop = TickLoop(grid, resolve_tick_impl("cuda", cuda_device), cuda_device,
+                    graph=True)
+    loop.advance(grid.n_ticks)
+    loop.result()
+    assert not loop.trace and "trace_acc" not in loop.st
+    untraced = loop._per_tick
+    loop.close()
+    assert trace_tick.launch_counts() == {k: 0 for k in trace_tick.KERNELS}
+    loop, tick = _traced_loop(grid, cuda_device, "cuda", graph=True)
+    assert loop._per_tick[:2] == untraced
+    assert loop._per_tick[2] == {"trace_stamp": len(trace_tick.SEGMENTS),
+                                 "trace_count": 1}
+    assert trace_tick.launch_counts() == {
+        "trace_stamp": len(trace_tick.SEGMENTS) * grid.n_ticks,
+        "trace_count": grid.n_ticks}
+    loop.close()
+
+
+@pytest.mark.cuda
+def test_cuda_trace_of_a_replayed_loop_matches_the_plain_path(cuda_device):
+    """A replayed traced loop's counts equal the eager kernel tick's and
+    the plain tick's on the CPU, lane by lane; its stamps read the card's
+    clock over the replayed ticks only: every segment booked once a
+    replayed tick, sums and maxima consistent, one gap fewer."""
+    from repro_torch.kernels import trace_tick
+    from repro_torch.sim.batched import GRAPH_WARMUP_TICKS
+
+    grid = _unlimited_grid()
+    replayed, tick = _traced_loop(grid, cuda_device, "cuda", graph=True)
+    eager, _ = _traced_loop(grid, cuda_device, "cuda", graph=False)
+    plain, plain_tick = _traced_loop(grid, torch.device("cpu"), "torch",
+                                     graph=False)
+    counts = replayed.st["trace_counts"].cpu()
+    assert torch.equal(counts, eager.st["trace_counts"].cpu())
+    assert torch.equal(counts, plain.st["trace_counts"])
+    assert counts[:, 3].sum() > 0 and counts[:, 2].sum() > 0
+    assert tick["counts"] == plain_tick["counts"]
+    assert tick["clock"] == "globaltimer"
+    n = grid.n_ticks - GRAPH_WARMUP_TICKS
+    assert tick["ticks"] == n and tick["replay_gap"]["n"] == n - 1
+    for name, seg in tick["segments"].items():
+        assert 0 < seg["sum_ns"] and seg["max_ns"] * n >= seg["sum_ns"], name
+        assert seg["max_ns"] <= seg["sum_ns"], name
+    for loop in (replayed, eager, plain):
+        loop.close()
+
+
+@pytest.mark.cuda
+def test_cuda_traced_plain_tick_runs_on_the_card(cuda_device):
+    """The plain tick on the card, traced: its glue keeps no counts in a
+    work buffer, so it counts with the plain count and stamps on the
+    card's clock. Its results are bitwise the untraced plain tick's on
+    the card, its counts the plain tick's on the CPU."""
+    from repro_torch.kernels.registry import resolve_tick_impl
+    from repro_torch.sim.batched import TickLoop
+
+    grid = _unlimited_grid()
+    traced, tick = _traced_loop(grid, cuda_device, "torch", graph=False)
+    cpu, cpu_tick = _traced_loop(grid, torch.device("cpu"), "torch",
+                                 graph=False)
+    untraced = TickLoop(grid, resolve_tick_impl("torch", cuda_device),
+                        cuda_device, graph=False)
+    untraced.advance(grid.n_ticks)
+    want = untraced.result()
+    got = traced.result()
+    assert set(got) == set(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    assert tick["clock"] == "globaltimer" and tick["ticks"] == grid.n_ticks
+    assert tick["counts"] == cpu_tick["counts"]
+    assert tick["lane_ticks"] == cpu_tick["lane_ticks"] > 0
+    for loop in (traced, cpu, untraced):
+        loop.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4096, 1001])
+def test_cuda_trace_count_kernel_matches_plain(cuda_device, F):
+    """The counter kernel against the plain count on random planes, in
+    16-byte loads (F a multiple of 16) and byte loads: a counted tick adds
+    each lane's counts (the admitted migrations from the glue's ``work``
+    rows), the next tick adds nothing."""
+    from repro_torch.kernels.tick_glue import ops as glue
+    from repro_torch.kernels.trace_tick import ops as trk
+    from repro_torch.kernels.trace_tick import ref as trk_ref
+
+    g = torch.Generator().manual_seed(F)
+    L, S = 3, 2
+    want = torch.rand((L, S, F), generator=g) < 0.1
+    wait = torch.rand((L, S, F), generator=g) < 0.3
+    mig = want & (torch.rand((L, S, F), generator=g) < 0.5)
+    occ3 = torch.randint(0, 40, (L, S, 3), generator=g).to(torch.float32)
+    lq_serve = torch.randint(0, 100, (L, 3 * S), generator=g,
+                             dtype=torch.int32)
+    lq_next = lq_serve + torch.randint(0, 9, (L, 3 * S), generator=g,
+                                       dtype=torch.int32)
+    work = torch.zeros((glue._LIB.get().tg_work_ints(L, S),),
+                       dtype=torch.int32)
+    n_direct, n_queued = glue.migration_counts(work, L, S)
+    per_row = mig.sum(-1).view(-1).to(torch.int32)
+    n_direct.copy_(per_row // 3)
+    n_queued.copy_(per_row - per_row // 3)
+    want_counts = torch.zeros((L, len(trk.COUNTS)), dtype=torch.int64)
+    got = want_counts.to(cuda_device)
+    dev = [t.to(cuda_device) for t in (want, mig, occ3, lq_next, lq_serve,
+                                       wait)]
+    for tick in (1, 2, 1 + trk.COUNT_STRIDE):
+        t = torch.tensor([tick], dtype=torch.int64)
+        trk_ref.count(want_counts, t, want, mig, occ3, lq_next, lq_serve,
+                      wait)
+        trk.count(got, t.to(cuda_device), *dev, work.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want_counts), tick
+    assert want_counts[:, 5].tolist() == [2] * L
+    assert want_counts[:, 0].sum() > 0

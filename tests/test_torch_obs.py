@@ -100,19 +100,96 @@ def test_tracer_spans_instants_and_export(tmp_path):
             raise RuntimeError("x")
     t.instant("mark", k=2)
     names = [e["name"] for e in t.events]
-    assert names == ["inner", "outer", "boom", "mark"]
+    assert names == ["obs.clock", "inner", "outer", "boom", "mark"]
     ev = {e["name"]: e for e in t.events}
     assert ev["outer"]["ph"] == "X" and ev["outer"]["args"] == \
-        {"n": 1, "run_id": "abc"}
+        {"n": 1, "run_id": "abc", "id": ev["outer"]["args"]["id"],
+         "parent": None, "root": ev["outer"]["args"]["id"]}
     assert ev["boom"]["args"]["error"] is True
     assert ev["mark"]["ph"] == "i" and ev["mark"]["args"]["k"] == 2
     path = tmp_path / "trace.json"
     t.dump(str(path))
     doc = json.loads(path.read_text())
-    assert len(doc["traceEvents"]) == 4
+    assert len(doc["traceEvents"]) == 5
     assert doc["otherData"]["run_id"] == "abc"
     t.reset()
     assert t.events == []
+
+
+def test_tracer_ids_parents_and_roots():
+    """Each span has its own id and its enclosing span's as ``parent`` (per
+    thread); everything inside :meth:`Tracer.root` carries that root, else
+    its outermost span's; ``record_span`` nests like a span opened where
+    it is recorded."""
+    import threading
+
+    t = Tracer(run_id="ids")
+    t.enable()
+    with t.span("alone"):
+        t.instant("in_alone")
+    with t.root() as rid:
+        with t.span("outer"):
+            with t.span("inner") as t0:
+                t.instant("mark")
+            t.record_span("recorded", t0, t0 + 2_000_000, n=3)
+        t.instant("after")
+
+        def other():
+            with t.span("thread"):
+                pass
+
+        th = threading.Thread(target=other)
+        th.start()
+        th.join()
+    ev = {e["name"]: e["args"] for e in t.events}
+    assert ev["alone"]["parent"] is None
+    assert ev["alone"]["root"] == ev["alone"]["id"]
+    assert ev["in_alone"]["parent"] == ev["alone"]["id"]
+    assert ev["in_alone"]["root"] == ev["alone"]["id"]
+    assert ev["outer"]["parent"] is None and ev["outer"]["root"] == rid
+    assert ev["inner"]["parent"] == ev["outer"]["id"]
+    assert ev["mark"]["parent"] == ev["inner"]["id"]
+    assert ev["recorded"]["parent"] == ev["outer"]["id"]
+    assert ev["recorded"]["n"] == 3
+    recorded = [e for e in t.events if e["name"] == "recorded"][0]
+    assert recorded["ts"] == t0 // 1000 and recorded["dur"] == 2000
+    for name in ("inner", "mark", "recorded", "after"):
+        assert ev[name]["root"] == rid, name
+    assert ev["after"]["parent"] is None
+    # another thread has a stack and a root of its own
+    assert ev["thread"]["parent"] is None
+    assert ev["thread"]["root"] == ev["thread"]["id"]
+    ids = [e["args"]["id"] for e in t.events if e["ph"] == "X"]
+    assert len(set(ids)) == len(ids) and rid not in ids
+    t.disable()
+    with t.root() as none:
+        assert none is None
+
+
+def test_obs_clock_places_host_spans_on_the_profiler_clock():
+    """``obs.clock``'s offset against ``torch.profiler``: a
+    ``record_function`` range's start on the profiler's clock less its
+    start on ``perf_counter`` plus the offset, the median of several, is
+    within 100 us."""
+    import statistics
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    t = Tracer()
+    t.enable()
+    (clock,) = [e["args"] for e in t.events if e["name"] == "obs.clock"]
+    assert clock["clock"] == "time.time_ns" and clock["spread_ns"] >= 0
+    gaps = []
+    for i in range(7):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            host = time.perf_counter_ns()
+            with record_function(f"obs_clock_{i}"):
+                pass
+        (start,) = [e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.name() == f"obs_clock_{i}"]
+        gaps.append(start - (host + clock["offset_ns"]))
+    assert abs(statistics.median(gaps)) < 100_000, gaps
 
 
 def test_setup_logging_shares_the_run_id_with_the_tracer():
@@ -162,6 +239,30 @@ def test_run_sweep_torch_records_spans_instant_and_counters(traced):
     assert info["capture_s"] == 0.0 and info["pool_bytes"] == 0
     assert 0.0 < info["pack_s"] < info["sweep_s"]
     assert info["sweep_s"] == res.wall_s
+
+
+def test_run_sweep_torch_events_share_their_call_root(traced):
+    """Every span and instant of one ``run_sweep_torch`` call carries the
+    call's root, another call's another; the loop's ``tick.setup`` and
+    ``sweep.torch.tick`` sit inside ``simulate_packed``, ``billing`` after
+    it, and a loop on the CPU records no ``tick.replays``."""
+    spec = ScenarioSpec(base="III", days=0.02, n_files=300, cache_tb=5.0)
+    for _ in range(2):
+        run_sweep_torch([spec], tick=60.0, tick_impl="torch", device="cpu")
+    calls = [e for e in traced.events if e["name"] != "obs.clock"]
+    roots = [e["args"]["root"] for e in calls]
+    assert len(set(roots)) == 2 and roots[0] is not None
+    first = [e for e in calls if e["args"]["root"] == roots[0]]
+    names = [e["name"] for e in first]
+    assert names == ["pack_specs", "tick.setup", "sweep.torch.tick",
+                     "simulate_packed", "sweep.torch", "billing"]
+    ev = {e["name"]: e["args"] for e in first}
+    for name in ("tick.setup", "sweep.torch.tick"):
+        assert ev[name]["parent"] == ev["simulate_packed"]["id"], name
+    for name in ("pack_specs", "simulate_packed", "sweep.torch", "billing"):
+        assert ev[name]["parent"] is None, name
+    assert ev["billing"]["specs"] == 1
+    assert ev["tick.setup"]["graph"] is False
 
 
 def test_sweep_driver_sets_its_gauges():
